@@ -1,0 +1,199 @@
+"""Paged decode attention: a CUDA kernel for Hopper beside its plain
+PyTorch version.
+
+Replaces the Pallas TPU kernel ``paddle_tpu/kernels/paged_attention.py``
+``paged_decode_attention`` -> ``_decode_kernel``, the serving decode read
+of the paged KV pool.  The kernel is ``csrc/paged_attention.cu``: one
+block per (row, head) walks the row's page table itself, dequantizes int8
+pages right after the load, keeps the row's ``[W, n_pt*P]`` scores in
+shared memory, takes the whole-row f32 softmax (not an online rescale:
+greedy argmax stays aligned with the plain gather-then-softmax read), then
+streams the V pages for ``probs @ V``.  Only positions below
+``start + W`` are read, so bytes scale with the resident tokens.
+
+What bounds it on the H100: bytes.  About 0.5 flop per pool byte at W=1
+f32, far below the ridge; :func:`paged_cost` counts the bytes the row's
+resident tokens need.
+
+:func:`paged_decode_attention` picks the plain version for CPU tensors
+only; for CUDA tensors it launches the kernel or raises.  Every launch
+adds one to ``paged_decode_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
+           "paged_cost", "paged_smem_bytes", "MAX_SMEM_BYTES", "MAX_W"]
+
+NEG_INF = -1e30
+MAX_W = 8                    # widest query span the kernel takes (kMaxW)
+WARPS = 8                    # warps per block (kThreads / 32)
+# the most dynamic shared memory one block can opt into on Hopper
+MAX_SMEM_BYTES = 232448
+
+
+def paged_smem_bytes(W, D, P, n_pt) -> int:
+    """Shared memory one block of the kernel requests (mirrors
+    ``paged_smem_bytes`` in the CUDA source): scores ``[W, n_pt*P]``, q,
+    per-warp partial outputs and the row's page ids."""
+    return 4 * (W * n_pt * P + W * D + WARPS * W * D) + 4 * n_pt
+
+
+def _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError("q is [B, W, H, D] and the pools [NP, P, H, D]")
+    B, W, H, D = q.shape
+    if k_pages.shape != v_pages.shape or k_pages.shape[2:] != (H, D):
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != B or \
+            tuple(lengths.shape) != (B,):
+        raise ValueError("page_table is [B, n_pt] and lengths [B]")
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != \
+            (v_scale is None):
+        raise ValueError("int8 pools need k_scale/v_scale and f32 pools "
+                         f"must not pass them (pool {k_pages.dtype}, "
+                         f"k_scale={'set' if k_scale is not None else None})")
+    if quant and (k_scale.shape != k_pages.shape[:2] or
+                  v_scale.shape != v_pages.shape[:2]):
+        raise ValueError("k_scale/v_scale are [NP, P]")
+    return quant
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
+                                 k_scale=None, v_scale=None, scale=None):
+    """The plain version: gather every row's pages into a ``[B, virt, H,
+    D]`` view (sentinels clipped to a real page), dequantize, mask
+    ``col <= start + row`` with -1e30, f32 softmax, ``@ V`` — the XLA read
+    of ``paddle_tpu/models/gpt.py``'s paged branch."""
+    quant = _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+    B, W, H, D = q.shape
+    NP, P = k_pages.shape[:2]
+    n_pt = page_table.shape[1]
+    virt = n_pt * P
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    pt_safe = page_table.long().clamp(0, NP - 1)
+    k_att = k_pages[pt_safe].reshape(B, virt, H, D)
+    v_att = v_pages[pt_safe].reshape(B, virt, H, D)
+    if quant:
+        k_att = k_att.to(q.dtype) * \
+            k_scale[pt_safe].reshape(B, virt)[..., None, None].to(q.dtype)
+        v_att = v_att.to(q.dtype) * \
+            v_scale[pt_safe].reshape(B, virt)[..., None, None].to(q.dtype)
+    else:
+        k_att, v_att = k_att.to(q.dtype), v_att.to(q.dtype)
+    cols = lengths.long()[:, None] + torch.arange(W, device=q.device)[None]
+    mask = torch.arange(virt, device=q.device)[None, None, :] <= \
+        cols[:, :, None]                                   # [B, W, virt]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k_att, v_att))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale     # [B, H, W, virt]
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2)
+
+
+def paged_cost(lengths, W, H, D, P, n_pt, quant):
+    """Analytic work of one call: (flops, bytes) for the tokens each row
+    really holds — ``min(start + W, n_pt*P)`` positions for a live row,
+    none for a parked one.  Bytes: those positions' K and V (int8 pools:
+    1 byte each plus an f32 scale per position), q in and out in f32,
+    and the row's page-table entries and length."""
+    virt = n_pt * P
+    flops = 0.0
+    nbytes = 0.0
+    esize = 1 if quant else 4
+    for start in (int(x) for x in lengths):
+        nbytes += 4 * (n_pt + 1) + 2 * 4 * W * H * D
+        if start >= virt:
+            continue
+        live = min(virt, start + W)
+        flops += 4.0 * H * W * live * D
+        nbytes += 2.0 * live * H * D * esize + (2.0 * live * 4 if quant
+                                                else 0.0)
+    return flops, nbytes
+
+
+def _launch(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
+            scale, quant):
+    from . import _build
+
+    B, W, H, D = q.shape
+    NP, P = k_pages.shape[:2]
+    n_pt = page_table.shape[1]
+    if q.dtype != torch.float32:
+        raise TypeError(f"the paged kernel takes float32 q, got {q.dtype}")
+    if k_pages.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"the paged kernel takes f32 or int8 pools, got "
+                        f"{k_pages.dtype}")
+    if D not in (32, 64, 128):
+        raise ValueError(f"the paged kernel takes head size 32, 64 or 128, "
+                         f"got {D}")
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"the paged kernel takes 1 <= W <= {MAX_W}, got {W}")
+    smem = paged_smem_bytes(W, D, P, n_pt)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"W*n_pt*P = {W}*{n_pt}*{P} scores need {smem} bytes of shared "
+            f"memory per block, more than the {MAX_SMEM_BYTES} a Hopper "
+            f"block can hold")
+    tensors = [q, k_pages, v_pages, page_table, lengths] + \
+        ([k_scale, v_scale] if quant else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all operands must lie on q's device")
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    page_table = page_table.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    if quant:
+        k_scale = k_scale.float().contiguous()
+        v_scale = v_scale.float().contiguous()
+    lib = _build.library()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.paddle_paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, W, H, D, P, n_pt, NP, ctypes.c_float(scale), int(quant), stream)
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                           k_scale=None, v_scale=None, scale=None):
+    """Paged attention read for per-slot decode.
+
+    Args:
+        q: ``[B, W, H, D]`` queries at positions ``start .. start+W-1``.
+        k_pages / v_pages: ``[NP, P, H, D]`` pools, f32 or int8, already
+            holding this step's writes.
+        page_table: ``[B, n_pt]`` int32; entries ``>= NP`` are sentinels.
+        lengths: ``[B]`` int32 start positions (parked rows sit at
+            ``n_pt * P``; their output is never read).
+        k_scale / v_scale: ``[NP, P]`` f32, required iff the pools are int8.
+
+    Returns ``[B, W, H, D]``.  CPU tensors take
+    :func:`paged_decode_attention_plain`; CUDA tensors launch the kernel.
+    """
+    quant = _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                            lengths, k_scale, v_scale, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention for device {q.device}")
+    return _launch(q, k_pages, v_pages, page_table, lengths, k_scale,
+                   v_scale, float(scale), quant)
+
+
+paged_decode_attention.launches = 0
