@@ -28,16 +28,39 @@ run with a non-zero exit, and nothing is caught):
    share of the window and device time by kernel;
 7. the same serving checks with ``kv_dtype="int8"`` pools, a shorter run,
    margin 2e-2;
-8. tokens/s, p50 time to first token and peak device memory.
+8. tokens/s, p50 time to first token and peak device memory;
+9. the flash backward kernels (dk/dv and dq) against
+   ``flash_attention_bwd_plain`` in f32 and bf16, on the fused operand and
+   on separate q, k, v, causal and full, at B=4 T=128, B=4 T=1024, B=2
+   T=1100 (ragged) and Tq=64 Tk=256 (separate only), H=12 D=64; then the
+   fused forward and backward at the training shape (B=16 T=1024 bf16).
+   Each case times kernel, plain version, PyTorch's
+   ``scaled_dot_product_attention`` (forward+backward under autograd: the
+   yardstick the port never calls) and the bound, against the bf16 peak
+   (989 TFLOP/s dense, H100 SXM data sheet) for bf16 operands;
+10. attention training through ``F.scaled_dot_product_attention``
+   (separate q, k, v) at B=4 T=1024 and B=2 T=1100, bf16: one forward and
+   one launch of each backward kernel per call;
+11. train: ``gpt2-small-en`` at full width, batch 16 x 1024,
+   ``compute_dtype=torch.bfloat16`` over f32 masters, AdamW lr 1e-4 and
+   weight decay 0.01, dropout 0, random weights from a numpy seed: one
+   warm-up and 5 timed steps on one batch; exactly 12 launches a step of
+   the fused forward and of each backward kernel, none of the
+   separate-operand wrappers or of a plain version; the loss must be
+   finite and fall; then one profiled step;
+12. parity: gpt2-small-en width with 2 layers, batch 2 x 1024, f32, three
+   steps on the card against the same three steps on the CPU (plain
+   versions) from the same weights: losses within 1e-4 relative.
 
 Prints ``{"kernels": [...]}`` and the ``nvidia-smi`` line before the last
 line, which is ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
-writes every measured number as JSON, and the profiled window's chrome
-trace beside it.
+writes every measured number as JSON, and the profiled serving window's
+chrome trace beside it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -47,6 +70,7 @@ import time
 
 N_LAYERS = 12
 F32_PEAK = 67e12          # f32 FLOP/s without tensor cores, H100 SXM
+BF16_PEAK = 989e12        # dense bf16 tensor-core FLOP/s, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -54,12 +78,12 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _timed_ms(fn, iters: int) -> float:
+def _timed_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of one call: CUDA events around ``iters`` calls
-    after a warm-up."""
+    after ``warmup`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -72,8 +96,8 @@ def _timed_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BYTES_PER_S
+def _bound(flops: float, nbytes: float, peak: float = F32_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -311,20 +335,19 @@ def _teacher_forced(cpu_model, prompts, outs, margin):
     return worst
 
 
-def _profile(engine, prompts, new, trace_path):
-    """``torch.profiler`` over a short serving window: device time by
-    kernel name and the device's busy share of the window's wall time
-    (the merged intervals of the device's kernels and copies are its busy
-    time).  The chrome trace goes to ``trace_path`` when one is given."""
+def _device_profile(fn, trace_path=None, top=10):
+    """``torch.profiler`` around ``fn()``: the window's wall time, the
+    device's busy time in it (the merged intervals of the device's kernels
+    and copies) and device time by kernel name, all in ms; ``busy_share``
+    is None when the profiler saw no device activity.  The chrome trace
+    goes to ``trace_path`` when one is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    steps0 = engine.stats()["decode_steps"]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for h in [engine.submit(p, max_new_tokens=new) for p in prompts]:
-            h.result(timeout=600)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     if trace_path:
@@ -340,21 +363,38 @@ def _profile(engine, prompts, new, trace_path):
         if b > end:
             busy += b - max(a, end)
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    res = dict(window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-               decode_steps=engine.stats()["decode_steps"] - steps0,
-               device_busy_share=busy / wall_us if spans else None,
-               kernels_ms={k[:80]: v / 1e3 for k, v in top})
-    if not spans:
-        print("[profile] torch.profiler saw no device activity: device "
-              "busy share not measured")
-        return res
-    print(f"[profile] {len(prompts)} requests x {new} tokens, "
-          f"{res['decode_steps']} decode steps: window "
-          f"{res['window_ms']:.2f} ms, device busy {res['device_busy_ms']:.2f}"
-          f" ms ({100 * res['device_busy_share']:.1f}% of the window)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return dict(window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                device_busy_share=busy / wall_us if spans else None,
+                kernels_ms={k[:80]: v / 1e3 for k, v in ranked[:top]},
+                all_kernels_ms={k: v / 1e3 for k, v in ranked})
+
+
+def _print_profile(tag, what, res):
+    if res["device_busy_share"] is None:
+        print(f"[{tag}] torch.profiler saw no device activity: device busy "
+              f"share not measured")
+        return
+    print(f"[{tag}] {what}: window {res['window_ms']:.2f} ms, device busy "
+          f"{res['device_busy_ms']:.2f} ms "
+          f"({100 * res['device_busy_share']:.1f}% of the window)")
     for k, v in res["kernels_ms"].items():
-        print(f"[profile]   {v:10.3f} ms  {k}")
+        print(f"[{tag}]   {v:10.3f} ms  {k}")
+
+
+def _profile(engine, prompts, new, trace_path):
+    """A short serving window under :func:`_device_profile`."""
+    steps0 = engine.stats()["decode_steps"]
+
+    def window():
+        for h in [engine.submit(p, max_new_tokens=new) for p in prompts]:
+            h.result(timeout=600)
+
+    res = _device_profile(window, trace_path)
+    res.pop("all_kernels_ms")
+    res["decode_steps"] = engine.stats()["decode_steps"] - steps0
+    _print_profile("profile", f"{len(prompts)} requests x {new} tokens, "
+                   f"{res['decode_steps']} decode steps", res)
     return res
 
 
@@ -443,6 +483,352 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
     return res
 
 
+_PLAIN = ("flash_attention_plain", "flash_attention_bwd_plain",
+          "flash_attention_qkv_fused_plain",
+          "flash_attention_qkv_fused_bwd_plain")
+
+
+@contextlib.contextmanager
+def _no_plain():
+    """Any call of a flash plain version inside raises: the path under
+    test must launch the kernels."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    saved = {n: getattr(fa, n) for n in _PLAIN}
+
+    def tripwire(name):
+        def call(*args, **kwargs):
+            raise RuntimeError(f"{name} ran on a path that must launch the "
+                               f"CUDA kernels")
+        return call
+
+    for n in _PLAIN:
+        setattr(fa, n, tripwire(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(fa, n, fn)
+
+
+def _attention_counters(zero=False):
+    """The flash launch counters (set to 0 first with ``zero``)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    slots = [(fa.flash_attention_bthd, "launches", "fwd"),
+             (fa.flash_attention_qkv_fused, "launches", "fused_fwd"),
+             (fa.flash_attention_bwd, "launches_dkv", "bwd_dkv"),
+             (fa.flash_attention_bwd, "launches_dq", "bwd_dq"),
+             (fa.flash_attention_qkv_fused_bwd, "launches_dkv",
+              "fused_bwd_dkv"),
+             (fa.flash_attention_qkv_fused_bwd, "launches_dq",
+              "fused_bwd_dq")]
+    if zero:
+        for fn, attr, _ in slots:
+            setattr(fn, attr, 0)
+    return {key: getattr(fn, attr) for fn, attr, key in slots}
+
+
+def _max_err(got, want, dtype, what):
+    """Largest |got - want| over the tensors; fails past the dtype's
+    tolerance (f32: 1e-4 + 1e-4|want|; bf16: 1e-2 + 1e-2|want|, about one
+    bf16 rounding of the result)."""
+    import torch
+
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    err = 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        if not bool((d <= tol + tol * w.float().abs()).all()):
+            _fail(f"{what}: max abs err {float(d.max())} past {tol} + "
+                  f"{tol}|ref|")
+        err = max(err, float(d.max()))
+    return err
+
+
+def _split_ms(fn, calls=3):
+    """Device ms per call of each flash backward kernel in ``fn``, from
+    ``torch.profiler``."""
+    res = _device_profile(lambda: [fn() for _ in range(calls)])
+    out = {"dkv": 0.0, "dq": 0.0}
+    for name, ms in res["all_kernels_ms"].items():
+        for part in out:
+            if f"flash_bwd_{part}_kernel" in name:
+                out[part] += ms / calls
+    return out
+
+
+def _bwd_case(dev, gen, dtype, B, tq, tk, fused, causal, H=12, D=64,
+              iters=10, plain_iters=3, split=False):
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    scale = 1.0 / D ** 0.5
+    if fused:
+        qkv = torch.randn(B, tq, H, 3, D, device=dev, generator=gen).to(dtype)
+        q, k, v = qkv.unbind(3)
+        out, lse = fa._fused_fwd(qkv, causal, scale)
+        do = torch.randn(B, tq, H * D, device=dev, generator=gen).to(dtype)
+
+        def kern():
+            return fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do, causal)
+
+        def plain():
+            return fa.flash_attention_qkv_fused_bwd_plain(qkv, out, lse, do,
+                                                          causal)
+    else:
+        q, k, v = (torch.randn(B, t, H, D, device=dev, generator=gen)
+                   .to(dtype) for t in (tq, tk, tk))
+        out, lse = fa.flash_attention_bthd(q, k, v, causal, return_lse=True)
+        do = torch.randn(B, tq, H, D, device=dev, generator=gen).to(dtype)
+
+        def kern():
+            return fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+
+        def plain():
+            return fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    if fused:
+        got, want = got.unbind(3), want.unbind(3)
+    name = (f"B={B} Tq={tq} Tk={tk} H={H} D={D} "
+            f"{'bf16' if dtype == torch.bfloat16 else 'f32'} "
+            f"{'fused' if fused else 'separate'} "
+            f"{'causal' if causal else 'full'}")
+    err = _max_err(got, want, dtype, f"flash backward {name}")
+    del got, want
+    ms = _timed_ms(kern, iters)
+    plain_ms = _timed_ms(plain, plain_iters, warmup=0)
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    doh = do.reshape(B, tq, H, D).transpose(1, 2).contiguous()
+    mask = None
+    if causal and tq != tk:   # SDPA's is_causal aligns top-left
+        mask = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(tk - tq)
+
+    def library():
+        o = tF.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
+        return torch.autograd.grad(o, (qh, kh, vh), doh)
+
+    lib_ms = _timed_ms(library, iters)
+    item = 2 if dtype == torch.bfloat16 else 4
+    peak = BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK
+    bound_ms, bound_by = _bound(
+        *fa.flash_bwd_cost(B, tq, tk, H, D, causal, itemsize=item), peak)
+    row = dict(B=B, Tq=tq, Tk=tk, H=H, D=D, dtype=str(dtype).split(".")[1],
+               fused=fused, causal=causal, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    parts = ""
+    if split:
+        row["kernel_ms"] = _split_ms(kern)
+        for part in ("dq", "dkv"):
+            row[f"bound_{part}"] = _bound(*fa.flash_bwd_cost(
+                B, tq, tk, H, D, causal, itemsize=item, part=part), peak)
+        parts = (f" (dk/dv {row['kernel_ms']['dkv']:.4f}, dq "
+                 f"{row['kernel_ms']['dq']:.4f})")
+    print(f"[flash-bwd] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms"
+          f"{parts}, plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def _fused_fwd_case(dev, gen, B=16, T=1024, H=12, D=64):
+    """The fused forward at the training step's shape, bf16."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    qkv = torch.randn(B, T, H, 3, D, device=dev, generator=gen).to(
+        torch.bfloat16)
+    out, lse = fa._fused_fwd(qkv, True, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_qkv_fused_plain(qkv, True,
+                                                      return_lse=True)
+    err = max(_max_err([out], [ref], torch.bfloat16, "fused forward"),
+              _max_err([lse], [ref_lse], torch.float32, "fused forward lse"))
+    del ref, ref_lse
+    ms = _timed_ms(lambda: fa.flash_attention_qkv_fused(qkv), 20)
+    plain_ms = _timed_ms(lambda: fa.flash_attention_qkv_fused_plain(qkv),
+                         2, warmup=0)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in qkv.unbind(3))
+    lib_ms = _timed_ms(lambda: tF.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), 20)
+    bound_ms, bound_by = _bound(*fa.flash_cost(B, T, T, H, D, True,
+                                               itemsize=2), BF16_PEAK)
+    print(f"[flash-fused-fwd] B={B} T={T} H={H} D={D} bf16 causal: "
+          f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(B=B, Tq=T, Tk=T, H=H, D=D, dtype="bfloat16", fused=True,
+                causal=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_flash_bwd(dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, tq, tk in ((4, 128, 128), (4, 1024, 1024), (2, 1100, 1100),
+                          (4, 64, 256)):
+            for fused in (True, False):
+                if fused and tq != tk:
+                    continue
+                for causal in (True, False):
+                    split = (dtype == torch.bfloat16 and causal and
+                             not fused and tq == tk and tq >= 1024)
+                    rows.append(_bwd_case(dev, gen, dtype, B, tq, tk, fused,
+                                          causal, split=split))
+                    torch.cuda.empty_cache()
+    fwd = _fused_fwd_case(dev, gen)
+    # the training step's shape: the plain backward runs once, timed
+    main = _bwd_case(dev, gen, torch.bfloat16, 16, 1024, 1024, True, True,
+                     plain_iters=1, split=True)
+    torch.cuda.empty_cache()
+    return rows, fwd, main
+
+
+def phase_attention_train(dev):
+    """Attention training through the functional API on separate q, k, v
+    (``F.scaled_dot_product_attention`` under autograd), bf16: per call one
+    forward launch and one launch of each backward kernel."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = {}
+    for B, T in ((4, 1024), (2, 1100)):
+        q, k, v = (torch.randn(B, T, 12, 64, device=dev, generator=gen)
+                   .to(torch.bfloat16).requires_grad_() for _ in range(3))
+        do = torch.randn(B, T, 12, 64, device=dev, generator=gen).to(
+            torch.bfloat16)
+        _attention_counters(zero=True)
+        with _no_plain():
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 training=True)
+            out.backward(do)
+            torch.cuda.synchronize()
+        n = _attention_counters()
+        want = dict(fwd=1, fused_fwd=0, bwd_dkv=1, bwd_dq=1, fused_bwd_dkv=0,
+                    fused_bwd_dq=0)
+        if n != want:
+            _fail(f"attention training B={B} T={T}: launches {n} != {want}")
+        if not all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v)):
+            _fail(f"attention training B={B} T={T}: non-finite gradients")
+        res[T] = n
+        print(f"[attention-train] B={B} T={T} H=12 D=64 bf16 causal: "
+              f"launches {n}")
+    return res
+
+
+def _train_model(dev, seed, **overrides):
+    from paddle_tpu_torch.models import build_gpt, load_jax_state
+
+    model = build_gpt("gpt2-small-en", device=dev, hidden_dropout_prob=0.0,
+                      attention_dropout_prob=0.0, **overrides)
+    load_jax_state(model, _random_state(model, seed))
+    return model
+
+
+def _train_step(model, compute_dtype=None):
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=1e-4, parameters=model, weight_decay=0.01)
+    return make_train_step(model, opt, loss_fn=GPTPretrainingCriterion(),
+                           compute_dtype=compute_dtype)
+
+
+def phase_train(dev, seed, smi, steps=5, batch=16, seq=1024):
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import gpt_train_flops_per_token
+
+    model = _train_model(dev, seed)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
+            cfg.vocab_size) != (768, N_LAYERS, 12, 50304):
+        _fail(f"gpt2-small-en is not at full width: {cfg}")
+    step = _train_step(model, torch.bfloat16)
+    ids = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(batch, seq + 1)).astype(np.int64)
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _attention_counters(zero=True)
+    with _no_plain():
+        losses = [float(step(x, y))]               # warm-up
+        t0 = time.perf_counter()
+        outs = [step(x, y) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = _attention_counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(v) for v in outs]
+    want = dict(fwd=0, fused_fwd=N_LAYERS * (steps + 1), bwd_dkv=0, bwd_dq=0,
+                fused_bwd_dkv=N_LAYERS * (steps + 1),
+                fused_bwd_dq=N_LAYERS * (steps + 1))
+    if n != want:
+        _fail(f"train: launches {n} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        _fail(f"train: losses {losses} are not finite and falling")
+    if step.compile_count != 1:
+        _fail(f"train: {step.compile_count} step builds for one signature")
+    tokens_per_s = steps * batch * seq / wall
+    share = tokens_per_s * gpt_train_flops_per_token(cfg, seq) / BF16_PEAK
+    prof = _device_profile(lambda: step(x, y))
+    prof.pop("all_kernels_ms")
+    res = dict(batch=batch, seq=seq, steps=steps, losses=losses,
+               step_ms=1e3 * wall / steps, tokens_per_s=tokens_per_s,
+               flops_share=share, peak_memory_bytes=peak, launches=n,
+               launches_per_step={k: v // (steps + 1) for k, v in n.items()},
+               profile=prof)
+    print(f"[train] gpt2-small-en B={batch} T={seq} bf16 AdamW: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}")
+    print(f"[train] {res['step_ms']:.3f} ms a step, {tokens_per_s:.1f} "
+          f"tokens/s, flops share {100 * share:.2f}% of the 989 TFLOP/s "
+          f"dense bf16 peak (H100 SXM data sheet), peak memory {peak} bytes"
+          f", launches a step {res['launches_per_step']} on {smi}")
+    _print_profile("train-profile", "one step", prof)
+    return res
+
+
+def phase_train_parity(dev, seed, tol=1e-4):
+    """Three f32 steps of a 2-layer full-width model on the card and on
+    the CPU from the same weights: the kernels against the plain
+    versions through the whole step."""
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(seed + 1).randint(
+        0, 50304, size=(2, 1025)).astype(np.int64)
+    losses = {}
+    t0 = time.perf_counter()
+    for where in (dev, torch.device("cpu")):
+        step = _train_step(_train_model(where, seed, num_layers=2))
+        losses[where.type] = [float(step(ids[:, :-1], ids[:, 1:]))
+                              for _ in range(3)]
+    card, cpu = np.array(losses["cuda"]), np.array(losses["cpu"])
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    print(f"[parity] 2 layers, B=2 T=1024 f32: card {card.tolist()}, cpu "
+          f"{cpu.tolist()}, max rel diff {rel:.3e} (tol {tol}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= tol:
+        _fail(f"parity: card and CPU losses differ by {rel} > {tol}")
+    return dict(card=card.tolist(), cpu=cpu.tolist(), max_rel_diff=rel,
+                tol=tol)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -480,8 +866,40 @@ def main(argv=None) -> int:
         print(f"[metrics] {res['kv_dtype']}: {res['tokens_per_s']:.1f} "
               f"tokens/s, p50 TTFT {res['p50_ttft_ms']:.2f} ms, peak "
               f"memory {res['peak_memory_bytes']} bytes on {smi}")
+    # the new phases follow PR 1's: their profiler sessions (the backward's
+    # per-kernel split) must not sit before the serving phases' host timing
+    torch.cuda.empty_cache()
+    bwd, fused_fwd, fused_bwd = phase_flash_bwd(dev)
+    att = phase_attention_train(dev)
+    train = phase_train(dev, args.seed, smi)
+    torch.cuda.empty_cache()
+    parity = phase_train_parity(dev, args.seed)
     f_main = next(r for r in flash if r["Tq"] == 128 and r["causal"])
     p_main = next(r for r in paged if r["W"] == 1 and r["pool"] == "f32")
+    # kernel 2 (single tile, T <= 1024) and kernels 3, 4 (the split, T >
+    # 1024): the separate-operand backward, bf16 causal, at the shapes of
+    # the attention-training phase
+    sep_1024, sep_1100 = (next(
+        r for r in bwd if r["dtype"] == "bfloat16" and not r["fused"]
+        and r["causal"] and r["Tq"] == t) for t in (1024, 1100))
+    bwd_err = max(r["max_abs_err"] for r in bwd + [fused_bwd])
+    bwd_src = "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
+    fa_py = "paddle_tpu/kernels/flash_attention.py"
+
+    def bwd_row(name, line, launches, row, part=None):
+        bound = ((row["bound_ms"], row["bound_by"]) if part is None
+                 else row[f"bound_{part}"])
+        return dict(name=name, route="cuda", source=bwd_src,
+                    replaces=f"{fa_py}:{line}", launches=launches,
+                    max_abs_err=bwd_err,
+                    ms=row["ms"] if part is None else row["kernel_ms"][part],
+                    plain_ms=row["plain_ms"], bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=row["library_ms"],
+                    shape=f"B={row['B']} T={row['Tq']} H=12 D=64 "
+                          f"{row['dtype']} causal"
+                          f"{' fused' if row['fused'] else ''}")
+
+    n_tr, n_att = train["launches"], att
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -492,6 +910,22 @@ def main(argv=None) -> int:
              bound_ms=f_main["bound_ms"], bound_by=f_main["bound_by"],
              library_ms=f_main["library_ms"],
              shape="B=4 T=128 H=12 D=64 causal"),
+        dict(name="flash_attention_qkv_fused", route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+             replaces=f"{fa_py}:490", launches=n_tr["fused_fwd"],
+             max_abs_err=fused_fwd["max_abs_err"], ms=fused_fwd["ms"],
+             plain_ms=fused_fwd["plain_ms"], bound_ms=fused_fwd["bound_ms"],
+             bound_by=fused_fwd["bound_by"],
+             library_ms=fused_fwd["library_ms"],
+             shape="B=16 T=1024 H=12 D=64 bfloat16 causal"),
+        bwd_row("flash_attention_qkv_fused_bwd (dk/dv + dq kernels)", 534,
+                n_tr["fused_bwd_dkv"] + n_tr["fused_bwd_dq"], fused_bwd),
+        bwd_row("flash_attention_bwd (dk/dv + dq kernels)", 371,
+                n_att[1024]["bwd_dkv"] + n_att[1024]["bwd_dq"], sep_1024),
+        bwd_row("flash_bwd_dq_kernel", 402, n_att[1100]["bwd_dq"], sep_1100,
+                "dq"),
+        bwd_row("flash_bwd_dkv_kernel", 425, n_att[1100]["bwd_dkv"],
+                sep_1100, "dkv"),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:281",
@@ -505,7 +939,10 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump(dict(device=smi, torch_device=name, count=count,
                            build_s=build_s, flash=flash, paged=paged,
-                           serve=[serve, serve8], kernels=kernels,
+                           flash_bwd=bwd, fused_fwd=fused_fwd,
+                           fused_bwd=fused_bwd, serve=[serve, serve8],
+                           attention_train=att, train=train,
+                           parity=parity, kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

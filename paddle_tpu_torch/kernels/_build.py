@@ -3,6 +3,7 @@
 Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``.  No
 PyTorch header is included, so a build takes seconds, not minutes.
+``csrc/*.cuh`` headers are shared between sources and count in the hash.
 
 The build runs lazily, at the first kernel launch (never at import), into
 ``build/paddle_tpu_torch/<hash of the sources and flags>/`` under the
@@ -33,12 +34,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)   # a host array of element strides
 # C entry points and their argument types: pointers and the stream are
 # c_void_p (a bare Python int would be cut to 32 bits), ints c_int
 _SIGNATURES = {
     "paddle_flash_attention_fwd":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        [_P, _P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "paddle_flash_attention_smem_bytes": [_I],
+    "paddle_flash_attention_bwd_dkv":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _S,
+         _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "paddle_flash_attention_bwd_dq":
+        [_P, _P, _P, _P, _P, _P, _P, _S,
+         _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "paddle_paged_decode_attention":
         [_P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -86,7 +94,7 @@ def _sources() -> list[Path]:
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

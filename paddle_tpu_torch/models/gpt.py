@@ -1,12 +1,13 @@
-"""GPT for inference on the port: the counterpart of
-``paddle_tpu/models/gpt.py``.
+"""GPT on the port: the counterpart of ``paddle_tpu/models/gpt.py``.
 
 Same configurations, same module and parameter names (so a JAX state
 dict loads by name, ``models/convert.py``), same head-major fused-qkv
 column layout ``[nh, 3, hd]`` and the same cache protocol as the JAX
 model's serving path:
 
-* no cache: causal self-attention over the prompt;
+* no cache: causal self-attention through the fused flash kernel on the
+  ``[B, T, nh, 3, hd]`` projection (``F.fused_qkv_attention``, as JAX's
+  ``gpt.py:269``) — the training forward, differentiable;
 * static prefill: a 3-tuple ``(k_buf, v_buf, 0)`` whose length is the
   Python int 0 — the new keys/values land at the head of the buffers and
   the prompt attends causally through the flash kernel;
@@ -16,8 +17,11 @@ model's serving path:
   The new keys/values are written into the pools in place, then read
   back through the paged decode kernel.
 
-This slice covers inference only: no dropout, no training forward, no
-growing-concat or dense per-slot caches (ROADMAP "Port queue").
+Hidden, embedding and attention dropout apply in training mode only, with
+torch's generator (the JAX draws' distribution, not their bits).
+``GPTPretrainingCriterion`` is the masked next-token loss.  Not ported
+yet: recompute, MoE, scan-layers, the fused head loss, growing-concat and
+dense per-slot caches (ROADMAP "Port queue").
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ from ..serving.kv_quant import quantize_rows
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTSelfAttention",
            "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
-           "GPTForPretraining", "build_gpt", "QKV_LAYOUT_HEAD_MAJOR"]
+           "GPTForPretraining", "GPTPretrainingCriterion", "build_gpt",
+           "gpt_num_params", "gpt_train_flops_per_token",
+           "QKV_LAYOUT_HEAD_MAJOR"]
 
 
 @dataclass
@@ -46,8 +52,8 @@ class GPTConfig:
     num_attention_heads: int = 12
     intermediate_size: int = 0  # 0 -> 4*hidden
     max_position_embeddings: int = 1024
-    hidden_dropout_prob: float = 0.1      # kept for config parity; the
-    attention_dropout_prob: float = 0.1   # inference port applies none
+    hidden_dropout_prob: float = 0.1
+    attention_dropout_prob: float = 0.1
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     activation: str = "gelu"
@@ -97,8 +103,9 @@ def gpt_config(name: str, **overrides) -> GPTConfig:
 
 
 class GPTSelfAttention(nn.Module):
-    """Causal self-attention: fused head-major qkv projection, the flash
-    kernel for prompts, the paged kernel for paged-cache reads."""
+    """Causal self-attention: fused head-major qkv projection, the fused
+    flash kernel without a cache, the flash kernel for static prefill, the
+    paged kernel for paged-cache reads."""
 
     def __init__(self, config: GPTConfig):
         super().__init__()
@@ -107,6 +114,7 @@ class GPTSelfAttention(nn.Module):
             raise ValueError(f"hidden {h} not divisible by heads {nh}")
         self.num_heads = nh
         self.head_dim = h // nh
+        self.attn_dropout_prob = config.attention_dropout_prob
         self.qkv_proj = nn.Linear(h, 3 * h)
         self.out_proj = nn.Linear(h, h)
         self.register_buffer(
@@ -116,11 +124,12 @@ class GPTSelfAttention(nn.Module):
     def forward(self, x, cache=None):
         b, t = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).view(b, t, self.num_heads, 3, self.head_dim)
-        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-        new_cache = None
         if cache is None:
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        elif len(cache) == 3:
+            return self.out_proj(F.fused_qkv_attention(
+                qkv, dropout_p=self.attn_dropout_prob, is_causal=True,
+                training=self.training))
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        if len(cache) == 3:
             k_buf, v_buf, pos0 = cache
             if not (isinstance(pos0, int) and pos0 == 0):
                 raise NotImplementedError(
@@ -141,7 +150,7 @@ class GPTSelfAttention(nn.Module):
                 f"prefill 3-tuple and the paged 4/6-tuples (ROADMAP 'Port "
                 f"queue' item 2)")
         out = self.out_proj(out.reshape(b, t, self.num_heads * self.head_dim))
-        return out if cache is None else (out, new_cache)
+        return out, new_cache
 
     @staticmethod
     def _paged(q, k, v, cache):
@@ -205,13 +214,15 @@ class GPTDecoderLayer(nn.Module):
         self.self_attn = GPTSelfAttention(config)
         self.norm2 = nn.LayerNorm(config.hidden_size, eps=eps)
         self.mlp = GPTMLP(config)
+        self.dropout1 = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout2 = nn.Dropout(config.hidden_dropout_prob)
 
     def forward(self, x, cache=None):
         y = self.self_attn(self.norm1(x), cache=cache)
         if cache is not None:
             y, new_cache = y
-        x = x + y
-        x = x + self.mlp(self.norm2(x))
+        x = x + self.dropout1(y)
+        x = x + self.dropout2(self.mlp(self.norm2(x)))
         return x if cache is None else (x, new_cache)
 
 
@@ -224,10 +235,11 @@ class GPTEmbeddings(nn.Module):
                                             config.hidden_size)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, position_ids):
-        return self.word_embeddings(input_ids) + \
-            self.position_embeddings(position_ids)
+        return self.dropout(self.word_embeddings(input_ids) +
+                            self.position_embeddings(position_ids))
 
 
 class GPTModel(nn.Module):
@@ -296,6 +308,47 @@ class GPTForPretraining(nn.Module):
     def lm_head(self, hidden_states):
         return torch.matmul(hidden_states,
                             self.gpt.embeddings.word_embeddings.weight.t())
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Masked next-token cross entropy (FleetX pretraining loss): the mean
+    of :func:`F.fused_nll_loss` over the positions, or its
+    ``loss_mask``-weighted mean.  Single device: a ``topo`` with model
+    parallelism raises (the vocab-parallel loss is ROADMAP module item
+    11)."""
+
+    def __init__(self, topo=None, ignore_index=-100):
+        super().__init__()
+        if getattr(topo, "mp_degree", 1) > 1:
+            raise NotImplementedError(
+                "model-parallel GPTPretrainingCriterion (ParallelCrossEntropy)"
+                " is ROADMAP module item 11")
+        self.ignore_index = ignore_index
+
+    def forward(self, prediction_scores, masked_lm_labels, loss_mask=None):
+        loss = F.fused_nll_loss(prediction_scores, masked_lm_labels,
+                                ignore_index=self.ignore_index)
+        loss = loss.reshape(-1).float()
+        if loss_mask is not None:
+            m = loss_mask.reshape(-1).float()
+            return (loss * m).sum() / m.sum().clamp(min=1.0)
+        return loss.mean()
+
+
+def gpt_num_params(cfg: GPTConfig) -> int:
+    h, L, V, T = (cfg.hidden_size, cfg.num_layers, cfg.vocab_size,
+                  cfg.max_position_embeddings)
+    per_layer = 4 * h * h + 4 * h + 2 * h * cfg.intermediate_size \
+        + cfg.intermediate_size + h + 4 * h  # attn + mlp + 2 LN
+    return V * h + T * h + L * per_layer + 2 * h
+
+
+def gpt_train_flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
+    """6*N + 12*L*h*s — the standard train-MFU accounting (fwd+bwd = 3x
+    fwd; fwd matmuls = 2*N per token; the 12*L*h*s attention term already
+    carries the 3x and the QK^T+AV pair)."""
+    return (6.0 * gpt_num_params(cfg) +
+            12.0 * cfg.num_layers * cfg.hidden_size * seq_len)
 
 
 def _init_weights(model: nn.Module, config: GPTConfig, seed: int):

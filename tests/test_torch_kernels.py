@@ -84,6 +84,41 @@ def test_masked_sdpa_matches_jax_ref(mask_kind):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("T", [16, 37])
+def test_fused_flash_plain_matches_jax(T):
+    """The fused forward on one [B, T, nh, 3, hd] tensor against JAX's
+    ``flash_attention_qkv_fused`` on its [B*nh, 3, T, hd] layout."""
+    B, H, D = 2, 3, 32
+    qkv = np.random.RandomState(T).randn(B, T, H, 3, D).astype(np.float32)
+    jfa.use_interpret_mode(True)
+    qkv_j = jnp.asarray(qkv.transpose(0, 2, 3, 1, 4).reshape(B * H, 3, T, D))
+    want = np.asarray(jfa.flash_attention_qkv_fused(qkv_j))
+    _, want_lse = jfa._flash_fused_fwd_impl(qkv_j, 1.0 / math.sqrt(D), True)
+    got, lse = fa.flash_attention_qkv_fused_plain(torch.from_numpy(qkv),
+                                                  return_lse=True)
+    assert got.shape == (B, T, H * D) and lse.shape == (B * H, T, 1)
+    np.testing.assert_allclose(
+        got.numpy(), want.reshape(B, H, T, D).transpose(0, 2, 1, 3)
+        .reshape(B, T, H * D), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+def test_fused_role_views_are_strided_not_copied():
+    """The kernels read q, k, v of the fused projection through strides:
+    the role views share the buffer and a unit-stride head dimension is
+    all the launch asks for; anything else raises."""
+    qkv = torch.zeros(2, 5, 3, 3, 8)
+    q, k, v = fa._split_qkv(qkv)
+    assert q.data_ptr() == qkv.data_ptr()
+    assert k.data_ptr() - q.data_ptr() == 8 * qkv.element_size()
+    st = list(fa._stride_array((q, "q"), (k, "k"), (v, "v")))
+    assert st == [5 * 3 * 3 * 8, 3 * 3 * 8, 3 * 8] * 3
+    with pytest.raises(ValueError, match="unit-stride"):
+        fa._strides(qkv[..., ::2], "q")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._kernel_dtype(q.half(), k)
+
+
 def test_flash_cpu_takes_plain_without_launch():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 8, 2, 32, 0))
     before = fa.flash_attention_bthd.launches
@@ -173,6 +208,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_build_digest_follows_sources():
     srcs = _build._sources()
     assert {s.name for s in srcs} == {"flash_attention_fwd.cu",
+                                      "flash_attention_bwd.cu",
                                       "paged_attention.cu"}
     assert _build._digest(srcs) == _build._digest(srcs)
     assert _build._digest(srcs[:1]) != _build._digest(srcs)

@@ -74,8 +74,11 @@ def _serve(engine, prompts, new=6, **kw):
 def test_greedy_tokens_match_jax_engine(models, kv_dtype, slots):
     jm, pm = models
     prompts = _prompts()
+    # every prompt is submitted before the engine thread admits any: the
+    # default queue (2 * max_slots) is 4 at two slots, so size it to hold
+    # them all on both engines
     kw = dict(max_slots=slots, max_len=64, paged_kv=True, page_size=8,
-              kv_dtype=kv_dtype)
+              kv_dtype=kv_dtype, max_queue=len(prompts))
     want, _ = _serve(JaxEngine(jm, decode_kernel="pallas", **kw), prompts)
     got, st = _serve(Engine(pm, device="cpu", **kw), prompts)
     for w, g in zip(want, got):
