@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)   # a host array of element strides
 # C entry points and their argument types: pointers and the stream are
 # c_void_p (a bare Python int would be cut to 32 bits), ints c_int
@@ -52,6 +53,15 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "paddle_paged_attention_smem_bytes": [_I, _I, _I, _I],
     "paddle_paged_attention_max_w": [],
+    "paddle_layer_norm_fwd":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "paddle_layer_norm_bwd":
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "paddle_layer_norm_bwd_reduce": [_P, _P, _I, _I, _P],
+    "paddle_layer_norm_bwd_blocks": [_I],
+    "paddle_layer_norm_max_c": [_I],
+    "paddle_ln_matmul":
+        [_P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _F, _I, _I, _I, _P],
 }
 
 

@@ -17,6 +17,15 @@ model's serving path:
   The new keys/values are written into the pools in place, then read
   back through the paged decode kernel.
 
+The LayerNorms are the port's ``nn.LayerNorm`` (``F.layer_norm``), so
+``kernels.layer_norm.enable_fused_layernorm("full" | "bwd")`` sends them
+through the fused LayerNorm kernels, in training and in the cached
+(serving) branch alike.  With ``kernels.ln_matmul.enable_ln_matmul(True)``
+the no-cache forward takes the fused pre-LN route of JAX's
+``GPTDecoderLayer``: ``norm1 -> qkv_proj`` and ``norm2 -> fc0`` each run
+as one ``F.fused_ln_linear`` (the ``ln_matmul`` kernel), and only
+``final_norm`` stays a separate LayerNorm.  Both are off by default.
+
 Hidden, embedding and attention dropout apply in training mode only, with
 torch's generator (the JAX draws' distribution, not their bits).
 ``GPTPretrainingCriterion`` is the masked next-token loss.  Not ported
@@ -33,7 +42,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels.ln_matmul import ln_matmul_enabled
 from ..kernels.paged_attention import paged_decode_attention
+from ..nn import LayerNorm
 from ..nn import functional as F
 from ..serving.kv_quant import quantize_rows
 
@@ -121,9 +132,16 @@ class GPTSelfAttention(nn.Module):
             "qkv_layout", torch.tensor(QKV_LAYOUT_HEAD_MAJOR,
                                        dtype=torch.int32))
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, pre_norm=None):
         b, t = x.shape[0], x.shape[1]
-        qkv = self.qkv_proj(x).view(b, t, self.num_heads, 3, self.head_dim)
+        if pre_norm is not None:
+            # the pre-LN fused into the qkv projection (kernels/ln_matmul.py)
+            qkv = F.fused_ln_linear(
+                x, pre_norm.weight, pre_norm.bias, self.qkv_proj.weight,
+                self.qkv_proj.bias, eps=pre_norm._epsilon)
+        else:
+            qkv = self.qkv_proj(x)
+        qkv = qkv.view(b, t, self.num_heads, 3, self.head_dim)
         if cache is None:
             return self.out_proj(F.fused_qkv_attention(
                 qkv, dropout_p=self.attn_dropout_prob, is_causal=True,
@@ -199,9 +217,15 @@ class GPTMLP(nn.Module):
         self.fc0 = nn.Linear(config.hidden_size, config.intermediate_size)
         self.fc1 = nn.Linear(config.intermediate_size, config.hidden_size)
 
-    def forward(self, x):
+    def forward(self, x, pre_norm=None):
+        if pre_norm is not None:
+            h = F.fused_ln_linear(x, pre_norm.weight, pre_norm.bias,
+                                  self.fc0.weight, self.fc0.bias,
+                                  eps=pre_norm._epsilon)
+        else:
+            h = self.fc0(x)
         # exact (erf) gelu, as jax.nn.gelu(approximate=False)
-        return self.fc1(torch.nn.functional.gelu(self.fc0(x)))
+        return self.fc1(torch.nn.functional.gelu(h))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -210,14 +234,25 @@ class GPTDecoderLayer(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         eps = config.layer_norm_epsilon
-        self.norm1 = nn.LayerNorm(config.hidden_size, eps=eps)
+        self.norm1 = LayerNorm(config.hidden_size, epsilon=eps)
         self.self_attn = GPTSelfAttention(config)
-        self.norm2 = nn.LayerNorm(config.hidden_size, eps=eps)
+        self.norm2 = LayerNorm(config.hidden_size, epsilon=eps)
         self.mlp = GPTMLP(config)
         self.dropout1 = nn.Dropout(config.hidden_dropout_prob)
         self.dropout2 = nn.Dropout(config.hidden_dropout_prob)
 
+    @staticmethod
+    def _fuse_ln_proj():
+        """Route the pre-LNs into their projections (one ``ln_matmul``
+        each) when the opt-in kernel is on.  JAX's other conditions (no
+        model parallelism, no mesh, a dense MLP) always hold in the port;
+        the caller checks that there is no cache."""
+        return ln_matmul_enabled()
+
     def forward(self, x, cache=None):
+        if cache is None and self._fuse_ln_proj():
+            x = x + self.dropout1(self.self_attn(x, pre_norm=self.norm1))
+            return x + self.dropout2(self.mlp(x, pre_norm=self.norm2))
         y = self.self_attn(self.norm1(x), cache=cache)
         if cache is not None:
             y, new_cache = y
@@ -252,8 +287,8 @@ class GPTModel(nn.Module):
         self.embeddings = GPTEmbeddings(config)
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(config) for _ in range(config.num_layers)])
-        self.final_norm = nn.LayerNorm(config.hidden_size,
-                                       eps=config.layer_norm_epsilon)
+        self.final_norm = LayerNorm(config.hidden_size,
+                                    epsilon=config.layer_norm_epsilon)
 
     def _positions(self, input_ids, caches):
         t = input_ids.shape[1]

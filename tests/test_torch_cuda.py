@@ -10,13 +10,17 @@ the plain f32 matmuls (TF32 off).  In bf16 both sides compute in f32 from
 the same bf16 operands and round the result to bf16, so they differ by
 about one bf16 rounding (2^-8 relative): rtol/atol 1e-2.  The case
 builders are shared with ``test_torch_kernels.py`` and
-``test_torch_train.py``.
+``test_torch_train.py``.  The LayerNorm kernels' dw and db are f32 sums
+over up to 1000 rows in another order than the plain version's: atol
+1e-3 there.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import layer_norm as ln
+from paddle_tpu_torch.kernels import ln_matmul as lnmm
 from paddle_tpu_torch.kernels import paged_attention as pa
 
 
@@ -229,4 +233,159 @@ def test_train_step_on_card_matches_cpu(cuda):
         n = 0 if dev == "cpu" else 6
         assert fa.flash_attention_qkv_fused.launches - fwd0 == n
         assert fa.flash_attention_qkv_fused_bwd.launches_dq - bwd0 == n
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# -- the LayerNorm kernels -----------------------------------------------------
+
+def _ln_inputs(cuda, N, C, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    x, dy = (torch.from_numpy(rs.randn(N, C).astype(np.float32))
+             .to(cuda, dtype) for _ in range(2))
+    w, b = (torch.from_numpy(rs.randn(C).astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    return x, w, b, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,C", [(8, 768), (185, 128), (1000, 768),
+                                 (300, 1024)])
+def test_layer_norm_kernels_match_plain(cuda, dtype, N, C):
+    """Ragged N (not a multiple of a block's rows), the decode rows (8),
+    C below a lane round (128 in bf16) and above the main path's."""
+    x, w, b, dy = _ln_inputs(cuda, N, C, dtype, seed=N)
+    counter = ln.layer_norm_fused
+    before = (counter.launches_fwd, counter.launches_bwd,
+              counter.launches_bwd_reduce)
+    y, mu, rs = ln.layer_norm_fwd(x, w, b, 1e-5)
+    dx, dw, db = ln.layer_norm_bwd(x, w, mu, rs, dy)
+    torch.cuda.synchronize()
+    assert (counter.launches_fwd, counter.launches_bwd,
+            counter.launches_bwd_reduce) == tuple(n + 1 for n in before)
+    y_p, mu_p, rs_p = ln.layer_norm_fwd_plain(x, w, b, 1e-5)
+    dx_p, dw_p, db_p = ln.layer_norm_bwd_plain(x, w, mu_p, rs_p, dy)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    torch.testing.assert_close(y, y_p, **_tols(dtype))
+    torch.testing.assert_close(mu, mu_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(rs, rs_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dx, dx_p, **_tols(dtype))
+    torch.testing.assert_close(dw, dw_p, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(db, db_p, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_layer_norm_backward_repeats_bitwise(cuda):
+    """No atomics: two backward runs give identical dx, dw and db."""
+    x, w, b, dy = _ln_inputs(cuda, 16384, 768, torch.bfloat16)
+    _, mu, rs = ln.layer_norm_fwd(x, w, b, 1e-5)
+    one = ln.layer_norm_bwd(x, w, mu, rs, dy)
+    two = ln.layer_norm_bwd(x, w, mu, rs, dy)
+    assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "bwd"])
+def test_layer_norm_fused_autograd_on_card(cuda, mode):
+    x, w, b, dy = _ln_inputs(cuda, 300, 256, torch.float32, seed=1)
+    ts = [t.clone().requires_grad_() for t in (x, w, b)]
+    ln.enable_fused_layernorm(mode)
+    try:
+        before = ln.layer_norm_fused.launches_fwd
+        ln.layer_norm_fused(*ts, 1e-5).backward(dy)
+        assert ln.layer_norm_fused.launches_fwd - before == int(mode == "full")
+    finally:
+        ln.enable_fused_layernorm(False)
+    refs = [t.clone().requires_grad_() for t in (x, w, b)]
+    torch.nn.functional.layer_norm(refs[0], (256,), refs[1], refs[2],
+                                   1e-5).backward(dy)
+    for t, r in zip(ts, refs):
+        torch.testing.assert_close(t.grad, r.grad, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,K,M", [(8, 768, 3072), (300, 256, 200),
+                                   (1000, 768, 2304), (77, 128, 100)])
+def test_ln_matmul_kernel_matches_plain(cuda, dtype, N, K, M):
+    """Ragged N, M (200: vector stores stop short; 100: scalar edge) and
+    the GPT widths, against the plain version on the same operands.  The
+    scales are a layer's (g ~ 1, b ~ 0, W ~ 1/sqrt(K)), so outputs are
+    O(1): in bf16 a normalised row's element may round the other way (the
+    statistics differ in their last bits), which moves an output by about
+    2^-8 |W| -- inside the one-rounding tolerance at this scale."""
+    rs = np.random.RandomState(N + M)
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+
+    x = dev(rs.randn(N, K))
+    w = dev(rs.randn(M, K) / np.sqrt(K))
+    g, b = dev(1 + 0.1 * rs.randn(K)), dev(0.1 * rs.randn(K))
+    before = lnmm.ln_matmul.launches
+    got = lnmm.ln_matmul(x, g, b, w)
+    torch.cuda.synchronize()
+    assert lnmm.ln_matmul.launches == before + 1
+    want = lnmm.ln_matmul_plain(x, g, b, w, 1e-5)
+    assert got.shape == (N, M) and got.dtype == dtype
+    torch.testing.assert_close(got, want, **_tols(dtype))
+
+
+@pytest.mark.cuda
+def test_ln_matmul_reads_the_weight_in_place(cuda):
+    """The [M, K] weight goes in as it is: its storage is untouched and
+    the call allocates no M x K buffer (only the [N, M] output)."""
+    M, K, N = 3072, 768, 8
+    w = torch.randn(M, K, device=cuda, dtype=torch.bfloat16)
+    x = torch.randn(N, K, device=cuda, dtype=torch.bfloat16)
+    g = torch.ones(K, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(K, device=cuda, dtype=torch.bfloat16)
+    ptr = w.data_ptr()
+    lnmm.ln_matmul(x, g, b, w)           # the first call builds the library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = lnmm.ln_matmul(x, g, b, w)
+    torch.cuda.synchronize()
+    assert w.data_ptr() == ptr
+    assert torch.cuda.max_memory_allocated() - base < M * K * 2 // 4
+    assert out.shape == (N, M)
+
+
+@pytest.mark.cuda
+def test_fused_ln_train_step_on_card_matches_cpu(cuda):
+    """Three AdamW steps of gpt-tiny, f32, both toggles on (LN "full"), on
+    the card (kernels) and on the CPU (plain versions) from the same
+    weights: losses within 1e-4 relative; 2 layers, so 4 ln_matmul
+    launches and one LayerNorm forward and backward a step."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import (GPTPretrainingCriterion, build_gpt,
+                                         load_jax_state, to_jax_state)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    ids = np.random.RandomState(1).randint(0, 1024, (2, 129))
+    state = to_jax_state(build_gpt("gpt-tiny", device="cpu", seed=4))
+    losses = {}
+    ln.enable_fused_layernorm("full")
+    lnmm.enable_ln_matmul(True)
+    try:
+        for dev in ("cpu", cuda):
+            model = build_gpt("gpt-tiny", device=dev, hidden_dropout_prob=0.0,
+                              attention_dropout_prob=0.0)
+            load_jax_state(model, state)
+            step = make_train_step(model, AdamW(1e-3, parameters=model),
+                                   loss_fn=GPTPretrainingCriterion())
+            n0 = (lnmm.ln_matmul.launches, ln.layer_norm_fused.launches_fwd,
+                  ln.layer_norm_fused.launches_bwd)
+            losses[str(dev)] = [float(step(ids[:, :-1], ids[:, 1:]))
+                                for _ in range(3)]
+            n1 = (lnmm.ln_matmul.launches, ln.layer_norm_fused.launches_fwd,
+                  ln.layer_norm_fused.launches_bwd)
+            want = (0, 0, 0) if dev == "cpu" else (12, 3, 3)
+            assert tuple(b - a for a, b in zip(n0, n1)) == want
+    finally:
+        ln.enable_fused_layernorm(False)
+        lnmm.enable_ln_matmul(False)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

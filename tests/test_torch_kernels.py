@@ -209,7 +209,8 @@ def test_build_digest_follows_sources():
     srcs = _build._sources()
     assert {s.name for s in srcs} == {"flash_attention_fwd.cu",
                                       "flash_attention_bwd.cu",
-                                      "paged_attention.cu"}
+                                      "paged_attention.cu", "layer_norm.cu",
+                                      "ln_matmul.cu"}
     assert _build._digest(srcs) == _build._digest(srcs)
     assert _build._digest(srcs[:1]) != _build._digest(srcs)
 
