@@ -79,7 +79,46 @@ run with a non-zero exit, and nothing is caught):
    ``enable_fused_layernorm("full")``: 25 LayerNorm forward launches a
    prefill batch and a decode step, phase 4's flash and paged counts, and
    the teacher-forced check (margin 1e-3) against the default CPU
-   forward, with the toggle off again before it runs.
+   forward, with the toggle off again before it runs;
+18. the conv+BN kernels (rows 11-13: ``csrc/conv_bn.cu``) against their
+   plain versions at every shape of the experiment scripts: the 8 1x1
+   shapes of ``tools/exp_conv_bn.py`` (``fused_conv1x1_bn``), the 3 of
+   ``tools/exp_conv_bn2.py`` in its four variants (``run_mm`` with
+   ``_k_mm`` and ``_k_stat``, ``run_pro``, ``fused_conv1x1_bn``), a
+   ragged M, the 4 3x3 shapes of ``tools/exp_conv3x3.py`` (``fused3x3``)
+   and a 3x3 with b > 0 at the border; y at the bf16 tolerance, each row
+   of the statistics at the column-sum tolerance of its own size and
+   nearer the sums of the f32 accumulator than those of the rounded y;
+   device ms of kernel, plain version, the fused library yardstick
+   (TorchInductor's prologue and column sums around cuBLAS ``matmul`` or
+   cuDNN ``conv2d``) and the scripts' ``xla_chain`` run eagerly
+   (``chain_1x1``/``chain_3x3``; ``torch.matmul`` for the bare product)
+   from CUDA-graph replays over input sets that outgrow the L2, and the
+   bound at the bf16 peak; ``cudnn.benchmark`` on;
+19. ResNet-50 training at the bench's size (``bench.py:386-473``):
+   ``resnet50(num_classes=1000)`` with random weights from a numpy seed
+   through ``load_jax_state``, batch 128 x 3 x 224^2 f32 and int64 labels
+   from ``RandomState(seed)``, ``Momentum(0.1, 0.9, weight_decay=1e-4)``,
+   ``CrossEntropyLoss``, ``compute_dtype=torch.bfloat16``, channels_last,
+   ``cudnn.benchmark`` on (TF32 off): one warm-up step, then 10 steps
+   through ``run_steps``; the loss finite and falling, one step build,
+   the running statistics moved, no conv+BN kernel and no plain version
+   on the path; step ms, images/s, flops share (the model's own conv and
+   fc shapes, 2 FLOPs a multiply-add, x3) and peak memory; then one
+   profiled step;
+20. ResNet parity: ``ResNet(depth=50)`` at batch 4 x 64^2, f32, three
+   steps on the card against the CPU from the same weights: losses within
+   1e-4 relative, running statistics within 1e-3;
+21. (run between 18 and 19, on phase 19's model and batch before it
+   trains) the conv+BN kernels on the model's own activations: one bf16
+   forward of phase 19's batch, hooks on the stride-1 bottlenecks
+   ``layer1[1]`` and ``layer3[1]``; kernel 12 from conv1's raw output and
+   bn1's batch scale and shift against conv2's output and bn2's
+   statistics, kernels 11 and ``run_pro`` from conv2's against conv3's
+   and bn3's, ``run_mm`` on the model's conv3 input (bf16 tolerance);
+   with the launch counters set to 0 just before and read just after
+   (these are the ``launches`` of rows 11-13, each ``run_mm`` body on its
+   own counter).
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -398,7 +437,7 @@ def _device_profile(fn, trace_path=None, top=10):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return dict(window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us if spans else None,
-                kernels_ms={k[:80]: v / 1e3 for k, v in ranked[:top]},
+                kernels_ms={k: v / 1e3 for k, v in ranked[:top]},
                 all_kernels_ms={k: v / 1e3 for k, v in ranked})
 
 
@@ -411,7 +450,7 @@ def _print_profile(tag, what, res):
           f"{res['device_busy_ms']:.2f} ms "
           f"({100 * res['device_busy_share']:.1f}% of the window)")
     for k, v in res["kernels_ms"].items():
-        print(f"[{tag}]   {v:10.3f} ms  {k}")
+        print(f"[{tag}]   {v:10.3f} ms  {k[:100]}")
 
 
 def _profile(engine, prompts, new, trace_path):
@@ -534,7 +573,9 @@ _PLAIN = (("flash_attention", ("flash_attention_plain",
                                 "flash_attention_qkv_fused_plain",
                                 "flash_attention_qkv_fused_bwd_plain")),
           ("layer_norm", ("layer_norm_fwd_plain", "layer_norm_bwd_plain")),
-          ("ln_matmul", ("ln_matmul_plain",)))
+          ("ln_matmul", ("ln_matmul_plain",)),
+          ("conv_bn", ("fused_conv1x1_bn_plain", "fused3x3_plain",
+                       "run_mm_plain", "run_pro_plain")))
 
 
 @contextlib.contextmanager
@@ -1215,6 +1256,618 @@ def phase_fused_train(dev, seed, smi, base_losses, steps=5, batch=16,
     return out
 
 
+# the experiment scripts' shapes: tools/exp_conv_bn.py:123-133 (M, K, N),
+# tools/exp_conv3x3.py:94-95 (n, H, W, C, Co), tools/exp_conv_bn2.py:100
+# (M rounded up to a multiple of 1024, as its main does)
+CONV1X1_SHAPES = ((64 * 56 * 56, 64, 256), (64 * 56 * 56, 256, 64),
+                  (64 * 28 * 28, 512, 128), (64 * 28 * 28, 128, 512),
+                  (64 * 14 * 14, 1024, 256), (64 * 14 * 14, 256, 1024),
+                  (64 * 7 * 7, 2048, 512), (64 * 7 * 7, 512, 2048))
+CONV3X3_SHAPES = ((64, 56, 56, 64, 64), (64, 28, 28, 128, 128),
+                  (64, 14, 14, 256, 256), (64, 7, 7, 512, 512))
+SPLIT_SHAPES = tuple((-(-m // 1024) * 1024, k, n) for m, k, n in
+                     ((50176, 512, 128), (12544, 1024, 256),
+                      (200704, 64, 256)))
+
+
+def _conv_inputs(gen, dev, x_shape, C, w_shape, fan_in, b_pos=False):
+    """The scripts' inputs: x ~ N(0, 1) bf16, s ~ 1 + 0.1 N, b ~ 0.1 N
+    (or 0.5 + |0.1 N| with ``b_pos``, so that relu(b) > 0 at a zero
+    tap), w ~ N(0, 1/fan_in) bf16."""
+    import torch
+
+    x = torch.randn(x_shape, device=dev, generator=gen).to(torch.bfloat16)
+    s = 1 + 0.1 * torch.randn(C, device=dev, generator=gen)
+    b = 0.1 * torch.randn(C, device=dev, generator=gen)
+    if b_pos:
+        b = 0.5 + b.abs()
+    w = (torch.randn(w_shape, device=dev, generator=gen)
+         / fan_in ** 0.5).to(torch.bfloat16)
+    return x, s, b, w
+
+
+def _stats_check(got, want, y, what):
+    """The kernel's f32 statistics ``[sum y, sum y^2]`` against the plain
+    version's, each row at 1e-4 (1 + its own max |want|); and, over all
+    columns of each row, nearer to the plain version's sums of the f32
+    accumulator than to the sums of its bf16-rounded ``y`` (the statistics
+    of the scripts' ``xla_chain``).  Returns (max abs err, the tolerance
+    of the row it fell in, [L1 distance to the f32 sums, to the rounded
+    sums] of each row)."""
+    yf = y.float().reshape(-1, y.shape[-1])
+    rounded = (yf.sum(dim=0), (yf * yf).sum(dim=0))
+    err, tol, gaps = 0.0, 0.0, []
+    for r, name in enumerate(("sum y", "sum y^2")):
+        g, w = got[r].float(), want[r].float()
+        d = float((g - w).abs().max())
+        t = 1e-4 * (1.0 + float(w.abs().max()))
+        if not d <= t:
+            _fail(f"{what} {name}: max abs err {d} past {t}")
+        gap = (float((g - w).abs().sum()),
+               float((g - rounded[r]).abs().sum()))
+        if not gap[0] < gap[1]:
+            _fail(f"{what} {name}: L1 distance {gap[0]} to the sums of the "
+                  f"f32 accumulator is not below {gap[1]} to the sums of "
+                  f"the rounded y")
+        if tol == 0.0 or d / t >= err / tol:
+            err, tol = d, t
+        gaps.append(gap)
+    return err, tol, gaps
+
+
+_FUSED = {}
+
+
+def _fused_ops():
+    """The yardstick's element-wise parts, each one kernel as XLA fused
+    the scripts' ``xla_chain`` under ``jax.jit``: the prologue ``relu(x2
+    s + b)`` rounded to x's type over ``[M, K]`` rows, and the f32 column
+    sums ``(sum y, sum y^2)`` of a ``[M, N]`` y.  Compiled by TorchInductor
+    with dynamic shapes (one build for every shape), in this process (no
+    compile workers).  Only the yardstick runs them."""
+    import torch
+
+    if not _FUSED:
+        import torch._inductor.config as inductor_config
+
+        inductor_config.compile_threads = 1
+
+        def prologue(x2, s, b):
+            return torch.relu(x2.float() * s + b).to(x2.dtype)
+
+        def sums(y2):
+            yf = y2.float()
+            return yf.sum(dim=0), (yf * yf).sum(dim=0)
+
+        _FUSED["prologue"] = torch.compile(prologue, dynamic=True)
+        _FUSED["sums"] = torch.compile(sums, dynamic=True)
+    return _FUSED["prologue"], _FUSED["sums"]
+
+
+def _yardstick_1x1(prologue, stats):
+    """The library yardstick of a 1x1 variant: the fused prologue (if
+    any), ``torch.matmul`` (cuBLAS), the fused sums of its output (if
+    any)."""
+    import torch
+
+    pro, sums = _fused_ops()
+
+    def call(x, s, b, w):
+        y = torch.matmul(pro(x, s, b) if prologue else x, w)
+        return (y, sums(y)) if stats else y
+    return call
+
+
+def _yardstick_3x3(x, s, b, wl):
+    """The library yardstick of ``fused3x3``: the fused prologue, cuDNN's
+    ``conv2d`` (channels_last, SAME) with ``wl``, the weight laid out once
+    as OIHW channels_last, and the fused sums of its output."""
+    import torch.nn.functional as tF
+
+    pro, sums = _fused_ops()
+    n, H, W, C = x.shape
+    xn = pro(x.reshape(-1, C), s, b).view(n, H, W, C).permute(0, 3, 1, 2)
+    y = tF.conv2d(xn, wl, padding=1)
+    return y, sums(y.permute(0, 2, 3, 1).reshape(-1, wl.shape[0]))
+
+
+def _conv_case(tag, name, kernel, plain, library, chain, sets, flops,
+               nbytes, stats, lib_sets=None):
+    """One conv+BN case: the kernel against its plain version on the
+    first input set (bf16 y at the bf16 tolerance, the f32 statistics by
+    ``_stats_check``), then device ms of kernel, plain version, the fused
+    library yardstick (over ``lib_sets``, the same inputs laid out for the
+    library, where given) and the scripts' eager chain from CUDA-graph
+    replays over the rotating sets, and the bound at the bf16 peak."""
+    import torch
+
+    got = kernel(*sets[0])
+    torch.cuda.synchronize()
+    want = plain(*sets[0])
+    if not stats:
+        got, want = (got, None), (want, None)
+    err_y = _max_err([got[0]], [want[0]], torch.bfloat16, f"{tag} y {name}")
+    err_s, tol_s, gaps = (_stats_check(got[1], want[1], want[0],
+                                       f"{tag} stats {name}") if stats
+                          else (None, None, None))
+    del got, want
+    ms = _times(_rotating(kernel, sets), 20, calls=10)
+    plain_ms = _times(_rotating(plain, sets), 3, calls=2, warmup=1)
+    lib_ms = _times(_rotating(library, lib_sets or sets), 20, calls=10)
+    chain_ms = _times(_rotating(chain, sets), 20, calls=10)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_PEAK)
+    row = dict(case=tag, shape=name, max_abs_err=err_y,
+               stats_abs_err=err_s, stats_tol=tol_s, stats_l1_gaps=gaps,
+               ms=ms[0], call_ms=ms[1], plain_ms=plain_ms[0],
+               plain_call_ms=plain_ms[1], library_ms=lib_ms[0],
+               library_call_ms=lib_ms[1], chain_ms=chain_ms[0],
+               chain_call_ms=chain_ms[1], bound_ms=bound_ms,
+               bound_by=bound_by, n_sets=len(sets),
+               tflops=flops / ms[0] / 1e9)
+    st = ("" if err_s is None else
+          f" stats {err_s:.3e} (tol {tol_s:.3e}; L1 to the f32 sums / to "
+          f"the rounded-y sums: "
+          + ", ".join(f"{a:.3e}/{b:.3e}" for a, b in gaps) + ")")
+    print(f"[conv-bn] {tag} {name}: err y {err_y:.3e}{st}; device ms (a "
+          f"call's ms): kernel {ms[0]:.4f} ({ms[1]:.4f}; "
+          f"{row['tflops']:.1f} TFLOP/s), plain {plain_ms[0]:.4f}, fused "
+          f"library {lib_ms[0]:.4f} ({lib_ms[1]:.4f}), eager chain "
+          f"{chain_ms[0]:.4f}, bound {bound_ms:.4f} ({bound_by}), "
+          f"{len(sets)} input sets")
+    return row
+
+
+def _n_sets(nbytes):
+    """Input sets whose rotation streams > 150 MB, so the 50 MB L2 does
+    not hold the next call's operands."""
+    return max(2, min(8, -(-150_000_000 // int(nbytes))))
+
+
+def phase_conv_bn(dev):
+    """Kernels 11-13 against their plain versions at every shape of the
+    three experiment scripts, a ragged M and a 3x3 with b > 0 at the
+    border; device ms of kernel, plain version, the fused library
+    yardstick (``_fused_ops`` around ``torch.matmul`` or cuDNN's
+    ``conv2d``) and the scripts' ``xla_chain`` run eagerly
+    (``chain_1x1``/``chain_3x3``, or ``torch.matmul`` for the bare
+    product), with the bound.  ``cudnn.benchmark`` is on for the phase."""
+    import torch
+
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows = []
+
+    def one_by_one(M, K, N, variants):
+        flops, nbytes = cb.conv1x1_cost(M, K, N)
+        sets = [_conv_inputs(gen, dev, (M, K), K, (K, N), K)
+                for _ in range(_n_sets(nbytes))]
+        name = f"M={M} K={K} N={N}"
+        for tag in variants:
+            pro, st = tag in ("full", "pro"), tag in ("full", "stat")
+            f, nb = cb.conv1x1_cost(M, K, N, prologue=pro, stats=st)
+            if tag == "full":
+                case = (lambda x, s, b, w: cb.fused_conv1x1_bn(x, s, b, w),
+                        cb.fused_conv1x1_bn_plain, cb.chain_1x1)
+            elif tag == "pro":
+                case = (lambda x, s, b, w: cb.run_pro(x, s, b, w),
+                        cb.run_pro_plain, cb.chain_1x1)
+            elif tag == "stat":
+                case = (lambda x, s, b, w: cb.run_mm(
+                            x, w, kern=cb._k_stat, nstat=True),
+                        lambda x, s, b, w: cb.run_mm_plain(x, w, stats=True),
+                        lambda x, s, b, w: torch.matmul(x, w))
+            else:
+                case = (lambda x, s, b, w: cb.run_mm(x, w),
+                        lambda x, s, b, w: cb.run_mm_plain(x, w),
+                        lambda x, s, b, w: torch.matmul(x, w))
+            kernel, plain, chain = case
+            rows.append(_conv_case(tag, name, kernel, plain,
+                                   _yardstick_1x1(pro, st), chain, sets, f,
+                                   nb, st))
+            rows[-1].update(M=M, K=K, N=N, kernel=tag)
+        del sets
+        torch.cuda.empty_cache()
+
+    bench0 = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    print("[conv-bn] cudnn.benchmark on, TF32 off; the fused library "
+          "yardstick: TorchInductor's prologue and column sums around "
+          "cuBLAS / cuDNN (channels_last)")
+    try:
+        for M, K, N in CONV1X1_SHAPES:
+            one_by_one(M, K, N, ("full",))
+        for M, K, N in SPLIT_SHAPES:
+            one_by_one(M, K, N, ("mm", "stat", "pro", "full"))
+        one_by_one(12345, 256, 64, ("full",))          # ragged M
+        cases3 = [(s, False) for s in CONV3X3_SHAPES] + [
+            ((8, 14, 14, 256, 256), True)]
+        for (n, H, W, C, Co), b_pos in cases3:
+            flops, nbytes = cb.conv3x3_cost(n, H, W, C, Co)
+            sets = [_conv_inputs(gen, dev, (n, H, W, C), C, (3, 3, C, Co),
+                                 9 * C, b_pos) for _ in range(_n_sets(nbytes))]
+            lib_sets = [(x, s, b, w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)) for x, s, b, w in sets]
+            name = f"n={n} {H}x{W} C={C}->{Co}{' b>0' if b_pos else ''}"
+            rows.append(_conv_case("3x3", name, cb.fused3x3,
+                                   cb.fused3x3_plain, _yardstick_3x3,
+                                   cb.chain_3x3, sets, flops, nbytes, True,
+                                   lib_sets))
+            rows[-1].update(n=n, H=H, W=W, C=C, Co=Co, kernel="3x3",
+                            b_pos=b_pos)
+            del sets, lib_sets
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = bench0
+    return rows
+
+
+def _resnet_state(model, seed):
+    """A JAX-layout numpy state for a ResNet from numpy's generator:
+    conv weights N(0, 2 / fan_in), ``fc`` weight N(0, 0.01^2), zero
+    biases, unit batch-norm scales except the last of each bottleneck
+    (``bn3``: zero, so each residual branch starts as the identity, the
+    usual start for lr 0.1 at this batch), running mean 0 and variance
+    1."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import to_jax_state
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, arr in to_jax_state(model).items():
+        if arr.ndim == 4:
+            std = np.sqrt(2.0 / np.prod(arr.shape[1:]))
+        elif name == "fc.weight":
+            std = 0.01
+        else:
+            fill = 1.0 if name.endswith(("_variance", "weight")) else 0.0
+            if name.endswith("bn3.weight"):
+                fill = 0.0
+            state[name] = np.full(arr.shape, fill, np.float32)
+            continue
+        state[name] = (rng.standard_normal(arr.shape, dtype=np.float32)
+                       * np.float32(std))
+    return state
+
+
+def _resnet_step(model, compute_dtype=None):
+    """The bench's step: Momentum(0.1, 0.9, L2 1e-4), CrossEntropyLoss."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=0.1, momentum=0.9, parameters=model,
+                   weight_decay=1e-4)
+    return make_train_step(model, opt, loss_fn=CrossEntropyLoss(),
+                           compute_dtype=compute_dtype)
+
+
+def _conv_bn_counters(zero=False):
+    """The conv+BN launch counters (set to 0 first with ``zero``)."""
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    slots = [(cb.fused_conv1x1_bn, "launches", "fused_conv1x1_bn"),
+             (cb.fused3x3, "launches", "fused3x3"),
+             (cb.run_mm, "launches", "run_mm"),
+             (cb.run_mm, "launches_mm", "run_mm _k_mm"),
+             (cb.run_mm, "launches_stat", "run_mm _k_stat"),
+             (cb.run_pro, "launches", "run_pro"),
+             (cb.conv_bn_column_sum, "launches", "conv_bn_column_sum")]
+    if zero:
+        for fn, attr, _ in slots:
+            setattr(fn, attr, 0)
+    return {key: getattr(fn, attr) for fn, attr, key in slots}
+
+
+def _resnet_batch(dev, seed, batch, size, channels_last):
+    """One batch as ``bench.py:415-427`` makes it: f32 N(0, 1) images and
+    int64 labels below 1000 from ``RandomState(seed)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, 3, size, size)).astype(np.float32)).to(dev)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.from_numpy(rng.randint(0, 1000, (batch,)).astype(
+        np.int64)).to(dev)
+    return x, y
+
+
+# kernel-name fragments by kind, first match wins: the convolutions
+# (cuDNN / CUTLASS implicit GEMMs), the optimizer's foreach updates, the
+# reductions (batch-norm statistics and their gradients), pooling, and
+# the element-wise passes (batch-norm apply, relu, casts, adds)
+_KINDS = (("conv, gemm", ("conv", "xmma", "cudnn", "gemm", "implicit",
+                          "cutlass", "sm90_", "nchwToNhwc", "nhwcToNchw")),
+          ("optimizer", ("multi_tensor_apply",)),
+          ("reduction", ("reduce_kernel",)),
+          ("pooling", ("pool",)),
+          ("element-wise", ("elementwise", "copy", "Functor", "fill")))
+
+
+def _kernel_kinds(kernels_ms):
+    """Device ms of ``{kernel name: ms}`` summed by ``_KINDS`` (the rest
+    under "other")."""
+    out = {k: 0.0 for k, _ in _KINDS}
+    out["other"] = 0.0
+    for name, ms in kernels_ms.items():
+        kind = next((k for k, frags in _KINDS
+                     if any(f in name for f in frags)), "other")
+        out[kind] += ms
+    return out
+
+
+def _resnet50(dev, seed):
+    """``resnet50(num_classes=1000)`` with ``_resnet_state``'s weights,
+    channels_last."""
+    import torch
+
+    from paddle_tpu_torch.models import load_jax_state
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(num_classes=1000, device=dev)
+    load_jax_state(model, _resnet_state(model, seed))
+    return model.to(memory_format=torch.channels_last)
+
+
+def phase_resnet_train(dev, smi, model, x1, y1, steps=10):
+    """ResNet-50 training at the bench's size (``model`` from
+    ``_resnet50``, the batch from ``_resnet_batch``): one warm-up step,
+    then ``steps`` steps through ``run_steps`` over a ``[steps, B, ...]``
+    stack of the one batch (as the bench broadcasts it), bf16 compute over
+    f32 masters, channels_last, cuDNN autotuning on; then one profiled
+    step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.vision.models import resnet_conv_flops
+
+    batch, size = x1.shape[0], x1.shape[-1]
+    flops_fwd = resnet_conv_flops(model, size, size)
+    step = _resnet_step(model, torch.bfloat16)
+    xs, ys = (t.expand(steps, *t.shape) for t in (x1, y1))
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
+    bench0 = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _conv_bn_counters(zero=True)
+        with _no_plain():
+            losses = [float(step(x1, y1))]                    # warm-up
+            t0 = time.perf_counter()
+            out = step.run_steps(xs, ys)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = _conv_bn_counters()
+        peak = torch.cuda.max_memory_allocated()
+        losses += out.tolist()
+        prof = _device_profile(lambda: step(x1, y1))
+    finally:
+        torch.backends.cudnn.benchmark = bench0
+    moved = min(float((b - stats0[k]).abs().max())
+                for k, b in model.named_buffers())
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        _fail(f"resnet50 train: losses {losses} are not finite and falling")
+    if step.compile_count != 1:
+        _fail(f"resnet50 train: {step.compile_count} step builds for one "
+              f"signature")
+    if not moved > 0:
+        _fail("resnet50 train: a batch-norm running statistic did not move")
+    if any(n.values()):
+        _fail(f"resnet50 train: conv+BN kernels launched on the model's path "
+              f"{n} (the model convolves through F.conv2d)")
+    ips = steps * batch / wall
+    share = ips * 3 * flops_fwd / BF16_PEAK
+    prof["by_kind_ms"] = _kernel_kinds(prof.pop("all_kernels_ms"))
+    res = dict(batch=batch, size=size, steps=steps, losses=losses,
+               step_ms=1e3 * wall / steps, images_per_s=ips,
+               flops_fwd_per_image=flops_fwd, flops_share=share,
+               peak_memory_bytes=peak, memory_format="channels_last",
+               cudnn_benchmark=True, min_running_stat_move=moved,
+               profile=prof)
+    print(f"[resnet-train] resnet50 B={batch} {size}x{size} bf16 Momentum "
+          f"(0.1, 0.9, L2 1e-4), channels_last, cudnn.benchmark on, TF32 "
+          f"off: losses {', '.join(f'{v:.6f}' for v in losses)}")
+    print(f"[resnet-train] {res['step_ms']:.3f} ms a step, {ips:.1f} "
+          f"images/s, flops share {100 * share:.2f}% of the 989 TFLOP/s "
+          f"dense bf16 peak ({flops_fwd / 1e9:.4f} GFLOP an image forward "
+          f"from the model's conv and fc shapes, x3), peak memory {peak} "
+          f"bytes, smallest running-stat move {moved:.3e}, on {smi}")
+    _print_profile("resnet-train-profile", "one step", prof)
+    print(f"[resnet-train-profile] device ms by kind: "
+          f"{ {k: round(v, 3) for k, v in prof['by_kind_ms'].items()} }")
+    del step, xs, ys
+    return res
+
+
+def phase_resnet_parity(dev, seed, tol=1e-4, stat_tol=1e-3):
+    """``ResNet(depth=50)`` at batch 4 x 64^2, f32: three Momentum steps
+    (a batch each) on the card and on the CPU from the same weights.
+    Losses within ``tol`` relative; running statistics within
+    ``stat_tol`` (abs + rel):
+    layer4's batch norms see 16 values a channel, which magnifies the two
+    devices' summation-order noise (2.3e-4 between the port and the JAX
+    package on the CPU at resnet18)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import load_jax_state, to_jax_state
+    from paddle_tpu_torch.vision.models import ResNet
+
+    out = []
+    t0 = time.perf_counter()
+    state = None
+    for where in (dev, torch.device("cpu")):
+        model = ResNet(depth=50, num_classes=1000, device=where)
+        state = state or _resnet_state(model, seed + 1)
+        load_jax_state(model, state)
+        step = _resnet_step(model)
+        losses = []
+        for i in range(3):
+            x, y = _resnet_batch(where, seed + 10 + i, 4, 64, False)
+            losses.append(float(step(x, y)))
+        out.append((np.array(losses), {
+            k: v for k, v in to_jax_state(model).items()
+            if k.endswith(("_mean", "_variance"))}))
+    (card, sc), (cpu, sp) = out
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    stat_err = max(float(np.max(np.abs(sc[k] - sp[k])
+                                / (1 + np.abs(sp[k])))) for k in sp)
+    print(f"[resnet-parity] ResNet(depth=50) B=4 64x64 f32: card "
+          f"{card.tolist()}, cpu {cpu.tolist()}, max rel diff {rel:.3e} (tol "
+          f"{tol}); running statistics max |diff| / (1 + |cpu|) "
+          f"{stat_err:.3e} (tol {stat_tol}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= tol:
+        _fail(f"resnet-parity: card and CPU losses differ by {rel} > {tol}")
+    if not stat_err <= stat_tol:
+        _fail(f"resnet-parity: running statistics differ by {stat_err} > "
+              f"{stat_tol}")
+    return dict(card=card.tolist(), cpu=cpu.tolist(), max_rel_diff=rel,
+                tol=tol, stat_err=stat_err, stat_tol=stat_tol)
+
+
+# kernels 11-13 against the model's own conv outputs: y within
+# ACT_Y_TOL x max|y| and the statistics within ACT_STAT_TOL (mean: of the
+# model's batch std; variance: relative).  The model applies each batch
+# norm in bf16 (scale and shift rounded to bf16, x * scale + shift in
+# bf16), the kernels in f32 rounded once: their conv inputs differ by up
+# to a bf16 step in some elements, and the model's statistics come from
+# its rounded output.
+ACT_Y_TOL = 3e-2
+ACT_STAT_TOL = 2e-2
+
+
+def _bn_fold(z, values, name, eps=EPS):
+    """The batch scale and shift (f32) that ``F.batch_norm`` folds in
+    training for a bf16 input ``z`` and the bf16 parameters ``values``
+    of batch norm ``name``, and the batch mean and variance."""
+    import torch
+
+    zf = z.float()
+    mean = zf.mean(dim=(0, 2, 3))
+    var = torch.clamp((zf * zf).mean(dim=(0, 2, 3)) - mean * mean, min=0)
+    scale = torch.rsqrt(var + eps) * values[f"{name}.weight"].float()
+    shift = -mean * scale + values[f"{name}.bias"].float()
+    return scale.contiguous(), shift.contiguous(), mean, var
+
+
+def _rows(z):
+    """An NCHW (channels_last) activation as NHWC rows ``[n H W, C]``."""
+    return z.permute(0, 2, 3, 1).contiguous().reshape(-1, z.shape[1])
+
+
+def _act_check(what, y, st, want, mean, var, M):
+    """Kernel output ``[M, N]`` and statistics against the model's."""
+    import torch
+
+    err_y = float((y.float() - want.float()).abs().max())
+    lim_y = ACT_Y_TOL * float(want.float().abs().max())
+    res = dict(err_y=err_y, lim_y=lim_y)
+    if st is not None:
+        km = st[0] / M
+        kv = torch.clamp(st[1] / M - km * km, min=0)
+        res["err_mean"] = float(((km - mean).abs() / var.sqrt()).max())
+        res["err_var"] = float(((kv - var).abs() / var).max())
+    print(f"[conv-bn-model] {what}: max |y - model| {err_y:.4e} (limit "
+          f"{lim_y:.4e})" + ("" if st is None else
+                             f", mean err {res['err_mean']:.3e} of the "
+                             f"batch std, var err {res['err_var']:.3e} "
+                             f"relative (limit {ACT_STAT_TOL})"))
+    if not err_y <= lim_y:
+        _fail(f"conv-bn-model {what}: y differs by {err_y} > {lim_y}")
+    if st is not None and not max(res["err_mean"],
+                                  res["err_var"]) <= ACT_STAT_TOL:
+        _fail(f"conv-bn-model {what}: statistics differ {res}")
+    return res
+
+
+def phase_conv_bn_model(model, x):
+    """Kernels 11-13 on the bottleneck activations of ResNet-50: one bf16
+    training-mode forward of phase 19's batch ``x`` without gradients, on
+    phase 19's ``model`` before it trains (its running statistics are left
+    as they were), hooks on ``layer1[1]`` and ``layer3[1]`` (stride-1
+    bottlenecks).  Kernel 12 takes conv1's raw output with bn1's
+    batch scale and shift and conv2's weight, against conv2's output and
+    bn2's statistics; kernel 11 (and ``run_pro``) conv2's raw output with
+    bn2's, against conv3's output and bn3's statistics; ``run_mm`` the
+    model's own conv3 input, against conv3's output at the bf16 tolerance
+    (the same operands).  Counters set to 0 just before, read just after;
+    the plain versions are tripped."""
+    import torch
+
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    blocks = {"layer1[1]": model.layer1[1], "layer3[1]": model.layer3[1]}
+    seen = {}
+    hooks = []
+    for tag, blk in blocks.items():
+        for name in ("conv1", "conv2", "conv3"):
+            def hook(mod, inp, out, tag=tag, name=name):
+                seen[(tag, name)] = (inp[0], out)
+            hooks.append(getattr(blk, name).register_forward_hook(hook))
+    values = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+    # the forward updates copies of the running statistics, not the model's
+    scratch = {n: b.clone() for n, b in model.named_buffers()}
+    with torch.no_grad():
+        torch.func.functional_call(model, {**values, **scratch},
+                                   (x.to(torch.bfloat16),))
+    for h in hooks:
+        h.remove()
+    rows = {}
+    _conv_bn_counters(zero=True)
+    with torch.no_grad(), _no_plain():
+        for tag in blocks:
+            _, z1 = seen[(tag, "conv1")]
+            _, z2 = seen[(tag, "conv2")]
+            a3, z3 = seen[(tag, "conv3")]
+            n, C, H, W = z1.shape
+            M = n * H * W
+            pre = tag.replace("[", ".").replace("]", "")
+            s1, b1, _, _ = _bn_fold(z1, values, f"{pre}.bn1")
+            s2, b2, m2, v2 = _bn_fold(z2, values, f"{pre}.bn2")
+            _, _, m3, v3 = _bn_fold(z3, values, f"{pre}.bn3")
+            w2 = values[f"{pre}.conv2.weight"].permute(2, 3, 1,
+                                                       0).contiguous()
+            w3 = values[f"{pre}.conv3.weight"]
+            w3 = w3.reshape(w3.shape[0], -1).t().contiguous()
+            z1n = z1.permute(0, 2, 3, 1).contiguous()
+            r2, r3, ra3 = _rows(z2), _rows(z3), _rows(a3)
+            y12, st12 = cb.fused3x3(z1n, s1, b1, w2)
+            rows[f"{tag} fused3x3"] = _act_check(
+                f"{tag} fused3x3 {n}x{H}x{W} C={C}->{w2.shape[3]}",
+                y12.reshape(M, -1), st12, r2, m2, v2, M)
+            y11, st11 = cb.fused_conv1x1_bn(r2, s2, b2, w3)
+            rows[f"{tag} fused_conv1x1_bn"] = _act_check(
+                f"{tag} fused_conv1x1_bn M={M} K={w3.shape[0]} "
+                f"N={w3.shape[1]}", y11, st11, r3, m3, v3, M)
+            rows[f"{tag} run_pro"] = _act_check(
+                f"{tag} run_pro", cb.run_pro(r2, s2, b2, w3, bm=128), None,
+                r3, None, None, M)
+            ymm = cb.run_mm(ra3, w3, bm=128)
+            err = _max_err([ymm], [r3], torch.bfloat16,
+                           f"conv-bn-model {tag} run_mm")
+            ys, sts = cb.run_mm(ra3, w3, bm=128, kern=cb._k_stat, nstat=True)
+            rows[f"{tag} run_mm"] = dict(_act_check(
+                f"{tag} run_mm (the model's conv3 input; bf16 tolerance "
+                f"held above, max err {err:.3e})", ys, sts, r3, m3, v3, M),
+                err_y_bf16=err)
+    torch.cuda.synchronize()
+    n = _conv_bn_counters()
+    want = {"fused_conv1x1_bn": 2, "fused3x3": 2, "run_mm": 4,
+            "run_mm _k_mm": 2, "run_mm _k_stat": 2, "run_pro": 2,
+            "conv_bn_column_sum": 6}
+    if n != want:
+        _fail(f"conv-bn-model: launches {n} != {want}")
+    print(f"[conv-bn-model] launches {n}")
+    del values, scratch, seen
+    return dict(rows=rows, launches=n)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -1269,6 +1922,18 @@ def main(argv=None) -> int:
     parity_ln = phase_train_parity(dev, args.seed, fused_ln=True)
     serve_ln = phase_serve(dev, None, 8, 16, args.seed + 2, 1e-3,
                            ln_mode="full")
+    # the ResNet slice's phases follow the earlier ones, for the same reason
+    torch.cuda.empty_cache()
+    conv_rows = phase_conv_bn(dev)
+    # phase 21 runs on phase 19's model and batch before it trains
+    model = _resnet50(dev, args.seed)
+    x1, y1 = _resnet_batch(dev, args.seed, 128, 224, True)
+    conv_model = phase_conv_bn_model(model, x1)
+    torch.cuda.empty_cache()
+    resnet = phase_resnet_train(dev, smi, model, x1, y1)
+    del model, x1, y1
+    torch.cuda.empty_cache()
+    resnet_parity = phase_resnet_parity(dev, args.seed)
     f_main = next(r for r in flash if r["Tq"] == 128 and r["causal"])
     p_main = next(r for r in paged if r["W"] == 1 and r["pool"] == "f32")
     # kernel 2 (single tile, T <= 1024) and kernels 3, 4 (the split, T >
@@ -1358,6 +2023,41 @@ def main(argv=None) -> int:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
             shape="N=16384 C=768 bfloat16"))
+    n_cb = conv_model["launches"]
+    cb_src = "paddle_tpu_torch/kernels/csrc/conv_bn.cu"
+    for title, replaces, launches, pick in (
+            ("fused_conv1x1_bn (GEMM + column-sum kernels)",
+             "tools/exp_conv_bn.py:63", n_cb["fused_conv1x1_bn"],
+             lambda r: r["kernel"] == "full" and r["M"] == 200704
+             and r["K"] == 64),
+            ("fused3x3 (implicit-GEMM 3x3 + column-sum kernels)",
+             "tools/exp_conv3x3.py:62", n_cb["fused3x3"],
+             lambda r: r["kernel"] == "3x3" and r["H"] == 56),
+            ("run_mm, body _k_mm", "tools/exp_conv_bn2.py:67",
+             n_cb["run_mm _k_mm"],
+             lambda r: r["kernel"] == "mm" and r["M"] == 50176),
+            ("run_mm, body _k_stat (GEMM + column-sum kernels)",
+             "tools/exp_conv_bn2.py:67", n_cb["run_mm _k_stat"],
+             lambda r: r["kernel"] == "stat" and r["M"] == 50176),
+            ("run_pro, body _k_pro", "tools/exp_conv_bn2.py:85",
+             n_cb["run_pro"],
+             lambda r: r["kernel"] == "pro" and r["M"] == 50176)):
+        row = next(r for r in conv_rows if pick(r))
+        same = [r for r in conv_rows if r["kernel"] == row["kernel"]]
+        # the statistics' error (f32 column sums) apart from y's (bf16),
+        # from the case nearest its tolerance
+        worst = max(same, key=lambda r: (r["stats_abs_err"] or 0.0)
+                    / (r["stats_tol"] or 1.0))
+        kernels.append(dict(
+            name=title, route="cuda", source=cb_src, replaces=replaces,
+            launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in same),
+            stats_abs_err=worst["stats_abs_err"],
+            stats_tol=worst["stats_tol"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            chain_ms=row["chain_ms"], shape=row["shape"] + " bfloat16",
+            column_sum_launches=n_cb["conv_bn_column_sum"]))
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(device=smi, torch_device=name, count=count,
@@ -1368,7 +2068,9 @@ def main(argv=None) -> int:
                            parity=parity, layernorm=ln_rows,
                            ln_matmul=lnmm_rows, fused_train=fused,
                            parity_ln=parity_ln, serve_ln=serve_ln,
-                           kernels=kernels,
+                           conv_bn=conv_rows, resnet_train=resnet,
+                           resnet_parity=resnet_parity,
+                           conv_bn_model=conv_model, kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

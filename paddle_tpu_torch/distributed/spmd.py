@@ -1,5 +1,5 @@
 """The single-device subset of ``paddle_tpu.distributed.spmd``:
-``ShardedTrainStep`` and ``make_train_step``.
+``ShardedTrainStep`` (with ``run_steps``) and ``make_train_step``.
 
 ``step(*batch) -> loss`` runs forward, loss, backward and the optimizer
 update on the model's device, as the JAX step does in one jitted program:
@@ -12,7 +12,15 @@ update on the model's device, as the JAX step does in one jitted program:
   the cast, as JAX's ``value_and_grad`` over the casting loss does; the
   labels and the loss stay in full precision;
 * the loss comes back as an f32 scalar tensor (not synchronised);
-* the model runs in training mode, the JAX model's default.
+* the model runs in training mode, the JAX model's default;
+* buffers (batch norm's running statistics) are not cast: they stay f32
+  and update in place inside the forward, as the JAX step carries its
+  ``buffers`` through ``functional_call`` uncast.
+
+``run_steps(*stacked)`` takes ``[K, B, ...]`` stacks of K batches and runs
+K steps, returning the K losses as one f32 tensor; where the JAX step
+scans them in one program, the port loops in Python (one CUDA-graph
+capture of the step is later work).
 
 The twin of "one train-step compile": PyTorch runs eagerly, so nothing is
 compiled; the step builds its per-signature state (the split of the batch
@@ -107,6 +115,13 @@ class ShardedTrainStep:
         loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+    def run_steps(self, *stacked):
+        """K steps over ``[K, B, ...]`` stacks; returns the K losses."""
+        stacked = tuple(torch.as_tensor(b, device=self.device)
+                        for b in stacked)
+        return torch.stack([self(*(b[i] for b in stacked))
+                            for i in range(int(stacked[0].shape[0]))])
 
 
 def make_train_step(model, optimizer, loss_fn=None,

@@ -62,6 +62,10 @@ _SIGNATURES = {
     "paddle_layer_norm_max_c": [_I],
     "paddle_ln_matmul":
         [_P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    "paddle_conv_bn_gemm":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I, _I, _P],
+    "paddle_conv_bn_colsum": [_P, _P, _I, _I, _P],
 }
 
 

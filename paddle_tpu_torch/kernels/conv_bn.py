@@ -1,0 +1,342 @@
+"""The conv + batch-norm experiment kernels: CUDA kernels for Hopper beside
+their plain PyTorch versions.
+
+Replaces the Pallas TPU kernels of three experiment scripts, one entry
+point for each JAX function, with its name and signature:
+
+* ``fused_conv1x1_bn`` (``tools/exp_conv_bn.py:51``, ``pallas_call`` at
+  ``:63``, body ``_kernel``): the bottleneck's "batch-norm apply -> relu ->
+  1x1 conv -> batch-norm statistics" chain, ``y = relu(x * s + b) @ w``
+  with ``stats = [sum(y), sum(y^2)]`` over rows;
+* ``fused3x3`` (``tools/exp_conv3x3.py:56``, ``:62``, body ``_kernel``):
+  the same prologue, a 3x3 / stride-1 / SAME conv over NHWC (zero padding
+  applied AFTER the prologue: a border tap reads 0, not ``relu(b)``), then
+  the statistics;
+* ``run_mm`` (``tools/exp_conv_bn2.py:55``, ``:67``, bodies ``_k_mm`` and,
+  with ``kern=_k_stat, nstat=True``, ``_k_stat``) and ``run_pro``
+  (``:80``, ``:85``, body ``_k_pro``): kernel 11 split into its parts.
+
+All five bodies are instances of one GEMM template in ``csrc/conv_bn.cu``
+(bf16 ``mma.sync`` with f32 accumulation; the prologue applied as the A
+tile is staged; the 3x3 as an implicit GEMM over the shifted NHWC rows)
+plus the fixed-order column sum of the per-block statistics (no atomics,
+so the statistics repeat bitwise).  The semantics kept from the scripts:
+the prologue runs in f32 and rounds to x's type before the product; the
+statistics come from the f32 accumulator, not the rounded ``y``; ragged
+rows are masked.  The layouts are the scripts': ``x2 [M, K]``, ``w [K,
+N]``, ``s, b [K]`` f32; NHWC ``x`` with an HWIO ``w``.  A paddle 1x1 conv
+weight ``[N, K, 1, 1]`` is handed in as ``w.reshape(N, K).t()
+.contiguous()``.
+
+The TPU tile arguments (``bm``, ``bn``, ``bn_blk``, ``bc``) are taken and
+ignored, except where they change the result: a shape the JAX function
+would refuse (``run_mm``'s ``M % bm``, ``fused3x3``'s ``n % bn_blk`` and
+``Co % bc``) or leave partly unwritten (the floored column grids of
+``fused_conv1x1_bn`` and ``run_pro``, the floored row grid of ``run_pro``)
+raises ``ValueError``.  None of the kernels has a backward (nor has any
+in the reference).  No path of the port calls them: the port's ResNet,
+like the reference's, convolves through ``nn.functional.conv2d``.
+
+``chain_1x1`` and ``chain_3x3`` are the scripts' ``xla_chain``: batch-norm
+apply, relu, the product or conv in bf16 through PyTorch, and statistics
+of the rounded output.  They are the yardstick a caller times as the
+library call; nothing in the port calls them either.
+
+CPU tensors take the plain versions (``*_plain``); CUDA tensors launch the
+kernels or raise.  Launch counters: ``fused_conv1x1_bn.launches``,
+``fused3x3.launches``, ``run_mm.launches`` (both bodies; each body's
+own in ``run_mm.launches_mm`` and ``run_mm.launches_stat``),
+``run_pro.launches`` and ``conv_bn_column_sum.launches`` (the statistics'
+second stage).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as tF
+
+from .flash_attention import _on_card
+
+__all__ = ["fused_conv1x1_bn", "fused3x3", "run_mm", "run_pro",
+           "conv_bn_column_sum", "fused_conv1x1_bn_plain", "fused3x3_plain",
+           "run_mm_plain", "run_pro_plain", "chain_1x1", "chain_3x3",
+           "conv1x1_cost", "conv3x3_cost"]
+
+# ``run_mm``'s ``kern`` argument: which Pallas body (and CUDA instance)
+_k_mm = "mm"
+_k_stat = "stat"
+
+_BM = 128   # rows of a kernel tile (csrc/conv_bn.cu)
+_BN = 128   # columns of a kernel tile
+
+
+# -- plain versions ------------------------------------------------------------
+
+def _prologue(x, s, b):
+    """``relu(x * s + b)`` in f32, rounded to x's type."""
+    return torch.relu(x.float() * s.float() + b.float()).to(x.dtype)
+
+
+def _col_stats(acc):
+    """``[sum, sum of squares]`` over the rows of the f32 ``[M, N]``."""
+    return torch.stack([acc.sum(dim=0), (acc * acc).sum(dim=0)])
+
+
+def run_mm_plain(x2, w, stats=False):
+    """``x2 @ w`` in f32 over the operands, rounded to x's type; with
+    ``stats`` also the f32 ``[2, N]`` statistics of the f32 product."""
+    acc = torch.matmul(x2.float(), w.float())
+    y = acc.to(x2.dtype)
+    return (y, _col_stats(acc)) if stats else y
+
+
+def run_pro_plain(x2, s, b, w):
+    """``relu(x2 * s + b)`` rounded to x's type, then ``@ w``."""
+    return run_mm_plain(_prologue(x2, s, b), w)
+
+
+def fused_conv1x1_bn_plain(x2, s, b, w):
+    """The prologue, the product and the statistics: ``(y, stats)``."""
+    return run_mm_plain(_prologue(x2, s, b), w, stats=True)
+
+
+def fused3x3_plain(x, s, b, w):
+    """NHWC ``x``, HWIO ``w``: the prologue, zero padding after it, the
+    3x3 conv in f32 over the rounded operands, ``(y, stats)``."""
+    xn = _prologue(x, s, b).float().permute(0, 3, 1, 2)
+    acc = tF.conv2d(xn, w.float().permute(3, 2, 0, 1), padding=1)
+    acc = acc.permute(0, 2, 3, 1).contiguous()
+    return acc.to(x.dtype), _col_stats(acc.reshape(-1, acc.shape[-1]))
+
+
+def chain_1x1(x2, s, b, w):
+    """``exp_conv_bn.xla_chain``: the prologue, ``torch.matmul`` in x's
+    type, the mean and variance of the rounded ``y``: ``(y, mean, var)``."""
+    y = torch.matmul(_prologue(x2, s, b), w)
+    yf = y.float()
+    mean = yf.mean(dim=0)
+    var = torch.clamp((yf * yf).mean(dim=0) - mean * mean, min=0)
+    return y, mean, var
+
+
+def chain_3x3(x, s, b, w):
+    """``exp_conv3x3.xla_chain``: the prologue, ``conv2d`` in x's type
+    (NHWC memory, SAME), the sums of the rounded ``y``: ``(y, sum,
+    sumsq)``."""
+    xn = _prologue(x, s, b).permute(0, 3, 1, 2)
+    y = tF.conv2d(xn, w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    yf = y.float()
+    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+
+
+def conv1x1_cost(M, K, N, prologue=True, stats=True):
+    """Analytic work of one 1x1 call: (flops, bytes).  Flops count the
+    product at 2 a multiply-add; bytes count bf16 x, w and y once each,
+    the f32 scale and shift once (prologue) and the f32 statistics written
+    once (stats)."""
+    return (2.0 * M * K * N,
+            2.0 * (M * K + K * N + M * N) + (8.0 * K if prologue else 0.0)
+            + (8.0 * N if stats else 0.0))
+
+
+def conv3x3_cost(n, H, W, C, Co):
+    """Analytic work of one ``fused3x3``: (flops, bytes), ``2 n H W 9C Co``
+    flops; bf16 x, w and y and the f32 scale, shift and statistics moved
+    once."""
+    M = n * H * W
+    return (2.0 * M * 9 * C * Co,
+            2.0 * (M * C + 9 * C * Co + M * Co) + 8.0 * C + 8.0 * Co)
+
+
+# -- shape rules of the reference ----------------------------------------------
+
+def _mat_shapes(x2, w, what, s=None, b=None):
+    if x2.dim() != 2 or w.dim() != 2 or w.shape[0] != x2.shape[1]:
+        raise ValueError(f"{what} takes x2 [M, K] and w [K, N], got "
+                         f"{tuple(x2.shape)} and {tuple(w.shape)}")
+    M, K = x2.shape
+    if M == 0:
+        raise ValueError(f"{what}: M = 0 rows (the reference's tile is empty)")
+    for p in (s, b):
+        if p is not None and tuple(p.shape) != (K,):
+            raise ValueError(f"{what} takes s and b of shape [{K}], got "
+                             f"{tuple(p.shape)}")
+    return M, K, w.shape[1]
+
+
+def _whole_tiles(size, tile, axis, what):
+    """The reference's floored grid: a size that is not a whole number of
+    (clamped) tiles would leave its tail unwritten."""
+    tile = min(tile, size)
+    if tile <= 0 or size % tile:
+        raise ValueError(f"{what}: {axis} = {size} is not a whole number of "
+                         f"{tile}-wide tiles; the reference would leave the "
+                         f"tail unwritten or refuse")
+
+
+# -- kernel launches -----------------------------------------------------------
+
+_SMS: dict = {}
+
+
+def _groups(dev, M, N):
+    """Blocks along M: enough for about two blocks an SM over the column
+    tiles, at most one a row tile."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    col_tiles = -(-N // _BN)
+    row_tiles = -(-M // _BM)
+    return max(1, min(row_tiles, -(-2 * _SMS[idx] // col_tiles), 65535))
+
+
+def _check_dev(what, x, w, s=None, b=None, C=None):
+    """What the CUDA kernel reads: bf16 x and w, contiguous and 16-byte
+    aligned, the channel counts multiples of 8; f32 contiguous s and b;
+    one device."""
+    for t, name in ((x, "x"), (w, "w")):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the {what} kernel takes bfloat16 {name}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"the {what} kernel reads {name} with 16-byte "
+                             f"loads: it must be contiguous and 16-byte "
+                             f"aligned, got strides {t.stride()}")
+    K = x.shape[-1] if C is None else C
+    if K % 8 or w.shape[-1] % 8:
+        raise ValueError(f"the {what} kernel takes channel counts that are "
+                         f"multiples of 8, got {K} in and {w.shape[-1]} out")
+    for p in (s, b):
+        if p is not None and (p.dtype != torch.float32
+                              or not p.is_contiguous()):
+            raise TypeError(f"the {what} kernel takes contiguous float32 s "
+                            f"and b, got {p.dtype}")
+    if any(t is not None and t.device != x.device for t in (w, s, b)):
+        raise ValueError(f"{what}'s operands must lie on one device")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def conv_bn_column_sum(part):
+    """``[2, N]`` f32 column sums of the kernels' ``[2, groups, N]`` f32
+    partials, each column added in block order (CUDA tensors only)."""
+    from . import _build
+
+    _, groups, N = part.shape
+    stats = torch.empty(2, N, dtype=torch.float32, device=part.device)
+    err = _build.library().paddle_conv_bn_colsum(
+        part.data_ptr(), stats.data_ptr(), groups, N, _stream(part))
+    _build.check(err, "conv_bn_column_sum")
+    conv_bn_column_sum.launches += 1
+    return stats
+
+
+def _launch(what, x, s, b, w, M, K, N, stats, hwc=(0, 0, 0)):
+    """One GEMM launch (and the column sum under ``stats``): ``y [M, N]``
+    bf16 (and the ``[2, N]`` f32 statistics)."""
+    from . import _build
+
+    lib = _build.library()
+    y = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    groups = _groups(x.device, M, N)
+    part = (torch.empty(2, groups, N, dtype=torch.float32, device=x.device)
+            if stats else None)
+    H, W, C = hwc
+    err = lib.paddle_conv_bn_gemm(
+        x.data_ptr(), None if s is None else s.data_ptr(),
+        None if b is None else b.data_ptr(), w.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), M, K, N, H, W, C,
+        int(s is not None), int(stats), int(C > 0), groups, _stream(x))
+    _build.check(err, what)
+    return (y, conv_bn_column_sum(part)) if stats else y
+
+
+# -- public entry points -------------------------------------------------------
+
+def fused_conv1x1_bn(x2, s, b, w, bm=1024, bn=512):
+    """x2 ``[M, K]`` (the previous conv's raw output), s and b ``[K]`` f32
+    (its batch-norm scale and shift), w ``[K, N]``: ``(y [M, N], stats [2,
+    N] f32)``.  Any M; N must be a whole number of ``min(bn, N)`` tiles."""
+    M, K, N = _mat_shapes(x2, w, "fused_conv1x1_bn", s, b)
+    _whole_tiles(N, bn, "N", "fused_conv1x1_bn")
+    if not _on_card(x2, "fused_conv1x1_bn"):
+        return fused_conv1x1_bn_plain(x2, s, b, w)
+    _check_dev("fused_conv1x1_bn", x2, w, s, b)
+    out = _launch("fused_conv1x1_bn", x2, s, b, w, M, K, N, stats=True)
+    fused_conv1x1_bn.launches += 1
+    return out
+
+
+def fused3x3(x, s, b, w, bn_blk=8, bc=None):
+    """NHWC x ``[n, H, W, C]``, s and b ``[C]`` f32, HWIO w ``[3, 3, C,
+    Co]``: ``(y [n, H, W, Co], stats [2, Co] f32)``.  ``n`` must be a whole
+    number of ``min(bn_blk, n)`` images and ``Co`` of ``bc`` columns, as
+    the reference asserts."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3,
+                                                             x.shape[3]):
+        raise ValueError(f"fused3x3 takes NHWC x and HWIO w [3, 3, C, Co], "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    n, H, W, C = x.shape
+    Co = w.shape[3]
+    for p in (s, b):
+        if tuple(p.shape) != (C,):
+            raise ValueError(f"fused3x3 takes s and b of shape [{C}], got "
+                             f"{tuple(p.shape)}")
+    if n == 0 or H == 0 or W == 0:
+        raise ValueError(f"fused3x3: empty image batch {tuple(x.shape)}")
+    _whole_tiles(n, bn_blk, "n", "fused3x3")
+    _whole_tiles(Co, bc or Co, "Co", "fused3x3")
+    if not _on_card(x, "fused3x3"):
+        return fused3x3_plain(x, s, b, w)
+    _check_dev("fused3x3", x, w, s, b, C=C)
+    y, st = _launch("fused3x3", x, s, b, w, n * H * W, 9 * C, Co, stats=True,
+                    hwc=(H, W, C))
+    fused3x3.launches += 1
+    return y.view(n, H, W, Co), st
+
+
+def run_mm(x2, w, bm=1024, bn=512, kern=_k_mm, nstat=False):
+    """``x2 @ w`` (body ``_k_mm``) or, with ``kern=_k_stat, nstat=True``,
+    ``(x2 @ w, stats)`` (body ``_k_stat``).  M and N must be whole numbers
+    of ``min(bm, M)`` and ``min(bn, N)`` tiles."""
+    if (kern, bool(nstat)) not in ((_k_mm, False), (_k_stat, True)):
+        raise ValueError("run_mm takes kern=_k_mm with nstat=False or "
+                         "kern=_k_stat with nstat=True, as the reference's "
+                         "bodies take their outputs")
+    M, K, N = _mat_shapes(x2, w, "run_mm")
+    _whole_tiles(M, bm, "M", "run_mm")
+    _whole_tiles(N, bn, "N", "run_mm")
+    if not _on_card(x2, "run_mm"):
+        return run_mm_plain(x2, w, stats=nstat)
+    _check_dev("run_mm", x2, w)
+    out = _launch("run_mm", x2, None, None, w, M, K, N, stats=nstat)
+    run_mm.launches += 1
+    if nstat:
+        run_mm.launches_stat += 1
+    else:
+        run_mm.launches_mm += 1
+    return out
+
+
+def run_pro(x2, s, b, w, bm=1024, bn=512):
+    """``relu(x2 * s + b) @ w`` (body ``_k_pro``).  M and N must be whole
+    numbers of ``min(bm, M)`` and ``min(bn, N)`` tiles."""
+    M, K, N = _mat_shapes(x2, w, "run_pro", s, b)
+    _whole_tiles(M, bm, "M", "run_pro")
+    _whole_tiles(N, bn, "N", "run_pro")
+    if not _on_card(x2, "run_pro"):
+        return run_pro_plain(x2, s, b, w)
+    _check_dev("run_pro", x2, w, s, b)
+    out = _launch("run_pro", x2, s, b, w, M, K, N, stats=False)
+    run_pro.launches += 1
+    return out
+
+
+fused_conv1x1_bn.launches = 0
+fused3x3.launches = 0
+run_mm.launches = 0
+run_mm.launches_mm = 0
+run_mm.launches_stat = 0
+run_pro.launches = 0
+conv_bn_column_sum.launches = 0

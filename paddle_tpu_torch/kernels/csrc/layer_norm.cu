@@ -188,29 +188,6 @@ ln_bwd_kernel(const T* __restrict__ x, const void* __restrict__ w,
   }
 }
 
-// out [2, C] = the column sums of part [2, nblk, C], each column's
-// partials added in block order (8 strided runs, then the 8 run sums).
-__global__ void __launch_bounds__(256)
-ln_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                     int nblk, int C) {
-  __shared__ float red[8][33];
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + tx;
-  const float* p = part + (long long)blockIdx.y * nblk * C;
-  float acc = 0.f;
-  if (c < C)
-    for (int i = ty; i < nblk; i += 8) acc += __ldg(p + (long long)i * C + c);
-  red[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && c < C) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s += red[k][tx];
-    out[(long long)blockIdx.y * C + c] = s;
-  }
-}
-
 template <typename T, int NV>
 struct Fwd {
   static int run(const void* x, const void* w, int w_bf16, const void* b,
@@ -319,8 +296,8 @@ int paddle_layer_norm_bwd_reduce(const float* part, float* dwb, int nblk,
                                  int C, void* stream) {
   if (nblk <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((C + 31) / 32, 2);
-  ln_bwd_reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(part, dwb,
-                                                               nblk, C);
+  colsum2_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(part, dwb, nblk,
+                                                         C);
   return (int)cudaGetLastError();
 }
 

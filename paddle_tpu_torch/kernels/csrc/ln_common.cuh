@@ -1,6 +1,7 @@
-// Shared pieces of the LayerNorm kernels (layer_norm.cu, ln_matmul.cu):
-// 16-byte row loads and stores of float or bf16 as f32, parameters of
-// either type, warp sums and the f32 row statistics of the reference.
+// Shared pieces of the LayerNorm and conv + batch-norm kernels
+// (layer_norm.cu, ln_matmul.cu, conv_bn.cu): 16-byte row loads and stores
+// of float or bf16 as f32, parameters of either type, warp sums, the f32
+// row statistics of the reference and the fixed-order column sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -154,6 +155,33 @@ __device__ void row_stats(const T* __restrict__ x, long long ldx, int row0,
         s_rs[r + i] = live[i] ? rs : 0.f;
       }
     }
+  }
+}
+
+// out [2, C] = the column sums of part [2, nblk, C], each column's
+// partials added in block order (8 strided runs, then the 8 run sums): the
+// second stage of the fixed-order sums of layer_norm.cu (dw, db) and
+// conv_bn.cu (the batch-norm statistics).  Launch with 256 threads and a
+// grid of (ceil(C / 32), 2).  Static: each source that includes this
+// header keeps its own copy, so their objects link together.
+static __global__ void __launch_bounds__(256)
+colsum2_kernel(const float* __restrict__ part, float* __restrict__ out,
+               int nblk, int C) {
+  __shared__ float red[8][33];
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
+  const float* p = part + (long long)blockIdx.y * nblk * C;
+  float acc = 0.f;
+  if (c < C)
+    for (int i = ty; i < nblk; i += 8) acc += __ldg(p + (long long)i * C + c);
+  red[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s += red[k][tx];
+    out[(long long)blockIdx.y * C + c] = s;
   }
 }
 

@@ -1,13 +1,17 @@
 """Weights between the JAX package and the port, as numpy state dicts.
 
-The port keeps the JAX model's parameter names, so a JAX
-``state_dict()`` turned into numpy arrays loads by name.  Two things
-differ: the port's projections are ``nn.Linear`` (weight ``[out, in]``)
-where paddle stores ``[in, out]``, so linear weights transpose; and the
-fused qkv columns must be head-major ``[nh, 3, hd]`` — a state whose
-``qkv_layout`` marker is below 2 (role-major ``[3, nh, hd]``) is permuted
-on load, as ``GPTSelfAttention._state_dict_compat_`` does in the JAX
-package.
+The port keeps the JAX model's parameter and buffer names, so a JAX
+``state_dict()`` turned into numpy arrays loads by name, for GPT and for
+ResNet alike (conv weights as they are, batch-norm ``_mean`` and
+``_variance`` buffers by name).  Two things differ: the port's
+projections are ``nn.Linear`` (weight ``[out, in]``) where paddle stores
+``[in, out]``, so linear weights (GPT's projections, ResNet's ``fc``)
+transpose; and GPT's fused qkv columns must be head-major ``[nh, 3, hd]``
+— a state whose ``qkv_layout`` marker is below 2 (role-major ``[3, nh,
+hd]``) is permuted on load, as ``GPTSelfAttention._state_dict_compat_``
+does in the JAX package; other models have no such layer and are not
+touched.  A name on one side only raises, so a torch-style state with
+``num_batches_tracked`` is refused.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ def _role_to_head_major(arr, nh, hd, is_bias):
 
 def load_jax_state(model: nn.Module, np_state: dict,
                    markerless_qkv_layout: str = "head_major") -> None:
-    """Copy a JAX GPT state dict (``{name: numpy array}``) into ``model``
+    """Copy a JAX state dict (``{name: numpy array}``) into ``model``
     in place.  Raises ``KeyError`` for missing or unexpected names and
     ``ValueError`` for a shape that does not fit.  A state without
     ``qkv_layout`` markers is read as ``markerless_qkv_layout``

@@ -1,10 +1,12 @@
 """Optimizers (``paddle_tpu.optimizer.optimizer`` counterparts): the
-``Optimizer`` base, ``Adam`` and ``AdamW``.
+``Optimizer`` base, ``Momentum``, ``Adam`` and ``AdamW``.
 
-The update rules follow the JAX package's ``Adam.update`` and
-``AdamW.update`` literally: moments start at zero, the step count ``t``
-counts from 1, Adam folds its L2 decay into the gradient, and AdamW
-decays decoupled, ``p *= (1 - lr * coeff)``, before the Adam step.  Where
+The update rules follow the JAX package's ``update`` methods literally:
+slots start at zero, the step count ``t`` counts from 1, Momentum and Adam
+fold their L2 decay into the gradient (``g + coeff * p``) before the
+velocity or the moments, and AdamW decays decoupled, ``p *= (1 - lr *
+coeff)``, before the Adam step.  Momentum: ``v = momentum * v + g``, then
+``p - lr * v``, or with Nesterov ``p - lr * (g + momentum * v)``.  Where
 JAX returns new arrays, the port updates the parameters and moments in
 place with ``torch._foreach_*`` ops over all parameters at once (a few
 launches a step instead of ~10 per parameter).
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
 
 def _unported(what: str, item: str):
@@ -74,8 +76,18 @@ class Optimizer:
     def _decay_coeff(self, name: str) -> float:
         return float(self._weight_decay or 0.0)
 
+    def _init_slots(self, p) -> dict:
+        raise NotImplementedError
+
     def _update(self, params, grads, slots, lr, t, decay):
         raise NotImplementedError
+
+    @staticmethod
+    def _fold_l2(params, grads, decay):
+        """L2 regularisation folded into the gradient: ``g + coeff * p``."""
+        if not any(decay):
+            return grads
+        return torch._foreach_add(grads, torch._foreach_mul(params, decay))
 
     @torch.no_grad()
     def step(self):
@@ -87,8 +99,7 @@ class Optimizer:
             return
         for n, p in live:
             if n not in self._slots:
-                self._slots[n] = {"moment1": torch.zeros_like(p),
-                                  "moment2": torch.zeros_like(p)}
+                self._slots[n] = self._init_slots(p)
         params = [p for _, p in live]
         grads = [p.grad.to(p.dtype) for p in params]
         slots = [self._slots[n] for n, _ in live]
@@ -109,6 +120,30 @@ class Optimizer:
         return sd
 
 
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_slots(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, params, grads, slots, lr, t, decay):
+        grads = self._fold_l2(params, grads, decay)
+        v = [s["velocity"] for s in slots]
+        torch._foreach_mul_(v, self._momentum)
+        torch._foreach_add_(v, grads)
+        if self._nesterov:
+            # p - lr * (g + momentum * v)
+            upd = torch._foreach_add(grads, v, alpha=self._momentum)
+            torch._foreach_add_(params, upd, alpha=-lr)
+        else:
+            torch._foreach_add_(params, v, alpha=-lr)
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -117,6 +152,10 @@ class Adam(Optimizer):
         self._beta1 = beta1
         self._beta2 = beta2
         self._eps = epsilon
+
+    def _init_slots(self, p):
+        return {"moment1": torch.zeros_like(p),
+                "moment2": torch.zeros_like(p)}
 
     def _adam(self, params, grads, slots, lr, t):
         b1, b2 = self._beta1, self._beta2
@@ -135,11 +174,8 @@ class Adam(Optimizer):
         torch._foreach_add_(params, upd, alpha=-lr)
 
     def _update(self, params, grads, slots, lr, t, decay):
-        if any(decay):
-            # L2 regularisation folded into the gradient (Adam, not AdamW)
-            grads = torch._foreach_add(
-                grads, torch._foreach_mul(params, decay))
-        self._adam(params, grads, slots, lr, t)
+        # L2 regularisation folded into the gradient (Adam, not AdamW)
+        self._adam(params, self._fold_l2(params, grads, decay), slots, lr, t)
 
 
 class AdamW(Adam):

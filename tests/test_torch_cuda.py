@@ -12,12 +12,14 @@ about one bf16 rounding (2^-8 relative): rtol/atol 1e-2.  The case
 builders are shared with ``test_torch_kernels.py`` and
 ``test_torch_train.py``.  The LayerNorm kernels' dw and db are f32 sums
 over up to 1000 rows in another order than the plain version's: atol
-1e-3 there.
+1e-3 there.  The conv+BN kernels' statistics are f32 column sums over up
+to 3000 rows of O(1) values: rtol 1e-5 and atol 1e-5 of the largest sum.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import conv_bn as cb
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import ln_matmul as lnmm
@@ -389,3 +391,106 @@ def test_fused_ln_train_step_on_card_matches_cpu(cuda):
         ln.enable_fused_layernorm(False)
         lnmm.enable_ln_matmul(False)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# -- the conv+BN experiment kernels (rows 11-13) --------------------------------
+
+def _conv_case(cuda, x_shape, C, w_shape, fan_in, seed, b_pos=False):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(*x_shape).astype(np.float32))
+    s = torch.from_numpy((1 + 0.1 * rs.randn(C)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rs.randn(C)).astype(np.float32))
+    if b_pos:
+        b = 0.5 + b.abs()
+    w = torch.from_numpy((rs.randn(*w_shape) / np.sqrt(fan_in)).astype(
+        np.float32))
+    return (x.to(cuda, torch.bfloat16), s.to(cuda), b.to(cuda),
+            w.to(cuda, torch.bfloat16))
+
+
+def _close_stats(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1024, 64, 256), (3000, 256, 64),
+                                   (77, 512, 136), (256, 2048, 512)])
+def test_conv1x1_kernels_match_plain(cuda, M, K, N):
+    """Every 1x1 instance (``_kernel``, ``_k_mm``, ``_k_stat``,
+    ``_k_pro``) at a ragged M (3000, 77), a ragged N (136: a partial
+    column tile) and the scripts' channel counts; one launch each (each
+    ``run_mm`` body on its own counter), plus one column sum under the
+    statistics."""
+    x, s, b, w = _conv_case(cuda, (M, K), K, (K, N), K, seed=M + N)
+    n0 = (cb.fused_conv1x1_bn.launches, cb.run_mm.launches,
+          cb.run_mm.launches_mm, cb.run_mm.launches_stat,
+          cb.run_pro.launches, cb.conv_bn_column_sum.launches)
+    y, st = cb.fused_conv1x1_bn(x, s, b, w, bn=N)
+    yp, stp = cb.fused_conv1x1_bn_plain(x, s, b, w)
+    torch.testing.assert_close(y, yp, **_tols(torch.bfloat16))
+    _close_stats(st, stp)
+    torch.testing.assert_close(cb.run_pro(x, s, b, w, bm=M, bn=N),
+                               cb.run_pro_plain(x, s, b, w),
+                               **_tols(torch.bfloat16))
+    torch.testing.assert_close(cb.run_mm(x, w, bm=M, bn=N),
+                               cb.run_mm_plain(x, w), **_tols(torch.bfloat16))
+    ym, stm = cb.run_mm(x, w, bm=M, bn=N, kern=cb._k_stat, nstat=True)
+    ymp, stmp = cb.run_mm_plain(x, w, stats=True)
+    torch.testing.assert_close(ym, ymp, **_tols(torch.bfloat16))
+    _close_stats(stm, stmp)
+    torch.cuda.synchronize()
+    n1 = (cb.fused_conv1x1_bn.launches, cb.run_mm.launches,
+          cb.run_mm.launches_mm, cb.run_mm.launches_stat,
+          cb.run_pro.launches, cb.conv_bn_column_sum.launches)
+    assert tuple(b_ - a for a, b_ in zip(n0, n1)) == (1, 2, 1, 1, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,W,C,Co,b_pos", [
+    (2, 56, 56, 64, 64, False), (4, 7, 7, 512, 512, False),
+    (3, 5, 9, 16, 40, True), (2, 14, 14, 256, 256, True)])
+def test_fused3x3_kernel_matches_plain(cuda, n, H, W, C, Co, b_pos):
+    """The implicit-GEMM 3x3 at the scripts' widths and a small ragged
+    image (5 x 9, Co = 40); b > 0 holds the zero padding after the
+    prologue at the border."""
+    x, s, b, w = _conv_case(cuda, (n, H, W, C), C, (3, 3, C, Co), 9 * C,
+                            seed=H * C, b_pos=b_pos)
+    before = cb.fused3x3.launches
+    y, st = cb.fused3x3(x, s, b, w, bn_blk=1)
+    torch.cuda.synchronize()
+    assert cb.fused3x3.launches == before + 1
+    yp, stp = cb.fused3x3_plain(x, s, b, w)
+    assert y.shape == (n, H, W, Co) and y.is_contiguous()
+    torch.testing.assert_close(y, yp, **_tols(torch.bfloat16))
+    _close_stats(st, stp)
+
+
+@pytest.mark.cuda
+def test_conv_bn_statistics_repeat_bitwise(cuda):
+    """No atomics: two launches give the same bits, y and statistics."""
+    x, s, b, w = _conv_case(cuda, (50176, 128), 128, (128, 512), 128, seed=3)
+    first = cb.fused_conv1x1_bn(x, s, b, w)
+    second = cb.fused_conv1x1_bn(x, s, b, w)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    x3, s3, b3, w3 = _conv_case(cuda, (8, 28, 28, 128), 128,
+                                (3, 3, 128, 128), 9 * 128, seed=4)
+    first = cb.fused3x3(x3, s3, b3, w3)
+    second = cb.fused3x3(x3, s3, b3, w3)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_conv_bn_kernels_refuse_what_they_cannot_read(cuda):
+    x, s, b, w = _conv_case(cuda, (256, 64), 64, (64, 128), 64, seed=5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cb.run_mm(x.float(), w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.run_mm(x, w.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32"):
+        cb.run_pro(x, s.to(torch.bfloat16), b, w)
+    x12, s12, b12, w12 = _conv_case(cuda, (256, 12), 12, (12, 128), 12, 6)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cb.run_mm(x12, w12)

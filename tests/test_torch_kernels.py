@@ -210,7 +210,7 @@ def test_build_digest_follows_sources():
     assert {s.name for s in srcs} == {"flash_attention_fwd.cu",
                                       "flash_attention_bwd.cu",
                                       "paged_attention.cu", "layer_norm.cu",
-                                      "ln_matmul.cu"}
+                                      "ln_matmul.cu", "conv_bn.cu"}
     assert _build._digest(srcs) == _build._digest(srcs)
     assert _build._digest(srcs[:1]) != _build._digest(srcs)
 
@@ -226,7 +226,8 @@ def test_build_check_raises_on_cuda_error():
 def test_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.kernels, "
             "paddle_tpu_torch.models, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.nn\n"
+            "paddle_tpu_torch.nn, paddle_tpu_torch.vision, "
+            "paddle_tpu_torch.kernels.conv_bn\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')]\n"
