@@ -8,12 +8,17 @@ run with a non-zero exit, and nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, device name and count;
 2. build the CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    ``nvcc`` (seconds, plus the ``-Xptxas -v`` register/shared-memory
-   report);
+   report) and print, for each flash kernel, the ``HGMMA`` (wgmma)
+   instructions ``cuobjdump -sass`` finds in it ("cuobjdump not found"
+   where there is none; a print, not a gate);
 3. hold each kernel against its plain PyTorch version at the serving
    path's shapes, TF32 off, and time kernel, plain version, the bound
-   (the larger of f32 flops / 67 TFLOP/s and bytes / 3.35 TB/s, H100 SXM
-   data sheet) and, for flash attention, PyTorch's
-   ``scaled_dot_product_attention`` as a yardstick the port never calls;
+   (the larger of flops over the operands' peak, 67 TFLOP/s f32 or 989
+   bf16, and bytes / 3.35 TB/s, H100 SXM data sheet) and, for flash
+   attention, PyTorch's ``scaled_dot_product_attention`` as a yardstick
+   the port never calls; f32 at B=4 (held at 1e-4) and one bf16 case at
+   the prefill shape B=4 T=512 causal (bf16 tolerance); device ms from
+   CUDA-graph replays, the eager call's ms beside;
 4. serve: ``gpt2-small-en`` at full width with random weights made from a
    numpy seed and loaded through ``load_jax_state``; ``Engine(max_slots=8,
    max_len=640, paged_kv=True, page_size=16)``; 24 requests (prompts of
@@ -34,10 +39,12 @@ run with a non-zero exit, and nothing is caught):
    on separate q, k, v, causal and full, at B=4 T=128, B=4 T=1024, B=2
    T=1100 (ragged) and Tq=64 Tk=256 (separate only), H=12 D=64; then the
    fused forward and backward at the training shape (B=16 T=1024 bf16).
-   Each case times kernel, plain version, PyTorch's
-   ``scaled_dot_product_attention`` (forward+backward under autograd: the
-   yardstick the port never calls) and the bound, against the bf16 peak
-   (989 TFLOP/s dense, H100 SXM data sheet) for bf16 operands;
+   Each case times kernel (delta, dk/dv and dq kernels), plain version,
+   PyTorch's ``scaled_dot_product_attention`` (forward+backward under
+   autograd, and its backward alone as that minus its forward: the
+   yardsticks the port never calls) and the bound, against the bf16 peak
+   (989 TFLOP/s dense, H100 SXM data sheet) for bf16 operands; device
+   ms from CUDA-graph replays, the eager call's ms beside;
 10. attention training through ``F.scaled_dot_product_attention``
    (separate q, k, v) at B=4 T=1024 and B=2 T=1100, bf16: one forward and
    one launch of each backward kernel per call;
@@ -45,9 +52,13 @@ run with a non-zero exit, and nothing is caught):
    ``compute_dtype=torch.bfloat16`` over f32 masters, AdamW lr 1e-4 and
    weight decay 0.01, dropout 0, random weights from a numpy seed: one
    warm-up and 5 timed steps on one batch; exactly 12 launches a step of
-   the fused forward and of each backward kernel, none of the
-   separate-operand wrappers or of a plain version; the loss must be
-   finite and fall; then one profiled step;
+   the fused forward and of each backward kernel (delta, dk/dv, dq), none
+   of the separate-operand wrappers or of a plain version; the loss must
+   be finite and fall; then one profiled step (attention kernels' ms a
+   step); then one step of the same weights and batch with the plain
+   attention in place of the kernels (the plain versions allowed for
+   that step alone, no flash launch): its loss within 1e-3 relative of
+   the kernel step's first;
 12. parity: gpt2-small-en width with 2 layers, batch 2 x 1024, f32, three
    steps on the card against the same three steps on the CPU (plain
    versions) from the same weights: losses within 1e-4 relative;
@@ -188,6 +199,42 @@ def phase_device():
     return smi, name, count
 
 
+def _kernel_name(mangled):
+    """``flash_fwd_bf16_kernel<64>`` from a mangled kernel symbol."""
+    import re
+
+    m = re.search(r"\d+(flash_\w+?_kernel)I(.+?)EEv", mangled)
+    if not m:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"L[ib](\d+)E", r"\1,", args)
+    args = "float," + args[1:] if args.startswith("f") else args
+    return f"{m.group(1)}<{args.strip(',')}>"
+
+
+def _hgmma_counts(lib_path):
+    """``HGMMA`` instructions in each flash kernel's SASS (``cuobjdump
+    -sass``), or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cob):
+        return None
+    sass = subprocess.run([cob, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = _kernel_name(m.group(1)) if "flash_" in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from paddle_tpu_torch.kernels import _build
 
@@ -197,20 +244,28 @@ def phase_build():
           f"({'reused' if info.cached else 'built'})")
     for line in info.ptxas_lines():
         print(f"[build] {line}")
-    return info.seconds
+    hgmma = _hgmma_counts(info.path)
+    if hgmma is None:
+        print("[build] HGMMA: cuobjdump not found")
+    for name, n in sorted((hgmma or {}).items()):
+        print(f"[build] HGMMA {n:3d} in {name}")
+    return info.seconds, hgmma
 
 
 def _flash_cases(dev):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    for tq, tk, causal in [(32, 32, True), (128, 128, True),
-                           (512, 512, True), (128, 128, False),
-                           (64, 256, True)]:
-        q = torch.randn(4, tq, 12, 64, device=dev, generator=gen)
-        k = torch.randn(4, tk, 12, 64, device=dev, generator=gen)
-        v = torch.randn(4, tk, 12, 64, device=dev, generator=gen)
-        yield tq, tk, causal, q, k, v
+    f32, bf16 = torch.float32, torch.bfloat16
+    for tq, tk, causal, dtype in [(32, 32, True, f32), (128, 128, True, f32),
+                                  (512, 512, True, f32),
+                                  (128, 128, False, f32),
+                                  (64, 256, True, f32),
+                                  (512, 512, True, bf16)]:
+        q = torch.randn(4, tq, 12, 64, device=dev, generator=gen).to(dtype)
+        k = torch.randn(4, tk, 12, 64, device=dev, generator=gen).to(dtype)
+        v = torch.randn(4, tk, 12, 64, device=dev, generator=gen).to(dtype)
+        yield tq, tk, causal, dtype, q, k, v
 
 
 def phase_flash(dev, tol=1e-4):
@@ -220,38 +275,49 @@ def phase_flash(dev, tol=1e-4):
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     rows = []
-    for tq, tk, causal, q, k, v in _flash_cases(dev):
+    for tq, tk, causal, dtype, q, k, v in _flash_cases(dev):
         out, lse = fa.flash_attention_bthd(q, k, v, causal=causal,
                                            return_lse=True)
         torch.cuda.synchronize()
         ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                                 return_lse=True)
-        err = max(float((out - ref).abs().max()),
-                  float((lse - ref_lse).abs().max()))
-        if not err <= tol:
-            _fail(f"flash kernel T={tq}/{tk} causal={causal}: max abs err "
-                  f"{err} > {tol}")
-        ms = _timed_ms(lambda: fa.flash_attention_bthd(q, k, v, causal),
-                       100)
-        plain_ms = _timed_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                              causal), 20)
+        name = (f"B=4 Tq={tq} Tk={tk} H=12 D=64 causal={causal} "
+                f"{str(dtype).split('.')[1]}")
+        if dtype == torch.float32:
+            err = max(float((out - ref).abs().max()),
+                      float((lse - ref_lse).abs().max()))
+            if not err <= tol:
+                _fail(f"flash kernel {name}: max abs err {err} > {tol}")
+        else:
+            err = max(_max_err([out], [ref], dtype, f"flash kernel {name}"),
+                      _max_err([lse], [ref_lse], torch.float32,
+                               f"flash kernel {name} lse"))
+        ms, eager_ms = _times(lambda: fa.flash_attention_bthd(q, k, v,
+                                                              causal), 100)
+        plain_ms, plain_eager_ms = _times(
+            lambda: fa.flash_attention_plain(q, k, v, causal), 20, calls=5)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = None
         if causal and tq != tk:   # SDPA's is_causal aligns top-left
             mask = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(
                 tk - tq)
-        lib_ms = _timed_ms(lambda: tF.scaled_dot_product_attention(
+        lib_ms, lib_eager_ms = _times(lambda: tF.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask,
             is_causal=causal and mask is None), 100)
-        bound_ms, bound_by = _bound(*fa.flash_cost(4, tq, tk, 12, 64, causal))
+        bf16 = dtype == torch.bfloat16
+        bound_ms, bound_by = _bound(
+            *fa.flash_cost(4, tq, tk, 12, 64, causal, itemsize=2 if bf16
+                           else 4), BF16_PEAK if bf16 else F32_PEAK)
         rows.append(dict(B=4, Tq=tq, Tk=tk, H=12, D=64, causal=causal,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
+                         dtype=str(dtype).split(".")[1], max_abs_err=err,
+                         ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                         plain_eager_ms=plain_eager_ms, library_ms=lib_ms,
+                         library_eager_ms=lib_eager_ms, bound_ms=bound_ms,
                          bound_by=bound_by))
-        print(f"[flash] B=4 Tq={tq} Tk={tk} H=12 D=64 causal={causal}: "
-              f"max_abs_err={err:.3e} (tol {tol}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+        print(f"[flash] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+              f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms (eager "
+              f"{plain_eager_ms:.4f}), sdpa {lib_ms:.4f} ms (eager "
+              f"{lib_eager_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
     return rows
 
 
@@ -641,8 +707,11 @@ def _attention_counters(zero=False):
 
     slots = [(fa.flash_attention_bthd, "launches", "fwd"),
              (fa.flash_attention_qkv_fused, "launches", "fused_fwd"),
+             (fa.flash_attention_bwd, "launches_delta", "bwd_delta"),
              (fa.flash_attention_bwd, "launches_dkv", "bwd_dkv"),
              (fa.flash_attention_bwd, "launches_dq", "bwd_dq"),
+             (fa.flash_attention_qkv_fused_bwd, "launches_delta",
+              "fused_bwd_delta"),
              (fa.flash_attention_qkv_fused_bwd, "launches_dkv",
               "fused_bwd_dkv"),
              (fa.flash_attention_qkv_fused_bwd, "launches_dq",
@@ -671,13 +740,13 @@ def _max_err(got, want, dtype, what):
 
 
 def _split_ms(fn, calls=3):
-    """Device ms per call of each flash backward kernel in ``fn``, from
-    ``torch.profiler``."""
+    """Device ms per call of each flash backward kernel in ``fn`` (delta,
+    dk/dv, dq; f32 or bf16 instance), from ``torch.profiler``."""
     res = _device_profile(lambda: [fn() for _ in range(calls)])
-    out = {"dkv": 0.0, "dq": 0.0}
+    out = {"delta": 0.0, "dkv": 0.0, "dq": 0.0}
     for name, ms in res["all_kernels_ms"].items():
         for part in out:
-            if f"flash_bwd_{part}_kernel" in name:
+            if f"flash_bwd_{part}_" in name:
                 out[part] += ms / calls
     return out
 
@@ -724,8 +793,9 @@ def _bwd_case(dev, gen, dtype, B, tq, tk, fused, causal, H=12, D=64,
             f"{'causal' if causal else 'full'}")
     err = _max_err(got, want, dtype, f"flash backward {name}")
     del got, want
-    ms = _timed_ms(kern, iters)
-    plain_ms = _timed_ms(plain, plain_iters, warmup=0)
+    ms, eager_ms = _times(kern, iters)
+    plain_ms, plain_eager_ms = _times(plain, plain_iters, calls=plain_iters,
+                                      warmup=0)
     qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     doh = do.reshape(B, tq, H, D).transpose(1, 2).contiguous()
@@ -733,19 +803,25 @@ def _bwd_case(dev, gen, dtype, B, tq, tk, fused, causal, H=12, D=64,
     if causal and tq != tk:   # SDPA's is_causal aligns top-left
         mask = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(tk - tq)
 
-    def library():
-        o = tF.scaled_dot_product_attention(
+    def library_fwd():
+        return tF.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
-        return torch.autograd.grad(o, (qh, kh, vh), doh)
 
-    lib_ms = _timed_ms(library, iters)
+    def library():
+        return torch.autograd.grad(library_fwd(), (qh, kh, vh), doh)
+
+    lib_ms, lib_eager_ms = _times(library, iters)
+    lib_fwd_ms = _graph_ms(library_fwd, 10)
     item = 2 if dtype == torch.bfloat16 else 4
     peak = BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK
     bound_ms, bound_by = _bound(
         *fa.flash_bwd_cost(B, tq, tk, H, D, causal, itemsize=item), peak)
     row = dict(B=B, Tq=tq, Tk=tk, H=H, D=D, dtype=str(dtype).split(".")[1],
                fused=fused, causal=causal, max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               eager_ms=eager_ms, plain_ms=plain_ms,
+               plain_eager_ms=plain_eager_ms, library_ms=lib_ms,
+               library_eager_ms=lib_eager_ms, library_fwd_ms=lib_fwd_ms,
+               library_bwd_ms=lib_ms - lib_fwd_ms, bound_ms=bound_ms,
                bound_by=bound_by)
     parts = ""
     if split:
@@ -753,11 +829,14 @@ def _bwd_case(dev, gen, dtype, B, tq, tk, fused, causal, H=12, D=64,
         for part in ("dq", "dkv"):
             row[f"bound_{part}"] = _bound(*fa.flash_bwd_cost(
                 B, tq, tk, H, D, causal, itemsize=item, part=part), peak)
-        parts = (f" (dk/dv {row['kernel_ms']['dkv']:.4f}, dq "
+        parts = (f" (delta {row['kernel_ms']['delta']:.4f}, dk/dv "
+                 f"{row['kernel_ms']['dkv']:.4f}, dq "
                  f"{row['kernel_ms']['dq']:.4f})")
     print(f"[flash-bwd] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms"
-          f"{parts}, plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+          f"{parts} (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms (eager "
+          f"{plain_eager_ms:.4f}), sdpa fwd+bwd {lib_ms:.4f} ms (eager "
+          f"{lib_eager_ms:.4f}), sdpa bwd alone {lib_ms - lib_fwd_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by})")
     return row
 
 
@@ -777,20 +856,26 @@ def _fused_fwd_case(dev, gen, B=16, T=1024, H=12, D=64):
     err = max(_max_err([out], [ref], torch.bfloat16, "fused forward"),
               _max_err([lse], [ref_lse], torch.float32, "fused forward lse"))
     del ref, ref_lse
-    ms = _timed_ms(lambda: fa.flash_attention_qkv_fused(qkv), 20)
-    plain_ms = _timed_ms(lambda: fa.flash_attention_qkv_fused_plain(qkv),
-                         2, warmup=0)
+    ms, eager_ms = _times(lambda: fa.flash_attention_qkv_fused(qkv), 20)
+    plain_ms, plain_eager_ms = _times(
+        lambda: fa.flash_attention_qkv_fused_plain(qkv), 2, calls=2,
+        warmup=0)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in qkv.unbind(3))
-    lib_ms = _timed_ms(lambda: tF.scaled_dot_product_attention(
+    lib_ms, lib_eager_ms = _times(lambda: tF.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True), 20)
-    bound_ms, bound_by = _bound(*fa.flash_cost(B, T, T, H, D, True,
-                                               itemsize=2), BF16_PEAK)
+    flops, nbytes = fa.flash_cost(B, T, T, H, D, True, itemsize=2)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_PEAK)
     print(f"[flash-fused-fwd] B={B} T={T} H={H} D={D} bf16 causal: "
-          f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+          f"max_abs_err={err:.3e} kernel {ms:.4f} ms (eager {eager_ms:.4f}; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms (eager "
+          f"{plain_eager_ms:.4f}), sdpa {lib_ms:.4f} ms (eager "
+          f"{lib_eager_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
     return dict(B=B, Tq=T, Tk=T, H=H, D=D, dtype="bfloat16", fused=True,
-                causal=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                causal=True, max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, plain_eager_ms=plain_eager_ms,
+                library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / ms / 1e9)
 
 
 def phase_flash_bwd(dev):
@@ -840,8 +925,8 @@ def phase_attention_train(dev):
             out.backward(do)
             torch.cuda.synchronize()
         n = _attention_counters()
-        want = dict(fwd=1, fused_fwd=0, bwd_dkv=1, bwd_dq=1, fused_bwd_dkv=0,
-                    fused_bwd_dq=0)
+        want = dict(fwd=1, fused_fwd=0, bwd_delta=1, bwd_dkv=1, bwd_dq=1,
+                    fused_bwd_delta=0, fused_bwd_dkv=0, fused_bwd_dq=0)
         if n != want:
             _fail(f"attention training B={B} T={T}: launches {n} != {want}")
         if not all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v)):
@@ -871,6 +956,50 @@ def _train_step(model, compute_dtype=None):
                            compute_dtype=compute_dtype)
 
 
+def _train_batch(dev, seed, batch, seq, vocab):
+    """The bench's token batch from ``RandomState(seed)``: (x, y)."""
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(seed).randint(
+        0, vocab, size=(batch, seq + 1)).astype(np.int64)
+    return (torch.from_numpy(ids[:, :-1]).to(dev),
+            torch.from_numpy(ids[:, 1:]).to(dev))
+
+
+PLAIN_LOSS_RTOL = 1e-3
+
+
+def _plain_attention_loss(dev, seed, batch, seq):
+    """The loss of one bf16 step of phase 11's model (same seed, same
+    batch) with the plain attention (``flash_attention_qkv_fused_plain``,
+    differentiated by autograd) in place of the fused kernels; the flash
+    launch counters must stay at 0."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn.functional import attention as att
+
+    model = _train_model(dev, seed)
+    step = _train_step(model, torch.bfloat16)
+    x, y = _train_batch(dev, seed, batch, seq, model.config.vocab_size)
+    kernel_fn = att.flash_attention_qkv_fused
+    att.flash_attention_qkv_fused = (
+        lambda qkv, causal=True, scale=None:
+        fa.flash_attention_qkv_fused_plain(qkv, causal=causal, scale=scale))
+    try:
+        _attention_counters(zero=True)
+        loss = float(step(x, y))
+        n = _attention_counters()
+    finally:
+        att.flash_attention_qkv_fused = kernel_fn
+    if any(n.values()):
+        _fail(f"train with the plain attention launched kernels: {n}")
+    del model, step
+    torch.cuda.empty_cache()
+    return loss
+
+
 def _run_train(dev, seed, steps, batch, seq, ln_mode="off",
                fused_proj=False):
     """One warm-up and ``steps`` timed bf16 AdamW steps of full-width
@@ -889,10 +1018,7 @@ def _run_train(dev, seed, steps, batch, seq, ln_mode="off",
             cfg.vocab_size) != (768, N_LAYERS, 12, 50304):
         _fail(f"gpt2-small-en is not at full width: {cfg}")
     step = _train_step(model, torch.bfloat16)
-    ids = np.random.RandomState(seed).randint(
-        0, cfg.vocab_size, size=(batch, seq + 1)).astype(np.int64)
-    x = torch.from_numpy(ids[:, :-1]).to(dev)
-    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    x, y = _train_batch(dev, seed, batch, seq, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _toggles(ln_mode, fused_proj):
@@ -929,10 +1055,11 @@ def _run_train(dev, seed, steps, batch, seq, ln_mode="off",
 
 def _want_launches(steps, ln=None):
     """Launch counts of ``steps`` training steps: 12 fused flash forwards
-    and 12 of each backward kernel a step, the LayerNorm counts ``ln`` a
-    step (none by default), nothing else."""
-    want = dict(fwd=0, fused_fwd=N_LAYERS, bwd_dkv=0, bwd_dq=0,
-                fused_bwd_dkv=N_LAYERS, fused_bwd_dq=N_LAYERS, ln_matmul=0,
+    and 12 of each backward kernel (delta, dk/dv, dq) a step, the
+    LayerNorm counts ``ln`` a step (none by default), nothing else."""
+    want = dict(fwd=0, fused_fwd=N_LAYERS, bwd_delta=0, bwd_dkv=0, bwd_dq=0,
+                fused_bwd_delta=N_LAYERS, fused_bwd_dkv=N_LAYERS,
+                fused_bwd_dq=N_LAYERS, ln_matmul=0,
                 ln_fwd=0, ln_bwd=0, ln_bwd_reduce=0)
     want.update(ln or {})
     return {k: v * steps for k, v in want.items()}
@@ -950,15 +1077,33 @@ def _print_train(tag, res, smi):
 
 
 def phase_train(dev, seed, smi, steps=5, batch=16, seq=1024):
+    import torch
+
     res, one_step = _run_train(dev, seed, steps, batch, seq)
     if res["launches"] != _want_launches(steps + 1):
         _fail(f"train: launches {res['launches']} != "
               f"{_want_launches(steps + 1)}")
     prof = _device_profile(one_step)
-    prof.pop("all_kernels_ms")
+    prof["attention_ms"] = sum(v for k, v in prof.pop(
+        "all_kernels_ms").items() if "flash_" in k)
     res["profile"] = prof
     _print_train("train", res, smi)
     _print_profile("train-profile", "one step", prof)
+    print(f"[train-profile] attention kernels (flash forward, delta, dk/dv, "
+          f"dq): {prof['attention_ms']:.3f} ms of the step")
+    del one_step
+    torch.cuda.empty_cache()
+    plain = _plain_attention_loss(dev, seed, batch, seq)
+    rel = abs(plain - res["losses"][0]) / abs(res["losses"][0])
+    res["plain_attention"] = dict(loss=plain, max_rel_diff=rel,
+                                  tol=PLAIN_LOSS_RTOL)
+    print(f"[train-plain] the first step with the plain attention: loss "
+          f"{plain:.6f} against the kernels' {res['losses'][0]:.6f}, rel "
+          f"diff {rel:.3e} (tol {PLAIN_LOSS_RTOL})")
+    if not rel <= PLAIN_LOSS_RTOL:
+        _fail(f"train: the plain-attention loss {plain} differs from the "
+              f"kernel step's {res['losses'][0]} by {rel} > "
+              f"{PLAIN_LOSS_RTOL}")
     return res
 
 
@@ -1890,7 +2035,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     smi, name, count = phase_device()
-    build_s = phase_build()
+    build_s, hgmma = phase_build()
     flash = phase_flash(dev)
     paged = phase_paged(dev)
     trace = None
@@ -1934,7 +2079,8 @@ def main(argv=None) -> int:
     del model, x1, y1
     torch.cuda.empty_cache()
     resnet_parity = phase_resnet_parity(dev, args.seed)
-    f_main = next(r for r in flash if r["Tq"] == 128 and r["causal"])
+    f_main = next(r for r in flash if r["Tq"] == 128 and r["causal"]
+                  and r["dtype"] == "float32")
     p_main = next(r for r in paged if r["W"] == 1 and r["pool"] == "f32")
     # kernel 2 (single tile, T <= 1024) and kernels 3, 4 (the split, T >
     # 1024): the separate-operand backward, bf16 causal, at the shapes of
@@ -1953,8 +2099,10 @@ def main(argv=None) -> int:
                     replaces=f"{fa_py}:{line}", launches=launches,
                     max_abs_err=bwd_err,
                     ms=row["ms"] if part is None else row["kernel_ms"][part],
+                    eager_ms=row["eager_ms"] if part is None else None,
                     plain_ms=row["plain_ms"], bound_ms=bound[0],
                     bound_by=bound[1], library_ms=row["library_ms"],
+                    library_bwd_ms=row["library_bwd_ms"],
                     shape=f"B={row['B']} T={row['Tq']} H=12 D=64 "
                           f"{row['dtype']} causal"
                           f"{' fused' if row['fused'] else ''}")
@@ -1966,7 +2114,8 @@ def main(argv=None) -> int:
              replaces="paddle_tpu/kernels/flash_attention.py:208",
              launches=serve["flash_launches"],
              max_abs_err=max(r["max_abs_err"] for r in flash),
-             ms=f_main["ms"], plain_ms=f_main["plain_ms"],
+             ms=f_main["ms"], eager_ms=f_main["eager_ms"],
+             plain_ms=f_main["plain_ms"],
              bound_ms=f_main["bound_ms"], bound_by=f_main["bound_by"],
              library_ms=f_main["library_ms"],
              shape="B=4 T=128 H=12 D=64 causal"),
@@ -1974,14 +2123,17 @@ def main(argv=None) -> int:
              source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
              replaces=f"{fa_py}:490", launches=n_tr["fused_fwd"],
              max_abs_err=fused_fwd["max_abs_err"], ms=fused_fwd["ms"],
+             eager_ms=fused_fwd["eager_ms"],
              plain_ms=fused_fwd["plain_ms"], bound_ms=fused_fwd["bound_ms"],
              bound_by=fused_fwd["bound_by"],
              library_ms=fused_fwd["library_ms"],
              shape="B=16 T=1024 H=12 D=64 bfloat16 causal"),
-        bwd_row("flash_attention_qkv_fused_bwd (dk/dv + dq kernels)", 534,
-                n_tr["fused_bwd_dkv"] + n_tr["fused_bwd_dq"], fused_bwd),
-        bwd_row("flash_attention_bwd (dk/dv + dq kernels)", 371,
-                n_att[1024]["bwd_dkv"] + n_att[1024]["bwd_dq"], sep_1024),
+        bwd_row("flash_attention_qkv_fused_bwd (delta + dk/dv + dq kernels)",
+                534, n_tr["fused_bwd_delta"] + n_tr["fused_bwd_dkv"]
+                + n_tr["fused_bwd_dq"], fused_bwd),
+        bwd_row("flash_attention_bwd (delta + dk/dv + dq kernels)", 371,
+                n_att[1024]["bwd_delta"] + n_att[1024]["bwd_dkv"]
+                + n_att[1024]["bwd_dq"], sep_1024),
         bwd_row("flash_bwd_dq_kernel", 402, n_att[1100]["bwd_dq"], sep_1100,
                 "dq"),
         bwd_row("flash_bwd_dkv_kernel", 425, n_att[1100]["bwd_dkv"],
@@ -2061,7 +2213,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(device=smi, torch_device=name, count=count,
-                           build_s=build_s, flash=flash, paged=paged,
+                           build_s=build_s, hgmma=hgmma, flash=flash,
+                           paged=paged,
                            flash_bwd=bwd, fused_fwd=fused_fwd,
                            fused_bwd=fused_bwd, serve=[serve, serve8],
                            attention_train=att, train=train,

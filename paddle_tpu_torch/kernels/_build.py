@@ -3,7 +3,10 @@
 Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``.  No
 PyTorch header is included, so a build takes seconds, not minutes.
-``csrc/*.cuh`` headers are shared between sources and count in the hash.
+``csrc/*.cuh`` headers are shared between sources and count in the hash
+(``sm90.cuh``: the Hopper building blocks, TMA tensor maps among them;
+``cuTensorMapEncodeTiled`` is fetched from the loaded driver library, so
+nothing beyond the runtime is linked).
 
 The build runs lazily, at the first kernel launch (never at import), into
 ``build/paddle_tpu_torch/<hash of the sources and flags>/`` under the
@@ -48,6 +51,8 @@ _SIGNATURES = {
     "paddle_flash_attention_bwd_dq":
         [_P, _P, _P, _P, _P, _P, _P, _S,
          _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "paddle_flash_attention_bwd_delta":
+        [_P, _P, _P, _S, _I, _I, _I, _I, _I, _P],
     "paddle_paged_decode_attention":
         [_P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],

@@ -15,10 +15,18 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/kernels/flash_attention.py``:
   serve every T.  For the fused operand they write dq, dk and dv into the
   role slices of one ``[B, T, nh, 3, hd]`` gradient buffer.
 
-Both kernels take float32 or bfloat16; softmax state, sums and the lse are
-f32.  ``_Flash`` and ``_FlashFused`` are the ``torch.autograd.Function``
+Both take float32 or bfloat16; softmax state, sums and the lse are f32.
+float32 runs f32-FMA kernels (no TF32); bfloat16 runs tensor-core
+kernels: TMA loads bf16 tiles into mbarrier rings and ``wgmma`` multiplies
+them, with the softmax on the f32 accumulators.  TMA reads through a 4-D
+tensor map built per call over each operand's strides
+(:func:`_tma_layout`), so a bf16 operand's base and strides must be
+16-byte aligned; a strided view that is not raises ``ValueError`` before
+any launch.  The backward's ``delta = rowsum(dO * O)`` is a kernel of its
+own (``csrc/flash_attention_bwd.cu``), launched before dk/dv and dq.
+``_Flash`` and ``_FlashFused`` are the ``torch.autograd.Function``
 counterparts of the two ``custom_vjp`` s: each saves (operands, out, lse)
-and its backward runs the backward kernel.
+and its backward runs the backward kernels.
 
 What bounds them on the H100, and what the designs do about it, is in the
 notes at the top of each source.  :func:`flash_cost` and
@@ -28,9 +36,10 @@ Every wrapper picks the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  The plain versions compute in
 f32 from the operands and round the result to the operands' type, as the
 kernels do.  Launch counters: ``flash_attention_bthd.launches`` and
-``flash_attention_qkv_fused.launches`` (forward), and ``launches_dkv`` /
-``launches_dq`` on :func:`flash_attention_bwd` (separate operands) and
-:func:`flash_attention_qkv_fused_bwd` (fused operand).
+``flash_attention_qkv_fused.launches`` (forward), and ``launches_delta``,
+``launches_dkv`` / ``launches_dq`` on :func:`flash_attention_bwd`
+(separate operands) and :func:`flash_attention_qkv_fused_bwd` (fused
+operand).
 """
 from __future__ import annotations
 
@@ -214,6 +223,62 @@ def _strides(x, what):
     return list(x.stride()[:3])
 
 
+def _tma_layout(x, what):
+    """The 4-D TMA tensor map the bf16 kernels build over a ``[B, T, H,
+    D]`` operand (``encode_map`` in ``csrc/sm90.cuh`` does the same):
+    dims innermost first — D, then the head, sequence and batch dims
+    ordered by byte stride, size-1 dims last with the extent of the dims
+    before them as their stride — their byte strides, and the order of
+    the outer three as ``"h"``, ``"t"``, ``"b"``.  Raises ``ValueError``
+    where TMA cannot read the operand: a base address, or the stride of a
+    dim longer than 1, that is not a multiple of 16 bytes."""
+    _strides(x, what)
+    B, T, H, D = x.shape
+    item = x.element_size()
+    if x.data_ptr() % 16:
+        raise ValueError(f"the bf16 flash kernels read {what} by TMA: its "
+                         f"base address must be 16-byte aligned")
+    sizes = dict(h=H, t=T, b=B)
+    strides = dict(h=x.stride(2) * item, t=x.stride(1) * item,
+                   b=x.stride(0) * item)
+    order = tuple(sorted("htb", key=lambda r: (sizes[r] == 1, 0 if
+                                               sizes[r] == 1 else strides[r])))
+    dims, bstrides, extent = [D], [], D * item
+    for r in order:
+        st = strides[r]
+        if sizes[r] == 1:
+            st = -(-extent // 16) * 16
+        elif st % 16 or st <= 0 or st >= 1 << 40:
+            raise ValueError(
+                f"the bf16 flash kernels read {what} by TMA: its "
+                f"{dict(h='head', t='sequence', b='batch')[r]} stride is "
+                f"{st} bytes, not a positive multiple of 16")
+        dims.append(sizes[r])
+        bstrides.append(st)
+        extent = st * sizes[r]
+    return tuple(dims), tuple(bstrides), order
+
+
+def _rows16(x, what):
+    """A bf16 kernel output is written 16 bytes at a time along its rows:
+    base and (batch, sequence, head) strides must be 16-byte aligned."""
+    _strides(x, what)
+    if x.data_ptr() % 16 or any(s * x.element_size() % 16
+                                for s in x.stride()[:3]):
+        raise ValueError(f"the bf16 flash kernels write {what} in 16-byte "
+                         f"rows: base and strides must be 16-byte aligned, "
+                         f"got strides {tuple(x.stride())}")
+
+
+def _check_bf16(reads, writes):
+    """Raise before a bf16 launch on an operand TMA cannot read or an
+    output the epilogue cannot write."""
+    for x, what in reads:
+        _tma_layout(x, what)
+    for x, what in writes:
+        _rows16(x, what)
+
+
 def _kernel_dtype(*xs):
     dt = xs[0].dtype
     if dt not in _DTYPE_CODE or any(x.dtype != dt for x in xs):
@@ -249,6 +314,8 @@ def _launch_fwd(q, k, v, out, causal, scale):
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     lib = _lib_for(D)
+    if code == 1:
+        _check_bf16(((q, "q"), (k, "k"), (v, "v")), ((out, "out"),))
     st = _stride_array((q, "q"), (k, "k"), (v, "v"), (out, "out"))
     lse = torch.empty(B * H, Tq, 1, dtype=torch.float32, device=q.device)
     err = lib.paddle_flash_attention_fwd(
@@ -259,30 +326,31 @@ def _launch_fwd(q, k, v, out, causal, scale):
     return lse
 
 
-def _delta(out, do):
-    """``rowsum(dO * O)`` in f32 as ``[B*H, Tq]``: one torch reduction, as
-    JAX computes it outside its kernel."""
-    B, Tq, H, _ = out.shape
-    d = (do.float() * out.float()).sum(-1)                  # [B, Tq, H]
-    return d.transpose(1, 2).reshape(B * H, Tq).contiguous()
-
-
 def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
-    """Launch the dk/dv kernel, then the dq kernel, writing into the given
-    gradient views; ``counter`` (the calling wrapper) counts each."""
+    """Launch the delta kernel (``rowsum(dO * O)``, f32 ``[B*H, Tq]``),
+    the dk/dv kernel, then the dq kernel, writing into the given gradient
+    views; ``counter`` (the calling wrapper) counts each."""
     from . import _build
 
-    code = _kernel_dtype(q, k, v, do, dq, dk, dv)
+    code = _kernel_dtype(q, k, v, out, do, dq, dk, dv)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     lib = _lib_for(D)
     lse = lse.reshape(B * H, Tq)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("the flash backward takes the forward's f32 lse")
-    delta = _delta(out, do)
+    if code == 1:
+        _check_bf16(((q, "q"), (k, "k"), (v, "v"), (do, "dO")),
+                    ((dq, "dq"), (dk, "dk"), (dv, "dv")))
     st = _stride_array((q, "q"), (k, "k"), (v, "v"), (do, "dO"), (dq, "dq"),
                        (dk, "dk"), (dv, "dv"))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
+    err = lib.paddle_flash_attention_bwd_delta(
+        out.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        _stride_array((out, "out"), (do, "dO")), B, Tq, H, D, code, stream)
+    _build.check(err, "flash_attention_bwd_delta")
+    counter.launches_delta += 1
     common = (st, B, Tq, Tk, H, D, ctypes.c_float(scale), int(bool(causal)),
               code, stream)
     err = lib.paddle_flash_attention_bwd_dkv(
@@ -327,8 +395,8 @@ def _bthd_fwd(q, k, v, causal, scale):
 def flash_attention_bwd(q, k, v, out, lse, do, causal=True, scale=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention_bthd` from its
     saved out and lse.  CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors launch the dk/dv and
-    dq kernels (any failure raises)."""
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the delta,
+    dk/dv and dq kernels (any failure raises)."""
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -396,9 +464,10 @@ def _fused_fwd(qkv, causal, scale):
 def flash_attention_qkv_fused_bwd(qkv, out, lse, do, causal=True,
                                   scale=None):
     """dqkv ``[B, T, nh, 3, hd]`` of :func:`flash_attention_qkv_fused`
-    from its saved out ``[B, T, nh*hd]`` and lse.  On the card the dk/dv
-    and dq kernels write straight into the role slices of one gradient
-    buffer (no stack); CPU tensors take the plain version."""
+    from its saved out ``[B, T, nh*hd]`` and lse.  On the card the delta
+    kernel runs first, then the dk/dv and dq kernels write straight into
+    the role slices of one gradient buffer (no stack); CPU tensors take
+    the plain version."""
     q, k, v = _split_qkv(qkv)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -450,7 +519,9 @@ def flash_attention_qkv_fused(qkv, causal=True, scale=None):
 
 flash_attention_bthd.launches = 0
 flash_attention_qkv_fused.launches = 0
+flash_attention_bwd.launches_delta = 0
 flash_attention_bwd.launches_dkv = 0
 flash_attention_bwd.launches_dq = 0
+flash_attention_qkv_fused_bwd.launches_delta = 0
 flash_attention_qkv_fused_bwd.launches_dkv = 0
 flash_attention_qkv_fused_bwd.launches_dq = 0

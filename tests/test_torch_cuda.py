@@ -8,7 +8,9 @@ have none): ``python -m pytest -m cuda tests/test_torch_*.py`` runs it
 there.  Tolerance 1e-4 in f32: the kernels sum in another order than
 the plain f32 matmuls (TF32 off).  In bf16 both sides compute in f32 from
 the same bf16 operands and round the result to bf16, so they differ by
-about one bf16 rounding (2^-8 relative): rtol/atol 1e-2.  The case
+about one bf16 rounding (2^-8 relative): rtol/atol 1e-2 (the tensor-core
+kernels also round P and dS to bf16 before their products, as wgmma
+takes them: a 2^-9 relative error a term, well inside it).  The case
 builders are shared with ``test_torch_kernels.py`` and
 ``test_torch_train.py``.  The LayerNorm kernels' dw and db are f32 sums
 over up to 1000 rows in another order than the plain version's: atol
@@ -207,6 +209,174 @@ def test_kernels_refuse_a_strided_head_dim(cuda):
     q = torch.randn(1, 8, 2, 64, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="unit-stride"):
         fa.flash_attention_bthd(q, q, q)
+
+
+# -- the bf16 tensor-core flash kernels (wgmma + TMA) --------------------------
+
+# (B, Tq, Tk, H, D, fused): head sizes 32, 64, 128; ragged T (77, 1100);
+# Tq < Tk and Tq > Tk (separate operands); the fused role views; one long
+# sequence
+BF16_CASES = [(2, 128, 128, 4, 32, False), (2, 128, 128, 4, 64, False),
+              (2, 128, 128, 4, 128, False), (2, 77, 77, 2, 64, False),
+              (2, 77, 77, 3, 32, True), (2, 1100, 1100, 3, 64, True),
+              (2, 1100, 1100, 2, 128, False), (2, 300, 300, 4, 128, True),
+              (2, 64, 256, 4, 64, False), (2, 256, 64, 4, 64, False),
+              (2, 200, 72, 2, 32, False), (1, 4096, 4096, 2, 64, True)]
+BF16_IDS = ["x".join(map(str, c[:5])) + ("-fused" if c[5] else "-separate")
+            for c in BF16_CASES]
+
+
+def _bf16_operands(cuda, B, Tq, Tk, H, D, fused, seed):
+    """bf16 q, k, v (role views of one fused buffer when ``fused``) and a
+    dO of q's shape, from a numpy seed."""
+    if fused:
+        qkv, do = _bwd_case(B, Tq, Tk, H, D, fused=True, seed=seed)
+        qkv = torch.from_numpy(qkv).to(cuda, torch.bfloat16)
+        do = torch.from_numpy(do).to(cuda, torch.bfloat16)
+        return (*fa._split_qkv(qkv), do.view(B, Tq, H, D), qkv)
+    (q, k, v), do = _bwd_case(B, Tq, Tk, H, D, fused=False, seed=seed)
+    return (*(torch.from_numpy(x).to(cuda, torch.bfloat16)
+              for x in (q, k, v, do)), None)
+
+
+def _dead_rows(Tq, Tk, causal):
+    """Causal rows with no live key (Tq > Tk): the first Tq - Tk."""
+    return max(0, Tq - Tk) if causal else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", BF16_CASES, ids=BF16_IDS)
+def test_bf16_forward_matches_plain(cuda, case, causal):
+    """Live rows within a bf16 rounding of the plain version (lse within
+    1e-4: f32 from the same bf16 operands); a causal row with no live key
+    (Tq > Tk) is zero, where the plain softmax averages the masked row."""
+    B, Tq, Tk, H, D, fused = case
+    q, k, v, _, qkv = _bf16_operands(cuda, *case, seed=Tq + D)
+    counter = fa.flash_attention_qkv_fused if fused else fa.flash_attention_bthd
+    before = counter.launches
+    if fused:
+        out, lse = fa._fused_fwd(qkv, causal, D ** -0.5)
+        out = out.view(B, Tq, H, D)
+    else:
+        out, lse = fa.flash_attention_bthd(q, k, v, causal=causal,
+                                           return_lse=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+    dead = _dead_rows(Tq, Tk, causal)
+    assert out.dtype == torch.bfloat16
+    assert not out[:, :dead].float().any()
+    torch.testing.assert_close(out[:, dead:], ref[:, dead:], **_tols(
+        torch.bfloat16))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", BF16_CASES, ids=BF16_IDS)
+def test_bf16_backward_matches_plain(cuda, case, causal):
+    """dq, dk, dv of the bf16 kernels (delta, dk/dv, dq: one launch each)
+    within a bf16 rounding of the plain backward from the same out and
+    lse.  Rows with no live key give the kernels' forward a constant zero
+    output, so their dO changes no gradient: the plain backward (whose
+    masked row attends uniformly) is taken with those rows of dO at 0."""
+    B, Tq, Tk, H, D, fused = case
+    q, k, v, do, qkv = _bf16_operands(cuda, *case, seed=Tq + H)
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    counter = fa.flash_attention_qkv_fused_bwd if fused else \
+        fa.flash_attention_bwd
+    before = (counter.launches_delta, counter.launches_dkv,
+              counter.launches_dq)
+    if fused:
+        got = fa.flash_attention_qkv_fused_bwd(
+            qkv, out.reshape(B, Tq, H * D), lse, do.reshape(B, Tq, H * D),
+            causal=causal).unbind(3)
+    else:
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (counter.launches_delta, counter.launches_dkv,
+            counter.launches_dq) == tuple(n + 1 for n in before)
+    live_do = do.clone()
+    live_do[:, :_dead_rows(Tq, Tk, causal)] = 0
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, live_do,
+                                        causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g, w, **_tols(torch.bfloat16),
+                                   msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_bf16_backward_repeats_bitwise(cuda):
+    """No atomics in the bf16 kernels either: two launches give identical
+    gradients."""
+    qkv, do = _bwd_case(2, 300, 300, 4, 64, fused=True)
+    qkv, do = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in (qkv, do))
+    out, lse = fa._fused_fwd(qkv, True, 0.125)
+    one = fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do)
+    two = fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do)
+    assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhtd", "one-head"])
+def test_bf16_kernels_read_any_stride_order(cuda, layout):
+    """The tensor maps order the outer dims by stride: q, k, v and dO
+    viewed from [B, H, T, D] buffers (the sequence stride below the head
+    stride), and B = H = 1 (size-1 dims), match the plain versions
+    forward and backward."""
+    B, T, H, D = (2, 200, 3, 64) if layout == "bhtd" else (1, 200, 1, 64)
+    rs = np.random.RandomState(7)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, H, T, D).astype(np.float32))
+                   .to(cuda, torch.bfloat16).transpose(1, 2)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_bthd(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                            return_lse=True)
+    torch.testing.assert_close(out, ref, **_tols(torch.bfloat16))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    got = fa.flash_attention_bwd(q, k, v, ref, ref_lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do,
+                                        causal=True)
+    for name, g, w in zip("qkv", got, want):
+        torch.testing.assert_close(g, w, **_tols(torch.bfloat16),
+                                   msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["base", "head-stride"])
+def test_bf16_kernels_refuse_a_misaligned_operand(cuda, how):
+    """TMA reads 16-byte aligned tiles: a bf16 operand whose base address
+    or head stride is not a multiple of 16 bytes raises before a launch
+    (an f32 operand has no such rule)."""
+    B, T, H, D = 2, 64, 2, 64
+
+    def layout(dtype):
+        if how == "base":
+            x = torch.randn(B * T * H * D + 1, device=cuda).to(dtype)
+            return x[1:].view(B, T, H, D)
+        return torch.randn(B, T, H, D + 4, device=cuda).to(dtype)[..., :D]
+
+    q = layout(torch.bfloat16)
+    match = "base address" if how == "base" else "head stride"
+    k = torch.randn(B, T, H, D, device=cuda).to(torch.bfloat16)
+    before = (fa.flash_attention_bthd.launches,
+              fa.flash_attention_bwd.launches_delta)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_bthd(q, k, k)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_bwd(q, k, k, k, torch.zeros(B * H, T, 1,
+                                                       device=cuda), k)
+    assert (fa.flash_attention_bthd.launches,
+            fa.flash_attention_bwd.launches_delta) == before
+    q32, k32 = layout(torch.float32), k.float()
+    out = fa.flash_attention_bthd(q32, k32, k32)
+    torch.testing.assert_close(out, fa.flash_attention_plain(q32, k32, k32),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
