@@ -8,9 +8,10 @@ run with a non-zero exit, and nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, device name and count;
 2. build the CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    ``nvcc`` (seconds, plus the ``-Xptxas -v`` register/shared-memory
-   report) and print, for each flash kernel, the ``HGMMA`` (wgmma)
-   instructions ``cuobjdump -sass`` finds in it ("cuobjdump not found"
-   where there is none; a print, not a gate);
+   report) and print, for each flash and ``ln_matmul`` kernel, the
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
+   ``cuobjdump -sass`` finds in it ("cuobjdump not found" where there is
+   none; a print, not a gate);
 3. hold each kernel against its plain PyTorch version at the serving
    path's shapes, TF32 off, and time kernel, plain version, the bound
    (the larger of flops over the operands' peak, 67 TFLOP/s f32 or 989
@@ -44,7 +45,11 @@ run with a non-zero exit, and nothing is caught):
    autograd, and its backward alone as that minus its forward: the
    yardsticks the port never calls) and the bound, against the bf16 peak
    (989 TFLOP/s dense, H100 SXM data sheet) for bf16 operands; device
-   ms from CUDA-graph replays, the eager call's ms beside;
+   ms from CUDA-graph replays, the eager call's ms beside; then causal
+   Tq > Tk at the reference's tile boundaries ((Tq, Tk) = (200, 120),
+   (1100, 600), (2100, 1000), (3100, 1100); B=1 H=4 D=64, f32 and bf16):
+   out, lse, dq, dk, dv against the plain versions, the rows with no live
+   key included, one launch of the dead-row pass each way;
 10. attention training through ``F.scaled_dot_product_attention``
    (separate q, k, v) at B=4 T=1024 and B=2 T=1100, bf16: one forward and
    one launch of each backward kernel per call;
@@ -64,27 +69,36 @@ run with a non-zero exit, and nothing is caught):
    versions) from the same weights: losses within 1e-4 relative;
 13. the LayerNorm kernels (forward, and the backward's dx kernel with its
    dw/db column sum) against their plain versions at N=16384 C=768 (one
-   LayerNorm of the training step) in bf16 and f32, and at N=1000 and
-   N=8; each times kernel, plain version, ``torch.nn.functional.
+   LayerNorm of the training step) in bf16 and f32, at N=1000 and N=8,
+   at the widths past a lane's registers (N=4096: C=1280 and 4096 f32,
+   2560 and 8192 bf16), and with the ``ln_matmul`` backward's f32 dy
+   beside bf16 x (N=16384 C=768); each times kernel, plain version,
+   ``torch.nn.functional.
    layer_norm`` (forward; forward+backward under autograd for the
    backward: the yardsticks the port never calls) and the bound (bytes),
    rotating over input sets that outgrow the 50 MB L2.  Device ms come
    from CUDA-graph replays of back-to-back calls; the ms of an eager call
    (CUDA events, host included) is printed beside them;
-14. the ``ln_matmul`` kernel against its plain version at N=16384 K=768
-   M=2304 (qkv) and 3072 (fc0) in bf16, N=300 in f32 and N=8 in bf16;
-   times kernel, plain version, ``layer_norm`` + ``torch.matmul`` and the
-   bound (operations, at the bf16 peak for bf16), as phase 13;
+14. the ``ln_matmul`` kernels (bf16: the statistics pass and the wgmma
+   product) against their plain version at N=16384 K=768 M=2304 (qkv) and
+   3072 (fc0), N=4096 K=1280 M=3840 and N=2048 K=1024 M=4096 in bf16,
+   N=300 in f32 and N=8 in bf16; times kernel (and TFLOP/s), plain
+   version, ``layer_norm`` + ``torch.matmul`` and the bound (operations,
+   at the bf16 peak for bf16), as phase 13, and prints the bf16 kernel's
+   ``HGMMA`` and ``UTMALDG`` counts from phase 2;
 15. fused-LayerNorm training: phase 11's step from the same weights and
    batch with ``enable_ln_matmul(True)`` and ``enable_fused_layernorm(
    "full")``: one warm-up and 5 timed steps, exactly 24 ``ln_matmul``
-   launches, one LayerNorm forward and one backward (dx kernel and column
-   sum) a step besides phase 11's attention launches, no plain version;
-   losses finite, falling and within 1e-3 relative of phase 11's; then
-   LayerNorm "full" alone (25 + 25 a step) and "bwd" alone (0 + 25), one
-   warm-up and two timed steps each; then one profiled both-on step;
+   launches and 25 LayerNorm forwards and backwards (dx kernel and column
+   sum) a step -- each ``ln_matmul`` backward runs one of each, the final
+   norm the 25th -- besides phase 11's attention launches, no plain
+   version; losses finite, falling and within 1e-3 relative of phase
+   11's; then LayerNorm "full" alone (25 + 25 a step) and "bwd" alone
+   (0 + 25), one warm-up and two timed steps each; then one profiled
+   both-on step (the ``ln_matmul`` and LayerNorm kernels' ms, and the
+   step's kernels by device time);
 16. fused-LayerNorm parity: phase 12 with both toggles on (4 ``ln_matmul``
-   launches and one LayerNorm forward and backward a step on the card),
+   launches and 5 LayerNorm forwards and backwards a step on the card),
    losses within 1e-4 relative of the CPU's;
 17. fused-LayerNorm serving: 8 f32 requests with
    ``enable_fused_layernorm("full")``: 25 LayerNorm forward launches a
@@ -203,18 +217,21 @@ def _kernel_name(mangled):
     """``flash_fwd_bf16_kernel<64>`` from a mangled kernel symbol."""
     import re
 
-    m = re.search(r"\d+(flash_\w+?_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d+((?:flash|ln)_\w+?_kernel)I(.+?)EEv", mangled)
     if not m:
-        return mangled
+        m = re.search(r"\d+((?:flash|ln)_\w+?_kernel)", mangled)
+        return m.group(1) if m else mangled
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"L[ib](\d+)E", r"\1,", args)
     args = "float," + args[1:] if args.startswith("f") else args
     return f"{m.group(1)}<{args.strip(',')}>"
 
 
-def _hgmma_counts(lib_path):
-    """``HGMMA`` instructions in each flash kernel's SASS (``cuobjdump
-    -sass``), or None where the toolkit has no cuobjdump."""
+def _sass_counts(lib_path):
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
+    flash and ``ln_matmul`` kernel's SASS (``cuobjdump -sass``), as
+    ``{kernel: (hgmma, utmaldg)}``, or None where the toolkit has no
+    cuobjdump."""
     import re
     import shutil
 
@@ -227,12 +244,16 @@ def _hgmma_counts(lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = _kernel_name(m.group(1)) if "flash_" in m.group(1) else None
+            name = m.group(1)
+            fn = (_kernel_name(name) if "flash_" in name
+                  or "ln_matmul_" in name else None)
             if fn:
-                counts[fn] = 0
+                counts[fn] = [0, 0]
         elif fn and "HGMMA" in line:
-            counts[fn] += 1
-    return counts
+            counts[fn][0] += 1
+        elif fn and "UTMALDG" in line:
+            counts[fn][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def phase_build():
@@ -244,12 +265,12 @@ def phase_build():
           f"({'reused' if info.cached else 'built'})")
     for line in info.ptxas_lines():
         print(f"[build] {line}")
-    hgmma = _hgmma_counts(info.path)
-    if hgmma is None:
-        print("[build] HGMMA: cuobjdump not found")
-    for name, n in sorted((hgmma or {}).items()):
-        print(f"[build] HGMMA {n:3d} in {name}")
-    return info.seconds, hgmma
+    sass = _sass_counts(info.path)
+    if sass is None:
+        print("[build] HGMMA / UTMALDG: cuobjdump not found")
+    for name, (n, t) in sorted((sass or {}).items()):
+        print(f"[build] HGMMA {n:3d}, UTMALDG {t:3d} in {name}")
+    return info.seconds, sass
 
 
 def _flash_cases(dev):
@@ -903,6 +924,50 @@ def phase_flash_bwd(dev):
     return rows, fwd, main
 
 
+def phase_dead_rows(dev, shapes=((200, 120), (1100, 600), (2100, 1000),
+                                  (3100, 1100))):
+    """Causal Tq > Tk at the reference's tile boundaries: the rows with no
+    live key through the kernels (the main kernels, then the dead-row pass
+    each way) against the plain versions, f32 and bf16, B=1 H=4 D=64."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for tq, tk in shapes:
+            q, k, v = (torch.randn(1, t, 4, 64, device=dev, generator=gen)
+                       .to(dtype) for t in (tq, tk, tk))
+            do = torch.randn(1, tq, 4, 64, device=dev, generator=gen).to(
+                dtype)
+            before = (fa.flash_attention_bthd.launches_dead,
+                      fa.flash_attention_bwd.launches_dead)
+            out, lse = fa.flash_attention_bthd(q, k, v, causal=True,
+                                               return_lse=True)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, do)
+            torch.cuda.synchronize()
+            n = (fa.flash_attention_bthd.launches_dead - before[0],
+                 fa.flash_attention_bwd.launches_dead - before[1])
+            name = f"Tq={tq} Tk={tk} {str(dtype).split('.')[1]}"
+            if n != (1, 1):
+                _fail(f"dead rows {name}: dead-row launches {n} != (1, 1)")
+            ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                                    return_lse=True)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+            err = max(_max_err([out], [ref], dtype, f"dead rows {name} out"),
+                      _max_err([lse], [ref_lse], torch.float32,
+                               f"dead rows {name} lse"),
+                      _max_err(grads, want, dtype, f"dead rows {name} grads"))
+            rows.append(dict(Tq=tq, Tk=tk, dtype=str(dtype).split(".")[1],
+                             max_abs_err=err, launches_dead=n))
+            print(f"[dead-rows] B=1 H=4 D=64 causal {name}: rows "
+                  f"0..{tq - tk - 1} with no live key, max_abs_err={err:.3e} "
+                  f"(out, lse, dq, dk, dv against the plain versions), "
+                  f"dead-row launches {n}")
+    return rows
+
+
 def phase_attention_train(dev):
     """Attention training through the functional API on separate q, k, v
     (``F.scaled_dot_product_attention`` under autograd), bf16: per call one
@@ -1112,8 +1177,9 @@ def phase_train_parity(dev, seed, tol=1e-4, fused_ln=False):
     the CPU from the same weights: the kernels against the plain
     versions through the whole step.  With ``fused_ln`` both
     fused-LayerNorm toggles are on (LayerNorm "full") on both sides, and
-    the card must launch 4 ``ln_matmul`` and one LayerNorm forward and
-    backward a step."""
+    the card must launch 4 ``ln_matmul`` and 5 LayerNorm forwards and
+    backwards a step (one of each in every ``ln_matmul`` backward, and the
+    final norm's)."""
     import numpy as np
     import torch
 
@@ -1132,7 +1198,7 @@ def phase_train_parity(dev, seed, tol=1e-4, fused_ln=False):
                 n_card = _ln_counters()
     want = {k: 0 for k in n_card}
     if fused_ln:
-        want.update(ln_matmul=12, ln_fwd=3, ln_bwd=3, ln_bwd_reduce=3)
+        want.update(ln_matmul=12, ln_fwd=15, ln_bwd=15, ln_bwd_reduce=15)
     if n_card != want:
         _fail(f"{tag}: LayerNorm launches on the card {n_card} != {want}")
     card, cpu = np.array(losses["cuda"]), np.array(losses["cpu"])
@@ -1224,16 +1290,25 @@ def phase_layernorm(dev):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
-    for N, dtype in ((16384, torch.bfloat16), (16384, torch.float32),
-                     (1000, torch.bfloat16), (1000, torch.float32),
-                     (8, torch.bfloat16), (8, torch.float32)):
-        C = 768
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (N, C, x's type, dy's type): the training step's width, then rows
+    # wider than a lane's registers hold (the wide kernels), then the
+    # ln_matmul backward's f32 dy beside bf16 x
+    for N, C, dtype, dy_dtype in (
+            (16384, 768, bf16, bf16), (16384, 768, f32, f32),
+            (1000, 768, bf16, bf16), (1000, 768, f32, f32),
+            (8, 768, bf16, bf16), (8, 768, f32, f32),
+            (4096, 1280, f32, f32), (4096, 2560, bf16, bf16),
+            (4096, 4096, f32, f32), (4096, 8192, bf16, bf16),
+            (16384, 768, bf16, f32)):
         item = 2 if dtype == torch.bfloat16 else 4
+        dy_item = 2 if dy_dtype == torch.bfloat16 else 4
         # enough input sets that one rotation streams > 150 MB: the 50 MB
         # L2 does not hold the next call's rows
         n_sets = max(2, min(8, -(-150_000_000 // (2 * N * C * item))))
-        sets = [tuple(torch.randn(N, C, device=dev, generator=gen).to(dtype)
-                      for _ in range(2)) for _ in range(n_sets)]
+        sets = [(torch.randn(N, C, device=dev, generator=gen).to(dtype),
+                 torch.randn(N, C, device=dev, generator=gen).to(dy_dtype))
+                for _ in range(n_sets)]
         w = (1 + 0.1 * torch.randn(C, device=dev, generator=gen)).to(dtype)
         b = (0.1 * torch.randn(C, device=dev, generator=gen)).to(dtype)
         stats = [ln.layer_norm_fwd(x, w, b, EPS)[1:] for x, _ in sets]
@@ -1244,7 +1319,8 @@ def phase_layernorm(dev):
         torch.cuda.synchronize()
         yp, mup, rsp = ln.layer_norm_fwd_plain(x, w, b, EPS)
         dxp, dwp, dbp = ln.layer_norm_bwd_plain(x, w, mu, rs, dy)
-        name = f"N={N} C={C} {str(dtype).split('.')[1]}"
+        name = f"N={N} C={C} {str(dtype).split('.')[1]}" + (
+            " dy float32" if dy_dtype != dtype else "")
         err_f = max(_max_err([y], [yp], dtype, f"LayerNorm forward {name}"),
                     _max_err([mu, rs], [mup, rsp], torch.float32,
                              f"LayerNorm statistics {name}"))
@@ -1271,14 +1347,16 @@ def phase_layernorm(dev):
 
         def lib_bwd(xr, dy_):
             out = tF.layer_norm(xr, (C,), wr, br, EPS)
-            return torch.autograd.grad(out, (xr, wr, br), dy_)
+            return torch.autograd.grad(out, (xr, wr, br), dy_.to(out.dtype))
 
         bwd_lib = _times(_rotating(lib_bwd, lib_sets), 50, calls=3)
         for part, err, ms, plain_ms, lib_ms in (
                 ("fwd", err_f, fwd, fwd_plain, fwd_lib),
                 ("bwd", err_b, bwd, bwd_plain, bwd_lib)):
-            bound_ms, bound_by = _bound(*ln.layernorm_cost(N, C, item, part))
+            bound_ms, bound_by = _bound(*ln.layernorm_cost(
+                N, C, item, part, dy_itemsize=dy_item))
             row = dict(N=N, C=C, dtype=str(dtype).split(".")[1], part=part,
+                       dy_dtype=str(dy_dtype).split(".")[1],
                        max_abs_err=err, ms=ms[0], call_ms=ms[1],
                        plain_ms=plain_ms[0], plain_call_ms=plain_ms[1],
                        library_ms=lib_ms[0], library_call_ms=lib_ms[1],
@@ -1295,19 +1373,28 @@ def phase_layernorm(dev):
     return rows
 
 
-def phase_ln_matmul(dev):
+def phase_ln_matmul(dev, sass):
     """Kernel 8 against its plain version at the training step's two
-    projections, the f32 path and the decode rows; times and bounds.
-    Inputs at a layer's scales: g ~ 1, b ~ 0, W ~ 1/sqrt(K)."""
+    projections, the widths 1280 and 1024 (GPT-2-large's and -medium's
+    qkv and fc0 shapes, fewer rows), the f32 path and the decode rows;
+    times, TFLOP/s and bounds, and the bf16 kernel's ``HGMMA`` and
+    ``UTMALDG`` counts from phase 2.  Inputs at a layer's scales: g ~ 1,
+    b ~ 0, W ~ 1/sqrt(K)."""
     import torch
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.kernels import ln_matmul as lnmm
 
+    counts = {k: v for k, v in (sass or {}).items()
+              if k.startswith("ln_matmul_wgmma")}
+    print(f"[ln-matmul] bf16 kernel SASS (HGMMA, UTMALDG): "
+          f"{counts or 'cuobjdump not found'}")
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
     for N, K, M, dtype in ((16384, 768, 2304, torch.bfloat16),
                            (16384, 768, 3072, torch.bfloat16),
+                           (4096, 1280, 3840, torch.bfloat16),
+                           (2048, 1024, 4096, torch.bfloat16),
                            (300, 768, 2304, torch.float32),
                            (8, 768, 2304, torch.bfloat16)):
         x = torch.randn(N, K, device=dev, generator=gen).to(dtype)
@@ -1334,7 +1421,8 @@ def phase_ln_matmul(dev):
                          plain_ms=plain_ms[0], plain_call_ms=plain_ms[1],
                          library_ms=lib_ms[0], library_call_ms=lib_ms[1],
                          bound_ms=bound_ms, bound_by=bound_by,
-                         tflops=flops / ms[0] / 1e9))
+                         tflops=flops / ms[0] / 1e9,
+                         sass=counts if dtype == torch.bfloat16 else None))
         print(f"[ln-matmul] {name}: max_abs_err={err:.3e} device ms (a "
               f"call's ms): kernel {ms[0]:.4f} ({ms[1]:.4f}; "
               f"{flops / ms[0] / 1e9:.1f} TFLOP/s), plain {plain_ms[0]:.4f} "
@@ -1360,8 +1448,11 @@ def phase_fused_train(dev, seed, smi, base_losses, steps=5, batch=16,
     import torch
 
     L = N_LAYERS
+    # both on: each ln_matmul backward runs one LayerNorm forward (xln) and
+    # one backward (dx kernel and column sum); the final norm one more
     configs = (("both", "full", True, steps,
-                dict(ln_matmul=2 * L, ln_fwd=1, ln_bwd=1, ln_bwd_reduce=1)),
+                dict(ln_matmul=2 * L, ln_fwd=2 * L + 1, ln_bwd=2 * L + 1,
+                     ln_bwd_reduce=2 * L + 1)),
                ("ln-full", "full", False, 2,
                 dict(ln_fwd=2 * L + 1, ln_bwd=2 * L + 1,
                      ln_bwd_reduce=2 * L + 1)),
@@ -1389,12 +1480,20 @@ def phase_fused_train(dev, seed, smi, base_losses, steps=5, batch=16,
             kernels = prof.pop("all_kernels_ms")
             prof["ln_kernels_ms"] = {
                 part: sum(v for k, v in kernels.items() if part in k)
-                for part in ("ln_matmul_bf16_kernel", "ln_fwd_kernel",
-                             "ln_bwd_kernel", "ln_bwd_reduce_kernel")}
+                for part in ("ln_stats_kernel", "ln_matmul_wgmma_kernel",
+                             "ln_fwd_kernel", "ln_bwd_kernel",
+                             "colsum2_kernel")}
+            prof["ln_matmul_ms"] = (prof["ln_kernels_ms"]["ln_stats_kernel"]
+                                    + prof["ln_kernels_ms"][
+                                        "ln_matmul_wgmma_kernel"])
+            # the step's kernels by device time, the backward's cuBLAS
+            # products among them
+            prof["kernels_ms"] = dict(list(kernels.items())[:25])
             res["profile"] = prof
             _print_profile("train-both-profile", "one step", prof)
             print(f"[train-both-profile] LayerNorm kernels in the step: "
-                  f"{prof['ln_kernels_ms']}")
+                  f"{prof['ln_kernels_ms']}; ln_matmul (statistics + "
+                  f"product) {prof['ln_matmul_ms']:.3f} ms a step")
         out[name] = res
         del one_step
         torch.cuda.empty_cache()
@@ -2035,7 +2134,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     smi, name, count = phase_device()
-    build_s, hgmma = phase_build()
+    build_s, sass = phase_build()
     flash = phase_flash(dev)
     paged = phase_paged(dev)
     trace = None
@@ -2054,6 +2153,7 @@ def main(argv=None) -> int:
     # per-kernel split) must not sit before the serving phases' host timing
     torch.cuda.empty_cache()
     bwd, fused_fwd, fused_bwd = phase_flash_bwd(dev)
+    dead = phase_dead_rows(dev)
     att = phase_attention_train(dev)
     train = phase_train(dev, args.seed, smi)
     torch.cuda.empty_cache()
@@ -2061,7 +2161,7 @@ def main(argv=None) -> int:
     # the fused-LayerNorm phases come last, for the same reason
     torch.cuda.empty_cache()
     ln_rows = phase_layernorm(dev)
-    lnmm_rows = phase_ln_matmul(dev)
+    lnmm_rows = phase_ln_matmul(dev, sass)
     fused = phase_fused_train(dev, args.seed, smi, train["losses"])
     torch.cuda.empty_cache()
     parity_ln = phase_train_parity(dev, args.seed, fused_ln=True)
@@ -2150,13 +2250,14 @@ def main(argv=None) -> int:
     n_ln = fused["both"]["launches"]
     qkv = next(r for r in lnmm_rows if r["M"] == 2304 and r["N"] == 16384)
     kernels.append(dict(
-        name="ln_matmul", route="cuda",
+        name="ln_matmul (statistics + wgmma kernels)", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/ln_matmul.cu",
         replaces="paddle_tpu/kernels/ln_matmul.py:100",
         launches=n_ln["ln_matmul"],
         max_abs_err=max(r["max_abs_err"] for r in lnmm_rows),
         ms=qkv["ms"], plain_ms=qkv["plain_ms"], bound_ms=qkv["bound_ms"],
         bound_by=qkv["bound_by"], library_ms=qkv["library_ms"],
+        tflops=qkv["tflops"], sass_hgmma_utmaldg=qkv["sass"],
         shape="N=16384 K=768 M=2304 bfloat16 (qkv)"))
     ln_src = "paddle_tpu_torch/kernels/csrc/layer_norm.cu"
     for part, line, launches, title in (
@@ -2164,7 +2265,8 @@ def main(argv=None) -> int:
             ("bwd", 152, n_ln["ln_bwd"] + n_ln["ln_bwd_reduce"],
              "layer_norm_bwd (dx + column-sum kernels)")):
         main_row = next(r for r in ln_rows if r["part"] == part
-                        and r["N"] == 16384 and r["dtype"] == "bfloat16")
+                        and r["N"] == 16384 and r["dtype"] == "bfloat16"
+                        and r["dy_dtype"] == "bfloat16")
         kernels.append(dict(
             name=title, route="cuda", source=ln_src,
             replaces=f"paddle_tpu/kernels/layer_norm.py:{line}",
@@ -2213,9 +2315,10 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(device=smi, torch_device=name, count=count,
-                           build_s=build_s, hgmma=hgmma, flash=flash,
+                           build_s=build_s, sass=sass, flash=flash,
                            paged=paged,
-                           flash_bwd=bwd, fused_fwd=fused_fwd,
+                           flash_bwd=bwd, dead_rows=dead,
+                           fused_fwd=fused_fwd,
                            fused_bwd=fused_bwd, serve=[serve, serve8],
                            attention_train=att, train=train,
                            parity=parity, layernorm=ln_rows,

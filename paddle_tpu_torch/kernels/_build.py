@@ -53,6 +53,11 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "paddle_flash_attention_bwd_delta":
         [_P, _P, _P, _S, _I, _I, _I, _I, _I, _P],
+    "paddle_flash_attention_dead_fwd":
+        [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _P],
+    "paddle_flash_attention_dead_bwd":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _S,
+         _I, _I, _I, _I, _I, _F, _I, _P],
     "paddle_paged_decode_attention":
         [_P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -61,12 +66,12 @@ _SIGNATURES = {
     "paddle_layer_norm_fwd":
         [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "paddle_layer_norm_bwd":
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "paddle_layer_norm_bwd_reduce": [_P, _P, _I, _I, _P],
     "paddle_layer_norm_bwd_blocks": [_I],
     "paddle_layer_norm_max_c": [_I],
     "paddle_ln_matmul":
-        [_P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+        [_P, _L, _P, _P, _P, _L, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "paddle_conv_bn_gemm":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _I, _I, _P],

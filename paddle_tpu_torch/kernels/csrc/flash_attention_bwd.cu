@@ -66,9 +66,14 @@
 // for dq); the causal diagonal is shifted by offset = Tk - Tq (`:357`);
 // masked scores are -1e30 before exp(s - lse).  The TPU pads lse with 1e30
 // so that padded q rows give p = 0; here the kernels mask rows past Tq and
-// keys past Tk themselves.  A causal q row with no live key (Tq > Tk) gets
-// zero gradients, as the forward kernel gives it a zero output (in the
-// bf16 kernels exactly: a masked score gives p = 0, whatever the lse).
+// keys past Tk themselves.  A masked score gives p = 0 in every kernel
+// here, whatever the lse, so a causal row with no live key (i < Tq - Tk)
+// adds nothing in them and gets dq = 0.  The reference's p on such a row
+// follows its tiles (`DeadRule`, flash_common.cuh): 1 on the keys its q
+// tile visits.  After dk/dv and dq, only when causal and Tq > Tk (never
+// on the GPT path, Tq <= Tk), two small kernels add what those p give:
+// `flash_dead_dq_kernel` writes the rows' dq and `flash_dead_dkv_kernel`
+// adds their terms to dk and dv, in f32 from the operands.
 #include <math.h>
 
 #include "flash_common.cuh"
@@ -118,13 +123,13 @@ __device__ __forceinline__ void stage_rows(float* sL, float* sD,
   }
 }
 
-// p = exp(s - lse) for one score, with the forward's mask: a masked key
-// scores -1e30; rows past Tq and keys past Tk give 0.
+// p = exp(s - lse) for one score; a masked key (exp(-1e30 - lse) on a row
+// with live keys), rows past Tq and keys past Tk give 0.
 __device__ __forceinline__ float recompute_p(float s, int row, int col,
                                              int Tq, int Tk, int causal,
                                              int offset, float lse_row) {
   if (row >= Tq || col >= Tk) return 0.f;
-  if (causal && col > row + offset) s = kNegInf;
+  if (causal && col > row + offset) return 0.f;
   return expf(s - lse_row);
 }
 
@@ -897,6 +902,126 @@ int bwd_entry(int which, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// -- causal rows with no live key ----------------------------------------------
+
+// dq of row i = blockIdx.x < Tq - Tk of head blockIdx.y: ds_c = dO_i . v_c -
+// delta_i on the row's bwd_keys keys (p = 1), then dq_i = scale * sum_c
+// ds_c k_c, a thread a column (D <= 128); written over the main kernels'
+// zeros.  128 threads; keys in chunks of 256 (ds in shared memory).
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_dead_dq_kernel(BwdArgs<T> a, int D) {
+  __shared__ float s_do[128], s_ds[256];
+  const DeadRule rule(a.Tq, a.Tk);
+  const int i = blockIdx.x, bh = blockIdx.y, b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int j = threadIdx.x, warp = j >> 5, lane = j & 31;
+  const int keys = rule.bwd_keys(i);
+  const T* oi = head_ptr(a.dout, a.sdo, b, h) + (long long)i * a.sdo.t;
+  s_do[j] = j < D ? to_f32(oi[j]) : 0.f;
+  const float delta = a.delta[(long long)bh * a.Tq + i];
+  const T* vb = head_ptr(a.v, a.sv, b, h);
+  const T* kb = head_ptr(a.k, a.sk, b, h);
+  __syncthreads();
+  float acc = 0.f;
+  for (int c0 = 0; c0 < keys; c0 += 256) {
+    const int c1 = min(keys, c0 + 256);
+    for (int c = c0 + warp; c < c1; c += 4) {
+      float d = 0.f;
+      for (int jj = lane; jj < D; jj += 32)
+        d += s_do[jj] * to_f32(vb[(long long)c * a.sv.t + jj]);
+      d = warp_sum(d);
+      if (lane == 0) s_ds[c - c0] = d - delta;
+    }
+    __syncthreads();
+    if (j < D)
+      for (int c = c0; c < c1; ++c)
+        acc += s_ds[c - c0] * to_f32(kb[(long long)c * a.sk.t + j]);
+    __syncthreads();
+  }
+  if (j < D)
+    head_ptr(a.dq, a.sdq, b, h)[(long long)i * a.sdq.t + j] =
+        from_f32<T>(acc * a.scale);
+}
+
+// dk and dv of key c = blockIdx.x of head blockIdx.y: the terms of the rows
+// i < Tq - Tk whose bwd_keys pass c: dv_c += dO_i, dk_c += scale * ds_ic q_i
+// with ds_ic = dO_i . v_c - delta_i.  A warp takes every fourth row, a lane
+// columns lane + 32 m; the four warps' sums are added in warp order, then
+// to the main kernel's dk and dv.
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_dead_dkv_kernel(BwdArgs<T> a, int D) {
+  __shared__ float s_v[128], red[4][2][128];
+  const DeadRule rule(a.Tq, a.Tk);
+  const int c = blockIdx.x, bh = blockIdx.y, b = bh / a.H;
+  const int h = bh - b * a.H, n_dead = a.Tq - a.Tk;
+  const int j = threadIdx.x, warp = j >> 5, lane = j & 31;
+  const T* vc = head_ptr(a.v, a.sv, b, h) + (long long)c * a.sv.t;
+  s_v[j] = j < D ? to_f32(vc[j]) : 0.f;
+  __syncthreads();
+  const T* qb = head_ptr(a.q, a.sq, b, h);
+  const T* ob = head_ptr(a.dout, a.sdo, b, h);
+  float ak[4] = {0.f, 0.f, 0.f, 0.f}, av[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = warp; i < n_dead; i += 4) {
+    if (rule.bwd_keys(i) <= c) continue;
+    const T* qi = qb + (long long)i * a.sq.t;
+    const T* oi = ob + (long long)i * a.sdo.t;
+    float dv[4], d = 0.f;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int jj = lane + 32 * m;
+      dv[m] = jj < D ? to_f32(oi[jj]) : 0.f;
+      d += dv[m] * s_v[jj];
+    }
+    const float ds = warp_sum(d) - a.delta[(long long)bh * a.Tq + i];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int jj = lane + 32 * m;
+      if (jj < D) {
+        ak[m] += ds * to_f32(qi[jj]);
+        av[m] += dv[m];
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    red[warp][0][lane + 32 * m] = ak[m];
+    red[warp][1][lane + 32 * m] = av[m];
+  }
+  __syncthreads();
+  if (j < D) {
+    float sk = 0.f, sv = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      sk += red[w][0][j];
+      sv += red[w][1][j];
+    }
+    T* dk = head_ptr(a.dk, a.sdk, b, h) + (long long)c * a.sdk.t + j;
+    T* dv = head_ptr(a.dv, a.sdv, b, h) + (long long)c * a.sdv.t + j;
+    *dk = from_f32<T>(to_f32(*dk) + sk * a.scale);
+    *dv = from_f32<T>(to_f32(*dv) + sv);
+  }
+}
+
+template <typename T>
+int launch_dead_bwd(const void* q, const void* k, const void* v,
+                    const void* dout, const float* delta, void* dq, void* dk,
+                    void* dv, const long long* st, int B, int Tq, int Tk,
+                    int H, int D, float scale, cudaStream_t s) {
+  if (D > 128 || Tq <= Tk) return (int)cudaErrorInvalidValue;
+  BwdArgs<T> a = make_args<T>(q, k, v, dout, nullptr, delta, dq, dk, dv, st,
+                              Tq, Tk, H, scale, 1);
+  flash_dead_dq_kernel<T><<<dim3(Tq - Tk, B * H), 128, 0, s>>>(a, D);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  // the keys of the last dead row (the most: bwd_keys grows with the row)
+  const int keys = DeadRule(Tq, Tk).bwd_keys(Tq - Tk - 1);
+  if (keys > 0)
+    flash_dead_dkv_kernel<T><<<dim3(keys, B * H), 128, 0, s>>>(a, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -944,6 +1069,25 @@ int paddle_flash_attention_bwd_delta(const void* out, const void* dout,
   if (dtype == 1)
     return launch_delta<__nv_bfloat16>(out, so, dout, sdo, delta, B, Tq, H,
                                        D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The causal rows i < Tq - Tk (Tq > Tk) of a backward whose delta, dk/dv
+// and dq kernels have run: dq of those rows written, their terms added to
+// dk and dv.  strides and dtype as paddle_flash_attention_bwd_dkv.
+int paddle_flash_attention_dead_bwd(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* delta, void* dq, void* dk,
+                                    void* dv, const long long* strides, int B,
+                                    int Tq, int Tk, int H, int D, float scale,
+                                    int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_dead_bwd<float>(q, k, v, dout, delta, dq, dk, dv, strides,
+                                  B, Tq, Tk, H, D, scale, s);
+  if (dtype == 1)
+    return launch_dead_bwd<__nv_bfloat16>(q, k, v, dout, delta, dq, dk, dv,
+                                          strides, B, Tq, Tk, H, D, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -59,8 +59,11 @@
 //   * l is clamped at 1e-30 before the divide and the log;
 //   * lse = m + log(l) is written for the backward.
 //   The ragged edge (T not a tile multiple) is masked here, not padded.
-//   A causal q tile with no live key at all (Tq > Tk) writes zeros; in
-//   the bf16 kernel every row with no live key does, whatever its tile.
+//   Causal rows with no live key (i < Tq - Tk) take the reference's
+//   result, which follows its own tiles (`DeadRule`, flash_common.cuh):
+//   `flash_dead_fwd_kernel` writes it over what the main kernel wrote for
+//   them, launched only when causal and Tq > Tk, so the GPT path (Tq <=
+//   Tk) never runs it.
 #include <math.h>
 
 #include "flash_common.cuh"
@@ -484,6 +487,48 @@ int dispatch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// -- causal rows with no live key --------------------------------------------
+
+// One block of 128 threads per (64 rows i < Tq - Tk, b*h): the rows of a
+// block lie in one reference q tile (64 divides its bq: 1024, or Tq), so
+// they share one result: the f32 sum of v over the first min(L, Tk) keys,
+// over L (`DeadRule::fwd_cols`; L = 0: zeros), written to each row (a
+// thread a column of the head, D <= 128) with lse = -1e30.
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_dead_fwd_kernel(const T* __restrict__ v, Strides sv, T* __restrict__ out,
+                      Strides so, float* __restrict__ lse, int Tq, int Tk,
+                      int H, int D) {
+  const DeadRule rule(Tq, Tk);
+  const int bh = blockIdx.y, b = bh / H, h = bh - (bh / H) * H;
+  const int i0 = blockIdx.x * 64, i1 = min(Tq - Tk, i0 + 64);
+  const int L = rule.fwd_cols(i0), keys = min(L, Tk);
+  const int j = threadIdx.x;
+  float m = 0.f;
+  if (j < D && L > 0) {
+    const T* vb = head_ptr(v, sv, b, h) + j;
+    float acc = 0.f;
+    for (int c = 0; c < keys; ++c) acc += to_f32(vb[(long long)c * sv.t]);
+    m = acc / (float)L;
+  }
+  T* ob = head_ptr(out, so, b, h);
+  for (int i = i0; i < i1; ++i) {
+    if (j < D) ob[(long long)i * so.t + j] = from_f32<T>(m);
+    if (j == 0) lse[(long long)bh * Tq + i] = kNegInf;
+  }
+}
+
+template <typename T>
+int launch_dead_fwd(const void* v, void* out, float* lse, const long long* st,
+                    int B, int Tq, int Tk, int H, int D, cudaStream_t s) {
+  if (D > 128 || Tq <= Tk) return (int)cudaErrorInvalidValue;
+  dim3 grid((Tq - Tk + 63) / 64, B * H);
+  flash_dead_fwd_kernel<T><<<grid, 128, 0, s>>>(
+      (const T*)v, Strides{st[0], st[1], st[2]}, (T*)out,
+      Strides{st[3], st[4], st[5]}, lse, Tq, Tk, H, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -514,6 +559,23 @@ int paddle_flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)                       // bf16: the wgmma + TMA kernel
     return dispatch_fwd_bf16(q, k, v, out, lse, strides, B, Tq, Tk, H, D,
                              scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+
+// The causal rows i < Tq - Tk (Tq > Tk) of a forward the main kernel has
+// written: out and lse overwritten with the reference's result.  strides:
+// 6 element strides, (batch, sequence, head) of v and out.
+int paddle_flash_attention_dead_fwd(const void* v, void* out, float* lse,
+                                    const long long* strides, int B, int Tq,
+                                    int Tk, int H, int D, int dtype,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_dead_fwd<float>(v, out, lse, strides, B, Tq, Tk, H, D, s);
+  if (dtype == 1)
+    return launch_dead_fwd<__nv_bfloat16>(v, out, lse, strides, B, Tq, Tk, H,
+                                          D, s);
   return (int)cudaErrorInvalidValue;
 }
 

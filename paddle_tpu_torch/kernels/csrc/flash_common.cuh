@@ -36,6 +36,17 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Butterfly sum over the warp.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 // Base pointer of head h of batch b.
 template <typename T>
@@ -170,5 +181,39 @@ inline bool rows16(const void* p, const long long* st) {
   return !((uintptr_t)p & 15) && st[0] % 8 == 0 && st[1] % 8 == 0 &&
          st[2] % 8 == 0;
 }
+
+// -- causal rows with no live key (Tq > Tk) --------------------------------
+
+// The reference's result on the causal rows i < Tq - Tk follows its tiles
+// (`_block_sizes` in paddle_tpu/kernels/flash_attention.py: bq = min(1024,
+// Tq), bk = min(1024, Tk)): every score of such a row is -1e30, so each kv
+// tile its q tile visits (j * bk <= q_tile * bq + bq - 1 + Tk - Tq; every
+// tile in the one-pass forward of a single kv tile) gives p = 1 on all bk
+// columns, the padding past Tk included, and its lse is -1e30.
+// `dead_rows` in flash_attention.py computes the same.
+struct DeadRule {
+  int Tq, Tk, bq, bk, nq, nk;
+
+  __host__ __device__ DeadRule(int tq, int tk)
+      : Tq(tq), Tk(tk), bq(tq < 1024 ? tq : 1024), bk(tk < 1024 ? tk : 1024),
+        nq((tq + bq - 1) / bq), nk((tk + bk - 1) / bk) {}
+  // columns of the kv tiles row i's q tile visits in the split kernels
+  __host__ __device__ int visited(int i) const {
+    const int hi = (i / bq) * bq + bq - 1 + Tk - Tq;
+    if (hi < 0) return 0;
+    const int n = hi / bk + 1;
+    return (n < nk ? n : nk) * bk;
+  }
+  // the forward's columns with p = 1 (its divisor; 0: a zero row)
+  __host__ __device__ int fwd_cols(int i) const {
+    return nk == 1 ? bk : visited(i);
+  }
+  // the backward's keys with p = 1
+  __host__ __device__ int bwd_keys(int i) const {
+    if (nq == 1 && nk == 1) return Tk;
+    const int c = visited(i);
+    return c < Tk ? c : Tk;
+  }
+};
 
 }  // namespace paddle_flash

@@ -59,6 +59,30 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* f) {
   *reinterpret_cast<uint4*>(p) = pack8(f);
 }
 
+// V elements (V a multiple of 4) from p as f32: float4 loads, or one 16-
+// or 8-byte load of bf16 (p aligned to the load).  For a row of another
+// type than the one that sets the lane's vector width.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* f) {
+#pragma unroll
+  for (int v = 0; v < V; v += 4) load16(p + v, f + v);
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
+  if constexpr (V == 8) {
+    load16(p, f);
+  } else {
+    static_assert(V == 4, "bf16 vectors of 4 or 8");
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = b.x;
+    f[3] = b.y;
+  }
+}
+
 // Element i of a float (bf16 == 0) or bf16 parameter vector, as f32.
 __device__ __forceinline__ float param_at(const void* p, int bf16, int i) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])

@@ -39,7 +39,9 @@ kernels do.  Launch counters: ``flash_attention_bthd.launches`` and
 ``flash_attention_qkv_fused.launches`` (forward), and ``launches_delta``,
 ``launches_dkv`` / ``launches_dq`` on :func:`flash_attention_bwd`
 (separate operands) and :func:`flash_attention_qkv_fused_bwd` (fused
-operand).
+operand); ``launches_dead`` on ``flash_attention_bthd`` and
+:func:`flash_attention_bwd` counts the pass over causal rows with no live
+key (Tq > Tk), which the fused operand (Tq = Tk) never runs.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_bthd", "flash_attention_plain",
+__all__ = ["flash_attention_bthd", "flash_attention_plain", "dead_rows",
            "flash_attention_qkv_fused", "flash_attention_qkv_fused_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_qkv_fused_bwd",
@@ -57,6 +59,10 @@ __all__ = ["flash_attention_bthd", "flash_attention_plain",
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the reference's largest q and kv tiles (``_block_sizes``,
+# paddle_tpu/kernels/flash_attention.py:42-47), which decide its result on
+# causal rows with no live key
+_REF_TILE = 1024
 
 
 def _scores(q, k, mask, causal, scale):
@@ -114,17 +120,59 @@ def _split_qkv(qkv):
     return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
 
+def dead_rows(Tq, Tk):
+    """The reference's result on the causal rows ``i < Tq - Tk``, which
+    have no live key, follows its tiles (``_block_sizes``: bq = min(1024,
+    Tq), bk = min(1024, Tk)).  Every score of such a row is -1e30, so each
+    kv tile that its q tile visits (``j*bk <= q_tile*bq + bq - 1 +
+    Tk - Tq``; every tile in the one-pass forward of a single kv tile)
+    gives p = 1 on all bk columns, the padding past Tk included, and its
+    lse is -1e30.  Returns two lists over those rows: ``L``, the
+    forward's columns with p = 1 (its output is the sum of v over the
+    first ``min(L, Tk)`` keys divided by L; 0 when no tile is visited:
+    a zero row), and ``cb``, the keys with p = 1 in the backward (the
+    single-tile kernel when one q and one kv tile cover the call, else
+    the split kernels' visited tiles).  ``csrc/flash_common.cuh``'s
+    ``DeadRule`` computes the same."""
+    bq, bk = min(_REF_TILE, Tq), min(_REF_TILE, Tk)
+    nq, nk = -(-Tq // bq), -(-Tk // bk)
+    L, cb = [], []
+    for i in range(max(0, Tq - Tk)):
+        hi = (i // bq) * bq + bq - 1 + Tk - Tq
+        cols = 0 if hi < 0 else min(nk, hi // bk + 1) * bk
+        L.append(bk if nk == 1 else cols)
+        cb.append(Tk if nq == 1 and nk == 1 else min(cols, Tk))
+    return L, cb
+
+
+def _dead_keys(cols, Tk, device):
+    """``[len(cols), Tk]`` f32: 1 on the first ``cols[i]`` keys of row i."""
+    c = torch.tensor(cols, dtype=torch.int64, device=device)
+    return (torch.arange(Tk, device=device) < c[:, None]).float()
+
+
 def flash_attention_plain(q, k, v, causal=True, scale=None,
                           return_lse=False):
     """The plain forward: :func:`sdpa_ref` without a mask, in f32 from the
     operands, rounded to their type; with ``return_lse`` also the f32
-    logsumexp ``[B*H, Tq, 1]`` of the same scores."""
+    logsumexp ``[B*H, Tq, 1]`` of the same scores.  Causal rows with no
+    live key (Tq > Tk) follow the reference's tiles (:func:`dead_rows`)."""
     _check(q, k, v)
     B, Tq, H, D = q.shape
+    Tk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     qf, kf, vf = q.float(), k.float(), v.float()
-    out = sdpa_ref(qf, kf, vf, None, causal, scale).to(q.dtype)
+    out = sdpa_ref(qf, kf, vf, None, causal, scale)
+    if causal and Tq > Tk:
+        L, _ = dead_rows(Tq, Tk)
+        n = torch.tensor(L, dtype=torch.float32, device=q.device)
+        keys = _dead_keys([min(x, Tk) for x in L], Tk, q.device)
+        sums = torch.einsum("ic,bchd->bihd", keys, vf)
+        out[:, :Tq - Tk] = torch.where(
+            n[:, None, None] > 0, sums / n.clamp(min=1.0)[:, None, None],
+            torch.zeros((), device=q.device))
+    out = out.to(q.dtype)
     if not return_lse:
         return out
     lse = torch.logsumexp(_scores(qf, kf, None, causal, scale), dim=-1)
@@ -136,15 +184,19 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
     """The plain backward: (dq, dk, dv) recomputed from the saved lse, in
     f32, as the TPU kernels do — ``p = exp(s - lse)``, ``dv = p^T dO``,
     ``ds = p (dO v^T - rowsum(dO * O))``, ``dq = ds k * scale``,
-    ``dk = ds^T q * scale`` — rounded to the operands' type."""
+    ``dk = ds^T q * scale`` — rounded to the operands' type.  Causal rows
+    with no live key take the reference's p (:func:`dead_rows`)."""
     _check(q, k, v)
     B, Tq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    Tk = k.shape[1]
     qf, kf = q.float(), k.float()
     vh, oh, doh = (x.float().transpose(1, 2) for x in (v, out, do))
     p = torch.exp(_scores(qf, kf, None, causal, scale)
                   - lse.reshape(B, H, Tq, 1))
+    if causal and Tq > Tk:      # rows with no live key: the reference's p
+        p[:, :, :Tq - Tk] = _dead_keys(dead_rows(Tq, Tk)[1], Tk, q.device)
     dv = torch.matmul(p.transpose(-1, -2), doh)
     delta = (doh * oh).sum(-1, keepdim=True)
     ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)
@@ -306,8 +358,9 @@ def _stride_array(*ops):
 
 
 def _launch_fwd(q, k, v, out, causal, scale):
-    """Launch the forward kernel into ``out`` (any strides, unit-stride D);
-    returns the f32 lse ``[B*H, Tq, 1]``."""
+    """Launch the forward kernel into ``out`` (any strides, unit-stride D)
+    and, for causal Tq > Tk, the kernel that writes the rows with no live
+    key (:func:`dead_rows`); returns the f32 lse ``[B*H, Tq, 1]``."""
     from . import _build
 
     code = _kernel_dtype(q, k, v, out)
@@ -318,18 +371,27 @@ def _launch_fwd(q, k, v, out, causal, scale):
         _check_bf16(((q, "q"), (k, "k"), (v, "v")), ((out, "out"),))
     st = _stride_array((q, "q"), (k, "k"), (v, "v"), (out, "out"))
     lse = torch.empty(B * H, Tq, 1, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paddle_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), st, B, Tq, Tk, H, D, ctypes.c_float(scale),
-        int(bool(causal)), code, torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), code, stream)
     _build.check(err, "flash_attention_fwd")
+    if causal and Tq > Tk:      # rows with no live key: the reference's
+        err = lib.paddle_flash_attention_dead_fwd(
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _stride_array((v, "v"), (out, "out")), B, Tq, Tk, H, D, code,
+            stream)
+        _build.check(err, "flash_attention_dead_fwd")
+        flash_attention_bthd.launches_dead += 1
     return lse
 
 
 def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
     """Launch the delta kernel (``rowsum(dO * O)``, f32 ``[B*H, Tq]``),
     the dk/dv kernel, then the dq kernel, writing into the given gradient
-    views; ``counter`` (the calling wrapper) counts each."""
+    views, and for causal Tq > Tk the rows with no live key (dq written,
+    dk and dv added to); ``counter`` (the calling wrapper) counts each."""
     from . import _build
 
     code = _kernel_dtype(q, k, v, out, do, dq, dk, dv)
@@ -364,6 +426,13 @@ def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common)
     _build.check(err, "flash_attention_bwd_dq")
     counter.launches_dq += 1
+    if causal and Tq > Tk:      # rows with no live key: the reference's
+        err = lib.paddle_flash_attention_dead_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), st,
+            B, Tq, Tk, H, D, ctypes.c_float(scale), code, stream)
+        _build.check(err, "flash_attention_dead_bwd")
+        counter.launches_dead += 1
 
 
 def _on_card(x, what):
@@ -518,10 +587,12 @@ def flash_attention_qkv_fused(qkv, causal=True, scale=None):
 
 
 flash_attention_bthd.launches = 0
+flash_attention_bthd.launches_dead = 0
 flash_attention_qkv_fused.launches = 0
 flash_attention_bwd.launches_delta = 0
 flash_attention_bwd.launches_dkv = 0
 flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dead = 0
 flash_attention_qkv_fused_bwd.launches_delta = 0
 flash_attention_qkv_fused_bwd.launches_dkv = 0
 flash_attention_qkv_fused_bwd.launches_dq = 0

@@ -5,14 +5,18 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/kernels/layer_norm.py``:
 
 * ``_ln_fwd_impl`` -> ``_ln_fwd_kernel``: ``y = (x - mu) * rstd * w + b``
   in x's type, with the f32 row mean and rstd saved for the backward;
-* ``_ln_bwd_impl`` -> ``_ln_bwd_kernel``: ``dx`` in dy's type and the f32
-  column sums ``dw = sum(dy * xhat)``, ``db = sum(dy)``.
+* ``_ln_bwd_impl`` -> ``_ln_bwd_kernel``: ``dx`` in x's type and the f32
+  column sums ``dw = sum(dy * xhat)``, ``db = sum(dy)``.  ``dy`` comes in
+  x's type or, beside bf16 x, in f32 (the ``ln_matmul`` backward's f32
+  gradient of the normalised rows).
 
 Both live in ``csrc/layer_norm.cu``.  The TPU carried dw and db across a
 sequential grid in scratch memory; here the backward is two kernels: one
 writes dx and one f32 partial of dw and db per block, the other sums the
 partials column by column in a fixed order.  No atomics, so gradients
-repeat bitwise.
+repeat bitwise.  A lane holds its part of a row in registers up to C =
+2048 (bf16) or 1024 (f32); wider rows, any C % 8 == 0, run kernels that
+sweep the row more than once with the same arithmetic.
 
 The path is opt-in, as in the reference: ``enable_fused_layernorm`` takes
 ``"off"`` (the default), ``"full"`` (kernel forward and backward, through
@@ -80,30 +84,32 @@ _torch_ln = layer_norm_fwd_plain
 
 def layer_norm_bwd_plain(x2, w, mu, rs, dy):
     """The plain backward: ``(dx, dw, db)`` from the saved statistics,
-    ``dx`` in dy's type, ``dw`` and ``db`` ``[C]`` f32."""
+    ``dx`` in x's type, ``dw`` and ``db`` ``[C]`` f32."""
     x = x2.float()
     dyf = dy.float()
     xhat = (x - mu) * rs
     dyw = dyf * w.float()
     m1 = dyw.mean(dim=1, keepdim=True)
     m2 = (dyw * xhat).mean(dim=1, keepdim=True)
-    dx = (rs * (dyw - m1 - xhat * m2)).to(dy.dtype)
+    dx = (rs * (dyw - m1 - xhat * m2)).to(x2.dtype)
     return dx, (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
 
 
-def layernorm_cost(N, C, itemsize=4, part="fwd", w_itemsize=None):
+def layernorm_cost(N, C, itemsize=4, part="fwd", w_itemsize=None,
+                   dy_itemsize=None):
     """Analytic work of one call: (flops, bytes).  ``part="fwd"``: x read
     and y written once (``itemsize`` bytes an element), w and b read once,
-    the f32 mean and rstd written once; ``part="bwd"``: x and dy read and
-    dx written once, the statistics and w read once, f32 dw and db written
-    once.  Flops count the element-wise arithmetic (7 an element forward,
-    12 backward)."""
+    the f32 mean and rstd written once; ``part="bwd"``: x and dy
+    (``dy_itemsize`` bytes, x's by default) read and dx written once, the
+    statistics and w read once, f32 dw and db written once.  Flops count
+    the element-wise arithmetic (7 an element forward, 12 backward)."""
     wi = itemsize if w_itemsize is None else w_itemsize
+    di = itemsize if dy_itemsize is None else dy_itemsize
     if part == "fwd":
         return 7.0 * N * C, itemsize * 2.0 * N * C + 2.0 * wi * C + 8.0 * N
     if part == "bwd":
-        return (12.0 * N * C,
-                itemsize * 3.0 * N * C + 8.0 * N + wi * C + 8.0 * C)
+        return (12.0 * N * C, (2.0 * itemsize + di) * N * C + 8.0 * N
+                + wi * C + 8.0 * C)
     raise ValueError(f"part must be 'fwd' or 'bwd', got {part!r}")
 
 
@@ -132,17 +138,6 @@ def _check_rows(x2, what, *params):
                              f"on {p.device}")
 
 
-def _lib(C, dtype):
-    from . import _build
-
-    lib = _build.library()
-    limit = lib.paddle_layer_norm_max_c(_DTYPE_CODE[dtype])
-    if C > limit:
-        raise ValueError(f"the LayerNorm kernels hold a row in registers: "
-                         f"C = {C} exceeds {limit} for {dtype}")
-    return lib
-
-
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -162,7 +157,7 @@ def layer_norm_fwd(x2, w, b, eps):
     rs = torch.empty(N, 1, dtype=torch.float32, device=x2.device)
     if N == 0:
         return y, mu, rs
-    lib = _lib(C, x2.dtype)
+    lib = _build.library()
     err = lib.paddle_layer_norm_fwd(
         x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
         mu.data_ptr(), rs.data_ptr(), N, C, float(eps),
@@ -175,9 +170,9 @@ def layer_norm_fwd(x2, w, b, eps):
 
 def layer_norm_bwd(x2, w, mu, rs, dy):
     """Backward from the saved statistics: ``(dx, dw, db)`` as
-    :func:`layer_norm_bwd_plain` returns them.  CPU tensors take the plain
-    version; CUDA tensors launch the dx kernel and the dw/db column sum
-    (any failure raises)."""
+    :func:`layer_norm_bwd_plain` returns them.  ``dy`` in x's type, or f32
+    beside bf16 x.  CPU tensors take the plain version; CUDA tensors
+    launch the dx kernel and the dw/db column sum (any failure raises)."""
     if not _on_card(x2, "fused LayerNorm backward"):
         return layer_norm_bwd_plain(x2, w, mu, rs, dy)
     from . import _build
@@ -185,27 +180,33 @@ def layer_norm_bwd(x2, w, mu, rs, dy):
     dy = dy.contiguous()
     _check_rows(x2, "the LayerNorm backward kernel", w)
     _check_rows(dy, "the LayerNorm backward kernel")
-    if dy.shape != x2.shape or dy.dtype != x2.dtype:
+    if dy.shape != x2.shape or dy.dtype not in (x2.dtype, torch.float32):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
-                         f"{tuple(x2.shape)} {x2.dtype}")
+                         f"{tuple(x2.shape)} {x2.dtype} (dy takes x's type "
+                         f"or float32)")
     N, C = x2.shape
     for s in (mu, rs):
         if s.dtype != torch.float32 or s.numel() != N or not s.is_contiguous():
             raise ValueError("the LayerNorm backward takes the forward's f32 "
                              "[N, 1] mean and rstd")
-    dx = torch.empty_like(dy)
+    dx = torch.empty_like(x2)
     if N == 0:
         z = torch.zeros(C, dtype=torch.float32, device=x2.device)
         return dx, z, z.clone()
-    lib = _lib(C, x2.dtype)
+    lib = _build.library()
     nblk = lib.paddle_layer_norm_bwd_blocks(N)
     part = torch.empty(2, nblk, C, dtype=torch.float32, device=x2.device)
     dwb = torch.empty(2, C, dtype=torch.float32, device=x2.device)
+    # rows wider than a lane's registers keep two f32 sums a row aside
+    m12 = (torch.empty(2, N, dtype=torch.float32, device=x2.device)
+           if C > lib.paddle_layer_norm_max_c(_DTYPE_CODE[x2.dtype]) else None)
     stream = _stream(x2)
     err = lib.paddle_layer_norm_bwd(
         x2.data_ptr(), w.data_ptr(), mu.data_ptr(), rs.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), part.data_ptr(), N, C, nblk,
-        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype], stream)
+        dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        0 if m12 is None else m12.data_ptr(), N, C, nblk,
+        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[dy.dtype],
+        stream)
     _build.check(err, "layer_norm_bwd")
     layer_norm_fused.launches_bwd += 1
     err = lib.paddle_layer_norm_bwd_reduce(part.data_ptr(), dwb.data_ptr(),

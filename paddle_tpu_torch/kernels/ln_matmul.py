@@ -2,23 +2,29 @@
 CUDA kernel for Hopper beside its plain PyTorch version.
 
 Replaces the Pallas TPU kernel of ``paddle_tpu/kernels/ln_matmul.py``
-(``_ln_matmul_fwd_impl`` -> ``_kernel``) by ``csrc/ln_matmul.cu``.  Each
-block computes its rows' mean and rstd in a prologue, normalises the
-K-slices of x as it stages them into shared memory (rounded to x's type
-before the product, as the reference casts ``xln``), and multiplies them
-with the weight's K-slices: bf16 on the tensor cores (``mma.sync``
-through ``nvcuda::wmma``, f32 accumulation), f32 with FMAs.  The output
-is in x's type; the projection's bias is added outside, as in the
-reference.
+(``_ln_matmul_fwd_impl`` -> ``_kernel``) by ``csrc/ln_matmul.cu``.  bf16:
+a statistics pass writes every row's f32 mean and rstd, then a persistent
+``wgmma`` kernel streams x's and W's K-slices in by TMA, normalises x's
+slice in place in shared memory (rounded to x's type before the product,
+as the reference casts ``xln``) and multiplies it with the weight's slice
+as it landed, with f32 accumulation.  f32: one CUDA-core kernel with FMAs
+and the statistics in a prologue.  The output is in x's type; the
+projection's bias is added outside, as in the reference.
 
 Layout: the weight is the port's ``nn.Linear.weight``, ``[M, K]`` (the
 JAX package takes ``[K, M]``); the kernel reads it in place, with no
 transposed copy.
 
-The backward is the reference's plain composition in torch ops (it runs
-outside any Pallas kernel there too): the statistics recomputed, then
-``torch.matmul`` for the weight's gradient and for the gradient of the
-normalised rows, then the LayerNorm backward.
+The backward is the reference's ``_bwd`` (``ln_matmul.py:128-152``; plain
+code outside any Pallas kernel there too) on the port's kernels: the
+LayerNorm forward (``layer_norm_fwd``) rebuilds the normalised rows in
+x's type with their statistics (one read of x, one write, the same bytes
+as applying saved statistics, so none are saved); ``torch.matmul`` gives
+the weight's gradient and one product with an f32 result the gradient of
+the normalised rows, unrounded as the reference's
+``preferred_element_type=jnp.float32``; then the LayerNorm backward
+(``layer_norm_bwd``, f32 dy beside x's type) gives dx, dgamma and dbeta
+in one kernel and its column sum.
 
 Opt-in, as in the reference (``enable_ln_matmul``); unlike it there is no
 probe compile that quietly keeps the flag off: a build or launch failure
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import _on_card
+from .layer_norm import layer_norm_bwd, layer_norm_fwd
 
 __all__ = ["enable_ln_matmul", "ln_matmul_enabled", "ln_matmul",
            "ln_matmul_ok", "ln_matmul_plain", "ln_matmul_cost"]
@@ -93,10 +100,10 @@ def _check(x2, g, b, w):
                              f"{tuple(t.shape)} strides {t.stride()}")
     for p in (g, b):
         if (p.shape != (K,) or p.dtype not in _DTYPE_CODE
-                or not p.is_contiguous()):
-            raise ValueError(f"ln_matmul takes contiguous float32 or bfloat16 "
-                             f"[{K}] LayerNorm parameters, got "
-                             f"{tuple(p.shape)} {p.dtype}")
+                or not p.is_contiguous() or p.data_ptr() % 16):
+            raise ValueError(f"ln_matmul takes contiguous, 16-byte aligned "
+                             f"float32 or bfloat16 [{K}] LayerNorm "
+                             f"parameters, got {tuple(p.shape)} {p.dtype}")
     if not (x2.device == w.device == g.device == b.device):
         raise ValueError("ln_matmul's operands must lie on one device")
 
@@ -112,20 +119,33 @@ def _fwd(x2, g, b, w, eps):
     out = torch.empty(N, M, dtype=x2.dtype, device=x2.device)
     if N == 0 or M == 0:
         return out
+    # the bf16 path's rows' mean and rstd, from its statistics pass
+    stats = torch.empty(2, N, dtype=torch.float32, device=x2.device)
     lib = _build.library()
     err = lib.paddle_ln_matmul(
         x2.data_ptr(), x2.stride(0), g.data_ptr(), b.data_ptr(),
-        w.data_ptr(), w.stride(0), out.data_ptr(), N, K, M, float(eps),
-        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[g.dtype], _DTYPE_CODE[b.dtype],
+        w.data_ptr(), w.stride(0), out.data_ptr(), stats.data_ptr(), N, K, M,
+        float(eps), _DTYPE_CODE[x2.dtype], _DTYPE_CODE[g.dtype],
+        _DTYPE_CODE[b.dtype],
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "ln_matmul")
     ln_matmul.launches += 1
     return out
 
 
+def _mm_f32(a, b):
+    """``a @ b`` with an f32 result and f32 accumulation: on the card one
+    cuBLAS product of the operands as they are (``out_dtype``), on the CPU
+    the same product of f32 copies (a bf16 value is an f32 value)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
 class _LnMatmul(torch.autograd.Function):
     """``_ln_matmul``'s ``custom_vjp``: the kernel forward; the backward
-    is the reference's plain composition (``ln_matmul.py:128-152``)."""
+    is the reference's ``_bwd`` (``ln_matmul.py:128-152``) on the
+    LayerNorm kernels."""
 
     @staticmethod
     def forward(ctx, x2, g, b, w, eps):
@@ -136,19 +156,12 @@ class _LnMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, g, b, w = ctx.saved_tensors
-        d, rs = _stats(x2, ctx.eps)
-        xhat = d * rs
-        gf = g.float()
-        xln = (xhat * gf + b.float()).to(x2.dtype)
+        x2 = x2.contiguous()
+        xln, mu, rs = layer_norm_fwd(x2, g, b, ctx.eps)
         # the weight's layout is [M, K]: dW = dy^T @ xln, dxln = dy @ W
         dw = torch.matmul(dy.t(), xln)
-        dxln = torch.matmul(dy, w).float()
-        dgamma = (dxln * xhat).sum(dim=0)
-        dbeta = dxln.sum(dim=0)
-        gg = dxln * gf
-        m1 = gg.mean(dim=1, keepdim=True)
-        m2 = (gg * xhat).mean(dim=1, keepdim=True)
-        dx = (rs * (gg - m1 - xhat * m2)).to(x2.dtype)
+        dxln = _mm_f32(dy, w)
+        dx, dgamma, dbeta = layer_norm_bwd(x2, g, mu, rs, dxln)
         return dx, dgamma.to(g.dtype), dbeta.to(b.dtype), dw.to(w.dtype), None
 
 

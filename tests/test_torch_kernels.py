@@ -61,6 +61,49 @@ def test_flash_plain_matches_jax(tq, tk, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
 
 
+# causal Tq > Tk: (200, 120) one reference tile each way (the one-pass
+# forward, the single-tile backward); (1100, 600) two q tiles and one kv
+# tile; (2100, 1000) a first q tile whose rows the split backward skips;
+# (3100, 1100) a first q tile with no live kv tile (zero rows forward)
+DEAD_CASES = [(200, 120), (1100, 600), (2100, 1000), (3100, 1100)]
+
+
+@pytest.mark.parametrize("tq,tk", DEAD_CASES,
+                         ids=[f"{a}x{b}" for a, b in DEAD_CASES])
+def test_dead_causal_rows_match_jax(tq, tk):
+    """Rows i < Tq - Tk of a causal call have no live key; the reference's
+    output, lse and gradients there follow its own tiles (``dead_rows``).
+    The plain forward and backward against ``_flash_fwd`` and
+    ``_flash_bwd`` in interpret mode on the same f32 inputs: TOL for the
+    forward, and for the gradients rtol 2e-5 with atol 2e-5 of the
+    largest gradient (sums of up to 1100 terms in another order)."""
+    B, H, D = 1, 2, 32
+    q, k, v = _qkv(B, tq, tk, H, D, seed=tq)
+    do = np.random.RandomState(tk).randn(B, tq, H, D).astype(np.float32)
+    jfa.use_interpret_mode(True)
+    q3, k3, v3, do3 = (jnp.asarray(x.transpose(0, 2, 1, 3).reshape(
+        B * H, -1, D)) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    out_j, lse_j = jfa._flash_fwd(q3, k3, v3, scale, True)
+    grads_j = jfa._flash_bwd(q3, k3, v3, out_j, lse_j, do3, scale, True)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = fa.flash_attention_plain(qt, kt, vt, causal=True,
+                                        return_lse=True)
+
+    def bthd(a):
+        return np.asarray(a).reshape(B, H, -1, D).transpose(0, 2, 1, 3)
+
+    np.testing.assert_allclose(out.numpy(), bthd(out_j), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **TOL)
+    grads = fa.flash_attention_bwd_plain(qt, kt, vt, out, lse, dot,
+                                         causal=True)
+    for name, g, w in zip("qkv", grads, grads_j):
+        w = bthd(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-5,
+                                   atol=2e-5 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("mask_kind", ["bool", "additive"])
 def test_masked_sdpa_matches_jax_ref(mask_kind):
     """Masked calls keep the plain math on both sides (``_sdpa_ref``)."""

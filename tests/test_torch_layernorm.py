@@ -23,9 +23,10 @@ take for CPU tensors.  Inputs come from numpy seeds.
   from the same weights, with both toggles on (LN mode "full"), and with
   LN mode "bwd" alone.  Losses agree to 1e-5 relative; parameters follow
   ``tests/test_torch_train.py``'s per-element rule.  A spy on the port's
-  plain versions shows the fused route: 2 x layers ``ln_matmul`` calls and
-  one LayerNorm forward and backward a step (the final norm), or 2 x
-  layers + 1 LayerNorm backwards and no kernel forward in mode "bwd".
+  plain versions shows the fused route: 2 x layers ``ln_matmul`` calls
+  and 2 x layers + 1 LayerNorm forwards and backwards a step (each
+  ``ln_matmul`` backward runs one of each, the final norm the last), or
+  2 x layers + 1 LayerNorm backwards and no kernel forward in mode "bwd".
 * ``LayerNorm``'s state-dict names: a JAX gpt-tiny state loads and
   round-trips exactly.
 """
@@ -140,6 +141,33 @@ def test_ln_backward_plain_matches_jax_kernel(n, c):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("c,dtype", [(1280, "float32"), (2560, "bfloat16")],
+                         ids=["1280-f32", "2560-bf16"])
+def test_ln_wide_rows_plain_match_jax_kernels(c, dtype):
+    """Rows wider than a lane's registers hold on the card (C > 1024 in
+    f32, > 2048 in bf16; GPT-2-large's h = 1280): the plain forward and
+    backward against kernels 9 and 10 in interpret mode on the same
+    operands.  f32: TOL, GRAD_TOL; bf16 y and dx within one bf16 rounding
+    (1e-2), the f32 statistics at TOL, dw and db at GRAD_TOL."""
+    x, w, b, dy = _ln_case(70, c, seed=c)
+    jt, tt = jnp.dtype(dtype), getattr(torch, dtype)
+    xj, wj, bj, dyj = (jnp.asarray(a).astype(jt) for a in (x, w, b, dy))
+    y_j, mu_j, rs_j = jln._ln_fwd_impl(xj, wj, bj, EPS)
+    want = (y_j, mu_j, rs_j,
+            *jln._ln_bwd_impl(xj, wj, mu_j, rs_j, dyj, EPS))
+    xt, wt, bt, dyt = (_t(a).to(tt) for a in (x, w, b, dy))
+    y, mu, rs = ln.layer_norm_fwd_plain(xt, wt, bt, EPS)
+    got = (y, mu, rs, *ln.layer_norm_bwd_plain(xt, wt, mu, rs, dyt))
+    rows = TOL if dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
+    for name, g, v, tol in zip(("y", "mu", "rs", "dx", "dw", "db"), got,
+                               want, (rows, TOL, TOL, rows, GRAD_TOL,
+                                      GRAD_TOL)):
+        assert g.dtype == (tt if name in ("y", "dx") else torch.float32)
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(v).astype(np.float32), **tol,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("mode", ["full", "bwd"])
 def test_layer_norm_fused_grads_match_jax(mode, monkeypatch):
     rs = np.random.RandomState(0)
@@ -185,6 +213,43 @@ def test_ln_matmul_and_grads_match_jax():
                                    **GRAD_TOL, err_msg=name)
     np.testing.assert_allclose(ts[3].grad.numpy().T, np.asarray(grads_j[3]),
                                **GRAD_TOL, err_msg="dw")
+
+
+def test_ln_matmul_bf16_grads_match_jax():
+    """bf16 x and W with f32 g and b, at the 300 x 128 @ 128 x 384 case:
+    dx, dgamma and dbeta against ``jax.grad`` of the JAX ``ln_matmul``,
+    whose backward takes the normalised rows' gradient dxln as an f32
+    product (``preferred_element_type``, ``ln_matmul.py:143-144``).  A
+    dxln rounded to bf16 first moves dbeta by up to 18.5 of 8887 and
+    dgamma by 1.67 of 682, 26-32x this tolerance; the f32 one stays within
+    0.01x of it.  Tolerance: rtol 1e-4 with atol 1e-5 of the largest
+    gradient for dgamma and dbeta (f32 sums of 300 rows in another order),
+    one bf16 rounding (1e-2) for the bf16 dx."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(300, 128).astype(np.float32)
+    g, b = rs.randn(128).astype(np.float32), rs.randn(128).astype(np.float32)
+    w_km = rs.randn(128, 384).astype(np.float32)   # JAX layout [K, M]
+    coef = np.arange(384.0, dtype=np.float32) / 384.0
+    jlnmm.enable_ln_matmul(True)
+    xj, wj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w_km))
+    gj, bj = jnp.asarray(g), jnp.asarray(b)
+    grads_j = jax.grad(
+        lambda *a: (jlnmm.ln_matmul(*a).astype(jnp.float32) * coef).sum(),
+        argnums=(0, 1, 2))(xj, gj, bj, wj)
+    xt = _t(x).bfloat16().requires_grad_()
+    gt, bt = _t(g).requires_grad_(), _t(b).requires_grad_()
+    wt = _t(w_km.T).bfloat16()
+    (lnmm.ln_matmul(xt, gt, bt, wt, eps=EPS).float() * _t(coef)).sum() \
+        .backward()
+    assert xt.grad.dtype == torch.bfloat16 and gt.grad.dtype == torch.float32
+    np.testing.assert_allclose(xt.grad.float().numpy(),
+                               np.asarray(grads_j[0]).astype(np.float32),
+                               rtol=1e-2, atol=1e-2, err_msg="dx")
+    for name, t, want in zip(("dgamma", "dbeta"), (gt, bt), grads_j[1:]):
+        want = np.asarray(want)
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
 
 
 def test_ln_matmul_plain_rounds_the_normalised_rows_first():
@@ -352,12 +417,14 @@ def _jax_steps(cfg, state, ids, ln_mode, fused_proj, monkeypatch,
                      for k, v in jm.state_dict().items()}, traced)
 
 
-@pytest.mark.parametrize("ln_mode,fused_proj,per_step", [
-    ("full", True, dict(ln_matmul=4, ln_fwd=1, ln_bwd=1)),
-    ("bwd", False, dict(ln_matmul=0, ln_fwd=0, ln_bwd=5)),
+@pytest.mark.parametrize("ln_mode,fused_proj,per_step,port_step", [
+    ("full", True, dict(ln_matmul=4, ln_fwd=1, ln_bwd=1),
+     dict(ln_matmul=4, ln_fwd=5, ln_bwd=5)),
+    ("bwd", False, dict(ln_matmul=0, ln_fwd=0, ln_bwd=5),
+     dict(ln_matmul=0, ln_fwd=0, ln_bwd=5)),
 ], ids=["both-on", "ln-bwd-alone"])
 def test_fused_ln_train_step_matches_jax(tiny, monkeypatch, ln_mode,
-                                         fused_proj, per_step):
+                                         fused_proj, per_step, port_step):
     cfg, state = tiny
     ids = np.random.RandomState(2).randint(0, 1024, (2, 33)).astype(np.int64)
     want, after, traced = _jax_steps(cfg, state, ids, ln_mode, fused_proj,
@@ -373,7 +440,7 @@ def test_fused_ln_train_step_matches_jax(tiny, monkeypatch, ln_mode,
     step = make_train_step(pm, AdamW(learning_rate=1e-3, parameters=pm),
                            loss_fn=GPTPretrainingCriterion())
     got = [float(step(ids[:, :-1], ids[:, 1:])) for _ in range(3)]
-    assert spy.n == {k: 3 * v for k, v in per_step.items()}
+    assert spy.n == {k: 3 * v for k, v in port_step.items()}
     np.testing.assert_allclose(got, want, rtol=1e-5)
     for k, v in to_jax_state(pm).items():
         np.testing.assert_allclose(v, after[k], rtol=0, atol=1e-4,

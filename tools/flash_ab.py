@@ -5,11 +5,11 @@ Usage, from the root of a checkout, with one CUDA card::
 
     git archive <parent> | tar -x -C build/parent
     python tools/flash_ab.py --roots build/parent . . build/parent \\
-        --out build/flash_ab.json
+        --out build/flash_ab.json [--mode fused-ln]
 
 Each root runs in a fresh process that imports ``paddle_tpu_torch`` from
-that root (and builds its kernels there) and measures, at the training
-shape B=16 T=1024 H=12 D=64 bf16 causal:
+that root (and builds its kernels there).  ``--mode flash`` (the default)
+measures, at the training shape B=16 T=1024 H=12 D=64 bf16 causal:
 
 * the fused forward (``flash_attention_qkv_fused``) and the fused backward
   (``flash_attention_qkv_fused_bwd``: every kernel and torch op it runs,
@@ -21,6 +21,14 @@ shape B=16 T=1024 H=12 D=64 bf16 causal:
   flops share of the 989 TFLOP/s dense bf16 peak), then one profiled step
   (the attention kernels' ms: kernel names holding ``flash_``; the
   device's busy share).
+
+``--mode fused-ln`` measures the same cell with both fused-LayerNorm
+toggles on (``enable_ln_matmul(True)``, ``enable_fused_layernorm("full")``:
+``chip_smoke.py`` phase 15's both-on step) and, beside it, unfused: step
+ms, tokens/s and flops share of each, and from one profiled both-on step
+the ``ln_matmul`` kernels' ms (names holding ``ln_matmul`` or
+``ln_stats``), the LayerNorm kernels' ms (``ln_fwd``, ``ln_bwd``,
+``colsum2``), the busy share and the step's kernels by device time.
 
 The helpers come from this checkout's ``chip_smoke.py``.  Prints one JSON
 line a run, the ``nvidia-smi`` name and power limit, and the mean of each
@@ -38,8 +46,12 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, H, D = 16, 1024, 12, 64
-KEYS = ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms", "step_ms",
-        "tokens_per_s", "flops_share", "attention_ms", "busy_share")
+KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
+                  "step_ms", "tokens_per_s", "flops_share", "attention_ms",
+                  "busy_share"),
+        "fused-ln": ("step_ms", "tokens_per_s", "flops_share",
+                     "unfused_step_ms", "ln_matmul_ms", "ln_kernels_ms",
+                     "busy_share")}
 
 
 def _smoke():
@@ -112,15 +124,69 @@ def measure(root: str, steps: int = 5, seed: int = 0) -> dict:
     return res
 
 
+def _steps(cs, step, x, y, steps):
+    """One warm-up and ``steps`` timed steps: (losses, step ms)."""
+    import torch
+
+    losses = [float(step(x, y))]
+    t0 = time.perf_counter()
+    outs = [step(x, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return losses + [float(v) for v in outs], 1e3 * wall / steps
+
+
+def measure_fused_ln(root: str, steps: int = 5, seed: int = 0) -> dict:
+    """The both-on training cell and the unfused one of one root, in this
+    process (``root`` first on the path)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    cs = _smoke()
+    from paddle_tpu_torch.kernels import ln_matmul as lnmm
+    from paddle_tpu_torch.models import gpt_train_flops_per_token
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    res = dict(root=root, package=os.path.dirname(lnmm.__file__))
+    model = cs._train_model(dev, seed)
+    step = cs._train_step(model, torch.bfloat16)
+    x, y = cs._train_batch(dev, seed, B, T, model.config.vocab_size)
+    flops = gpt_train_flops_per_token(model.config, T)
+    with cs._toggles("full", True):
+        res["losses"], res["step_ms"] = _steps(cs, step, x, y, steps)
+        prof = cs._device_profile(lambda: step(x, y))
+    res["unfused_losses"], res["unfused_step_ms"] = _steps(cs, step, x, y,
+                                                           steps)
+    res["tokens_per_s"] = B * T / res["step_ms"] * 1e3
+    res["flops_share"] = res["tokens_per_s"] * flops / cs.BF16_PEAK
+    kernels = prof["all_kernels_ms"]
+    res["ln_matmul_ms"] = sum(v for k, v in kernels.items()
+                              if "ln_matmul" in k or "ln_stats" in k)
+    res["ln_kernels_ms"] = sum(v for k, v in kernels.items()
+                               if "ln_fwd" in k or "ln_bwd" in k
+                               or "colsum2" in k)
+    res["busy_share"] = prof["device_busy_share"]
+    res["step_profile_window_ms"] = prof["window_ms"]
+    res["top_kernels_ms"] = {k[:80]: v for k, v in
+                             list(kernels.items())[:25]}
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."],
                     help="checkout roots, run in this order")
     ap.add_argument("--one", help="measure this root in this process")
+    ap.add_argument("--mode", choices=sorted(KEYS), default="flash")
     ap.add_argument("--out", help="also write every run as JSON")
     args = ap.parse_args(argv)
+    keys = KEYS[args.mode]
     if args.one:
-        print(json.dumps(measure(args.one)))
+        fn = measure if args.mode == "flash" else measure_fused_ln
+        print(json.dumps(fn(args.one)))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,20 +195,21 @@ def main(argv=None) -> int:
     runs = []
     for root in args.roots:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", root],
+            [sys.executable, os.path.abspath(__file__), "--one", root,
+             "--mode", args.mode],
             capture_output=True, text=True, timeout=900, cwd=HERE)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"flash_ab: the run of {root} failed")
         run = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(run)
-        print(json.dumps({k: run[k] for k in ("root", *KEYS)}))
+        print(json.dumps({k: run[k] for k in ("root", *keys)}))
     mean = {}
     for root in dict.fromkeys(args.roots):
         mine = [r for r in runs if r["root"] == root]
-        mean[root] = {k: sum(r[k] for r in mine) / len(mine) for k in KEYS}
+        mean[root] = {k: sum(r[k] for r in mine) / len(mine) for k in keys}
     first = args.roots[0]
-    ratio = {root: {k: mean[first][k] / mean[root][k] for k in KEYS}
+    ratio = {root: {k: mean[first][k] / mean[root][k] for k in keys}
              for root in mean if root != first}
     print(smi)
     print(json.dumps(dict(mean=mean, first_over=ratio)))
