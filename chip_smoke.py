@@ -8,10 +8,11 @@ run with a non-zero exit, and nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, device name and count;
 2. build the CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    ``nvcc`` (seconds, plus the ``-Xptxas -v`` register/shared-memory
-   report) and print, for each flash and ``ln_matmul`` kernel, the
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
+   report) and print, for each flash, ``ln_matmul`` and conv+BN kernel,
+   the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    ``cuobjdump -sass`` finds in it ("cuobjdump not found" where there is
-   none; a print, not a gate);
+   none; a print, and a gate only for the conv+BN wgmma kernels, which
+   must show both);
 3. hold each kernel against its plain PyTorch version at the serving
    path's shapes, TF32 off, and time kernel, plain version, the bound
    (the larger of flops over the operands' peak, 67 TFLOP/s f32 or 989
@@ -119,7 +120,10 @@ run with a non-zero exit, and nothing is caught):
    cuDNN ``conv2d``) and the scripts' ``xla_chain`` run eagerly
    (``chain_1x1``/``chain_3x3``; ``torch.matmul`` for the bare product)
    from CUDA-graph replays over input sets that outgrow the L2, and the
-   bound at the bf16 peak; ``cudnn.benchmark`` on;
+   bound at the bf16 peak; each case's route (``wgmma`` or the kept
+   ``mma.sync``, from the route counters of its checked call) and tile
+   beside its ms: every script shape must take ``wgmma``;
+   ``cudnn.benchmark`` on;
 19. ResNet-50 training at the bench's size (``bench.py:386-473``):
    ``resnet50(num_classes=1000)`` with random weights from a numpy seed
    through ``load_jax_state``, batch 128 x 3 x 224^2 f32 and int64 labels
@@ -143,7 +147,8 @@ run with a non-zero exit, and nothing is caught):
    and bn3's, ``run_mm`` on the model's conv3 input (bf16 tolerance);
    with the launch counters set to 0 just before and read just after
    (these are the ``launches`` of rows 11-13, each ``run_mm`` body on its
-   own counter).
+   own counter; every launch on the wgmma route's counters, and one
+   prologue pass for each call whose plan takes one).
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -217,9 +222,9 @@ def _kernel_name(mangled):
     """``flash_fwd_bf16_kernel<64>`` from a mangled kernel symbol."""
     import re
 
-    m = re.search(r"\d+((?:flash|ln)_\w+?_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d+((?:flash|ln|conv)_\w+?_kernel)I(.+?)EEv", mangled)
     if not m:
-        m = re.search(r"\d+((?:flash|ln)_\w+?_kernel)", mangled)
+        m = re.search(r"\d+((?:flash|ln|conv)_\w+?_kernel)", mangled)
         return m.group(1) if m else mangled
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"L[ib](\d+)E", r"\1,", args)
@@ -229,7 +234,7 @@ def _kernel_name(mangled):
 
 def _sass_counts(lib_path):
     """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
-    flash and ``ln_matmul`` kernel's SASS (``cuobjdump -sass``), as
+    flash, ``ln_matmul`` and conv+BN kernel's SASS (``cuobjdump -sass``), as
     ``{kernel: (hgmma, utmaldg)}``, or None where the toolkit has no
     cuobjdump."""
     import re
@@ -246,7 +251,8 @@ def _sass_counts(lib_path):
         if m:
             name = m.group(1)
             fn = (_kernel_name(name) if "flash_" in name
-                  or "ln_matmul_" in name else None)
+                  or "ln_matmul_" in name or "conv_wgmma_" in name
+                  or "conv3x3_mma_" in name else None)
             if fn:
                 counts[fn] = [0, 0]
         elif fn and "HGMMA" in line:
@@ -270,6 +276,8 @@ def phase_build():
         print("[build] HGMMA / UTMALDG: cuobjdump not found")
     for name, (n, t) in sorted((sass or {}).items()):
         print(f"[build] HGMMA {n:3d}, UTMALDG {t:3d} in {name}")
+        if name.startswith("conv_wgmma") and not (n > 0 and t > 0):
+            _fail(f"{name}: no HGMMA or no UTMALDG in its SASS")
     return info.seconds, sass
 
 
@@ -1625,8 +1633,14 @@ def _conv_case(tag, name, kernel, plain, library, chain, sets, flops,
     replays over the rotating sets, and the bound at the bf16 peak."""
     import torch
 
+    before = _route_counts()
     got = kernel(*sets[0])
     torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _route_counts().items()}
+    route = [k for k, v in moved.items() if v] or ["none"]
+    if len(route) != 1:
+        _fail(f"{tag} {name}: one call moved the route counters {moved}")
+    route = route[0]
     want = plain(*sets[0])
     if not stats:
         got, want = (got, None), (want, None)
@@ -1640,7 +1654,7 @@ def _conv_case(tag, name, kernel, plain, library, chain, sets, flops,
     lib_ms = _times(_rotating(library, lib_sets or sets), 20, calls=10)
     chain_ms = _times(_rotating(chain, sets), 20, calls=10)
     bound_ms, bound_by = _bound(flops, nbytes, BF16_PEAK)
-    row = dict(case=tag, shape=name, max_abs_err=err_y,
+    row = dict(case=tag, shape=name, route=route, max_abs_err=err_y,
                stats_abs_err=err_s, stats_tol=tol_s, stats_l1_gaps=gaps,
                ms=ms[0], call_ms=ms[1], plain_ms=plain_ms[0],
                plain_call_ms=plain_ms[1], library_ms=lib_ms[0],
@@ -1652,13 +1666,24 @@ def _conv_case(tag, name, kernel, plain, library, chain, sets, flops,
           f" stats {err_s:.3e} (tol {tol_s:.3e}; L1 to the f32 sums / to "
           f"the rounded-y sums: "
           + ", ".join(f"{a:.3e}/{b:.3e}" for a, b in gaps) + ")")
-    print(f"[conv-bn] {tag} {name}: err y {err_y:.3e}{st}; device ms (a "
+    print(f"[conv-bn] {tag} {name} [{route}]: err y {err_y:.3e}{st}; "
+          f"device ms (a "
           f"call's ms): kernel {ms[0]:.4f} ({ms[1]:.4f}; "
           f"{row['tflops']:.1f} TFLOP/s), plain {plain_ms[0]:.4f}, fused "
           f"library {lib_ms[0]:.4f} ({lib_ms[1]:.4f}), eager chain "
           f"{chain_ms[0]:.4f}, bound {bound_ms:.4f} ({bound_by}), "
           f"{len(sets)} input sets")
     return row
+
+
+def _route_counts():
+    """The conv+BN launch counters by route: ``wgmma`` (the four entry
+    points' ``launches_wgmma``) and ``mma`` (``fused3x3.launches_mma``)."""
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    return dict(wgmma=sum(f.launches_wgmma for f in (
+        cb.fused_conv1x1_bn, cb.fused3x3, cb.run_mm, cb.run_pro)),
+        mma=cb.fused3x3.launches_mma)
 
 
 def _n_sets(nbytes):
@@ -1681,6 +1706,7 @@ def phase_conv_bn(dev):
 
     gen = torch.Generator(device=dev).manual_seed(18)
     rows = []
+    sms = cb._sms(dev)
 
     def one_by_one(M, K, N, variants):
         flops, nbytes = cb.conv1x1_cost(M, K, N)
@@ -1709,7 +1735,8 @@ def phase_conv_bn(dev):
             rows.append(_conv_case(tag, name, kernel, plain,
                                    _yardstick_1x1(pro, st), chain, sets, f,
                                    nb, st))
-            rows[-1].update(M=M, K=K, N=N, kernel=tag)
+            rows[-1].update(M=M, K=K, N=N, kernel=tag,
+                            tile=_tile(cb.conv_plan(M, N, sms=sms)))
         del sets
         torch.cuda.empty_cache()
 
@@ -1738,12 +1765,21 @@ def phase_conv_bn(dev):
                                    cb.chain_3x3, sets, flops, nbytes, True,
                                    lib_sets))
             rows[-1].update(n=n, H=H, W=W, C=C, Co=Co, kernel="3x3",
-                            b_pos=b_pos)
+                            b_pos=b_pos, tile=_tile(cb.conv_plan(
+                                n * H * W, Co, C, sms=sms)))
             del sets, lib_sets
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.benchmark = bench0
+    off = [f"{r['case']} {r['shape']}" for r in rows if r["route"] != "wgmma"]
+    if off:
+        _fail(f"conv-bn: script shapes off the wgmma route: {off}")
     return rows
+
+
+def _tile(plan):
+    return (f"{plan['bm']}x{plan['bn']}, {plan['groups']} groups"
+            if plan["route"] == "wgmma" else f"mma {plan['bm']}x{plan['bn']}")
 
 
 def _resnet_state(model, seed):
@@ -1797,7 +1833,13 @@ def _conv_bn_counters(zero=False):
              (cb.run_mm, "launches_mm", "run_mm _k_mm"),
              (cb.run_mm, "launches_stat", "run_mm _k_stat"),
              (cb.run_pro, "launches", "run_pro"),
-             (cb.conv_bn_column_sum, "launches", "conv_bn_column_sum")]
+             (cb.conv_bn_column_sum, "launches", "conv_bn_column_sum"),
+             (cb.conv_bn_prologue, "launches", "conv_bn_prologue"),
+             (cb.fused_conv1x1_bn, "launches_wgmma", "fused_conv1x1_bn wgmma"),
+             (cb.fused3x3, "launches_wgmma", "fused3x3 wgmma"),
+             (cb.fused3x3, "launches_mma", "fused3x3 mma"),
+             (cb.run_mm, "launches_wgmma", "run_mm wgmma"),
+             (cb.run_pro, "launches_wgmma", "run_pro wgmma")]
     if zero:
         for fn, attr, _ in slots:
             setattr(fn, attr, 0)
@@ -2063,6 +2105,7 @@ def phase_conv_bn_model(model, x):
     for h in hooks:
         h.remove()
     rows = {}
+    passes = 0                          # prologue passes the plans take
     _conv_bn_counters(zero=True)
     with torch.no_grad(), _no_plain():
         for tag in blocks:
@@ -2081,6 +2124,10 @@ def phase_conv_bn_model(model, x):
             w3 = w3.reshape(w3.shape[0], -1).t().contiguous()
             z1n = z1.permute(0, 2, 3, 1).contiguous()
             r2, r3, ra3 = _rows(z2), _rows(z3), _rows(a3)
+            sms = cb._sms(z1.device)
+            passes += sum(cb.conv_plan(*shape, sms=sms)["prologue"] == "pass"
+                          for shape in ((M, w2.shape[3], C),
+                                        (M, w3.shape[1]), (M, w3.shape[1])))
             y12, st12 = cb.fused3x3(z1n, s1, b1, w2)
             rows[f"{tag} fused3x3"] = _act_check(
                 f"{tag} fused3x3 {n}x{H}x{W} C={C}->{w2.shape[3]}",
@@ -2104,7 +2151,9 @@ def phase_conv_bn_model(model, x):
     n = _conv_bn_counters()
     want = {"fused_conv1x1_bn": 2, "fused3x3": 2, "run_mm": 4,
             "run_mm _k_mm": 2, "run_mm _k_stat": 2, "run_pro": 2,
-            "conv_bn_column_sum": 6}
+            "conv_bn_column_sum": 6, "fused_conv1x1_bn wgmma": 2,
+            "fused3x3 wgmma": 2, "fused3x3 mma": 0, "run_mm wgmma": 4,
+            "run_pro wgmma": 2, "conv_bn_prologue": passes}
     if n != want:
         _fail(f"conv-bn-model: launches {n} != {want}")
     print(f"[conv-bn-model] launches {n}")
@@ -2278,23 +2327,23 @@ def main(argv=None) -> int:
             library_ms=main_row["library_ms"],
             shape="N=16384 C=768 bfloat16"))
     n_cb = conv_model["launches"]
-    cb_src = "paddle_tpu_torch/kernels/csrc/conv_bn.cu"
+    cb_src = "paddle_tpu_torch/kernels/csrc/conv_wgmma.cuh"
     for title, replaces, launches, pick in (
-            ("fused_conv1x1_bn (GEMM + column-sum kernels)",
+            ("fused_conv1x1_bn (conv1x1_wgmma + column-sum kernels)",
              "tools/exp_conv_bn.py:63", n_cb["fused_conv1x1_bn"],
              lambda r: r["kernel"] == "full" and r["M"] == 200704
              and r["K"] == 64),
-            ("fused3x3 (implicit-GEMM 3x3 + column-sum kernels)",
+            ("fused3x3 (prologue pass + conv3x3_wgmma + column-sum kernels)",
              "tools/exp_conv3x3.py:62", n_cb["fused3x3"],
              lambda r: r["kernel"] == "3x3" and r["H"] == 56),
-            ("run_mm, body _k_mm", "tools/exp_conv_bn2.py:67",
+            ("run_mm, body _k_mm (conv1x1_wgmma)", "tools/exp_conv_bn2.py:67",
              n_cb["run_mm _k_mm"],
              lambda r: r["kernel"] == "mm" and r["M"] == 50176),
-            ("run_mm, body _k_stat (GEMM + column-sum kernels)",
+            ("run_mm, body _k_stat (conv1x1_wgmma + column-sum kernels)",
              "tools/exp_conv_bn2.py:67", n_cb["run_mm _k_stat"],
              lambda r: r["kernel"] == "stat" and r["M"] == 50176),
-            ("run_pro, body _k_pro", "tools/exp_conv_bn2.py:85",
-             n_cb["run_pro"],
+            ("run_pro, body _k_pro (conv1x1_wgmma)",
+             "tools/exp_conv_bn2.py:85", n_cb["run_pro"],
              lambda r: r["kernel"] == "pro" and r["M"] == 50176)):
         row = next(r for r in conv_rows if pick(r))
         same = [r for r in conv_rows if r["kernel"] == row["kernel"]]
@@ -2311,7 +2360,13 @@ def main(argv=None) -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             chain_ms=row["chain_ms"], shape=row["shape"] + " bfloat16",
-            column_sum_launches=n_cb["conv_bn_column_sum"]))
+            column_sum_launches=n_cb["conv_bn_column_sum"],
+            prologue_pass_launches=n_cb["conv_bn_prologue"],
+            kernel_route=row["route"], tile=row["tile"],
+            sass_hgmma_utmaldg={
+                k: v for k, v in (sass or {}).items()
+                if k.startswith("conv_wgmma_kernel<"
+                                + ("1" if row["kernel"] == "3x3" else "0"))}))
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(device=smi, torch_device=name, count=count,

@@ -75,6 +75,10 @@ _SIGNATURES = {
     "paddle_conv_bn_gemm":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _I, _I, _I, _I, _P],
+    "paddle_conv_bn_wgmma":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I, _I, _I, _I, _P],
+    "paddle_conv_bn_prologue": [_P, _P, _P, _P, _L, _I, _I, _P],
     "paddle_conv_bn_colsum": [_P, _P, _I, _I, _P],
 }
 

@@ -16,17 +16,28 @@ point for each JAX function, with its name and signature:
   with ``kern=_k_stat, nstat=True``, ``_k_stat``) and ``run_pro``
   (``:80``, ``:85``, body ``_k_pro``): kernel 11 split into its parts.
 
-All five bodies are instances of one GEMM template in ``csrc/conv_bn.cu``
-(bf16 ``mma.sync`` with f32 accumulation; the prologue applied as the A
-tile is staged; the 3x3 as an implicit GEMM over the shifted NHWC rows)
-plus the fixed-order column sum of the per-block statistics (no atomics,
-so the statistics repeat bitwise).  The semantics kept from the scripts:
-the prologue runs in f32 and rounds to x's type before the product; the
-statistics come from the f32 accumulator, not the rounded ``y``; ragged
-rows are masked.  The layouts are the scripts': ``x2 [M, K]``, ``w [K,
-N]``, ``s, b [K]`` f32; NHWC ``x`` with an HWIO ``w``.  A paddle 1x1 conv
-weight ``[N, K, 1, 1]`` is handed in as ``w.reshape(N, K).t()
-.contiguous()``.
+All five bodies run on two kernels written for Hopper in
+``csrc/conv_wgmma.cuh`` (design in ``csrc/conv_bn.cu``'s header):
+``conv1x1_wgmma`` (every 1x1 body) and ``conv3x3_wgmma`` (the 3x3 as an
+implicit GEMM over shifted rows of the flat NHWC image), one persistent
+``wgmma`` + TMA template: a TMA producer thread feeds x's and W's K slices
+through an mbarrier ring, consumer warpgroups multiply with W read in
+place as an MN-major operand, and y leaves by TMA stores.  The prologue
+runs in place in shared memory where each x element meets it once (a 1x1
+of one column tile), else in one pass before the GEMM
+(``conv_bn_prologue``), and the 3x3's taps outside the image are zeroed
+by spare producer warps.  A 3x3 whose C is not a multiple of 64 takes the
+kept ``mma.sync`` kernel instead.  :func:`conv_plan` is the shape rule
+(route, tile, prologue), never a failed build or launch.  The
+statistics are per-block column sums of the f32 accumulator, added by a
+fixed-order column sum (no atomics, so they repeat bitwise).  The
+semantics kept from the scripts: the prologue runs in f32 and rounds to
+x's type before the product; the statistics come from the f32
+accumulator, not the rounded ``y``; ragged rows are masked; a 3x3 tap
+outside the image reads 0 after the prologue.  The layouts are the
+scripts': ``x2 [M, K]``, ``w [K, N]``, ``s, b [K]`` f32; NHWC ``x`` with
+an HWIO ``w``.  A paddle 1x1 conv weight ``[N, K, 1, 1]`` is handed in as
+``w.reshape(N, K).t().contiguous()``.
 
 The TPU tile arguments (``bm``, ``bn``, ``bn_blk``, ``bc``) are taken and
 ignored, except where they change the result: a shape the JAX function
@@ -46,8 +57,10 @@ CPU tensors take the plain versions (``*_plain``); CUDA tensors launch the
 kernels or raise.  Launch counters: ``fused_conv1x1_bn.launches``,
 ``fused3x3.launches``, ``run_mm.launches`` (both bodies; each body's
 own in ``run_mm.launches_mm`` and ``run_mm.launches_stat``),
-``run_pro.launches`` and ``conv_bn_column_sum.launches`` (the statistics'
-second stage).
+``run_pro.launches``, ``conv_bn_column_sum.launches`` (the statistics'
+second stage) and ``conv_bn_prologue.launches`` (the prologue pass); by
+route, ``launches_wgmma`` on the four entry points and
+``fused3x3.launches_mma`` (the kept ``mma.sync`` kernel).
 """
 from __future__ import annotations
 
@@ -59,14 +72,14 @@ from .flash_attention import _on_card
 __all__ = ["fused_conv1x1_bn", "fused3x3", "run_mm", "run_pro",
            "conv_bn_column_sum", "fused_conv1x1_bn_plain", "fused3x3_plain",
            "run_mm_plain", "run_pro_plain", "chain_1x1", "chain_3x3",
-           "conv1x1_cost", "conv3x3_cost"]
+           "conv1x1_cost", "conv3x3_cost", "conv_plan", "conv_bn_prologue"]
 
 # ``run_mm``'s ``kern`` argument: which Pallas body (and CUDA instance)
 _k_mm = "mm"
 _k_stat = "stat"
 
-_BM = 128   # rows of a kernel tile (csrc/conv_bn.cu)
-_BN = 128   # columns of a kernel tile
+_MMA_BM = 128   # rows of the mma.sync kernel's tile (csrc/conv_bn.cu)
+_WG_BN = (64, 128, 256)   # the wgmma kernel's column tiles
 
 
 # -- plain versions ------------------------------------------------------------
@@ -175,18 +188,71 @@ def _whole_tiles(size, tile, axis, what):
 
 # -- kernel launches -----------------------------------------------------------
 
+def conv_plan(M, N, C=None, sms=132, prologue=True):
+    """The kernel and tile of one launch, a pure function of the shape:
+    ``dict(route, bm, bn, nwg, groups, prologue)``.  ``C`` is the 3x3's
+    input channels (None for a 1x1); ``sms`` the card's multiprocessor
+    count; ``prologue``: whether the call applies one.
+
+    * ``route="wgmma"`` for every 1x1 and every 3x3 with ``C % 64 == 0``
+      (a tap's 64-wide K slice must not straddle two taps).  ``bn``: the
+      narrowest of 64, 128, 256 that holds N, halved while that leaves
+      fewer than ``sms / 2`` tiles of 128 rows (a wider tile passes each
+      element of x through the prologue fewer times, and each slice's
+      fixed cost buys more products: on the H100, 98 tiles of 128 x 256
+      took 0.0254 ms at M=12544 K=1024 N=256, 196 of 128 x 128 0.0374,
+      ``tools/conv_bn_sweep.py``); ``bm`` 128 (``nwg`` = 2 consumer
+      warpgroups, one block an SM), or 64 (``nwg`` = 1, two blocks an SM)
+      where 128 x 64 tiles are still fewer than ``sms / 2``.
+    * ``route="mma"``: the kept ``mma.sync`` kernel, 128 x 128 tiles (128
+      x 64 when N <= 64).
+
+    ``groups``: blocks along M, each walking the row tiles g, g + groups,
+    ... of its column tile (the statistics' partials are ``[2, groups,
+    N]``): as many as fill the card's blocks over the column tiles, at
+    most one a row tile.
+
+    ``prologue`` (wgmma route): ``"kernel"`` where each x element meets
+    the prologue once (a 1x1 of one column tile: in place in shared
+    memory, as its slice lands), ``"pass"`` where the kernel would repeat
+    it (the 3x3's nine taps, a 1x1 of several column tiles): one pass
+    writes ``relu(x * s + b)`` (``conv_bn_prologue``), the kernel reads
+    that and the 3x3 zeroes its taps outside the image.  The in-place
+    prologue costs a shared-memory load and store of the tile on every
+    slice, beside TMA's write and wgmma's read: on the H100 at M=3136
+    K=2048 N=512 (four column tiles) 0.0359 ms, against 0.0068 for the
+    pass and 0.0155 for the product after it; at M=12544 K=1024 N=256
+    (one) 0.0254, against 0.0183 + 0.0178 (``tools/conv_bn_sweep.py``).
+    None without a prologue or on the mma route."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    if C is not None and C % 64:
+        bm, bn, nwg, occ = _MMA_BM, 64 if N <= 64 else 128, None, 2
+        route = "mma"
+    else:
+        bn = min(t for t in _WG_BN if t >= min(N, 256))
+        while bn > 64 and 2 * cdiv(M, 128) * cdiv(N, bn) < sms:
+            bn //= 2
+        bm = 128 if 2 * cdiv(M, 128) * cdiv(N, bn) >= sms else 64
+        nwg, occ, route = bm // 64, 2 if bm == 64 else 1, "wgmma"
+    col_tiles, row_tiles = cdiv(N, bn), cdiv(M, bm)
+    groups = max(1, min(row_tiles, occ * sms // col_tiles, 65535))
+    pro = None
+    if route == "wgmma" and (prologue or C is not None):
+        pro = "pass" if C is not None or col_tiles > 1 else "kernel"
+    return dict(route=route, bm=bm, bn=bn, nwg=nwg, groups=groups,
+                prologue=pro)
+
+
 _SMS: dict = {}
 
 
-def _groups(dev, M, N):
-    """Blocks along M: enough for about two blocks an SM over the column
-    tiles, at most one a row tile."""
+def _sms(dev):
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    col_tiles = -(-N // _BN)
-    row_tiles = -(-M // _BM)
-    return max(1, min(row_tiles, -(-2 * _SMS[idx] // col_tiles), 65535))
+    return _SMS[idx]
 
 
 def _check_dev(what, x, w, s=None, b=None, C=None):
@@ -232,24 +298,60 @@ def conv_bn_column_sum(part):
     return stats
 
 
+def conv_bn_prologue(x, s, b):
+    """``relu(x * s + b)`` in f32, rounded to bf16, over the channels (the
+    last axis) of a bf16 ``x``: the wgmma route's prologue pass (CUDA
+    tensors only)."""
+    from . import _build
+
+    out = torch.empty_like(x)
+    C = x.shape[-1]
+    rows = x.numel() // C
+    blocks = max(1, min(-(-x.numel() // 2048), 8 * _sms(x.device)))
+    err = _build.library().paddle_conv_bn_prologue(
+        x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), rows, C,
+        blocks, _stream(x))
+    _build.check(err, "conv_bn_prologue")
+    conv_bn_prologue.launches += 1
+    return out
+
+
 def _launch(what, x, s, b, w, M, K, N, stats, hwc=(0, 0, 0)):
-    """One GEMM launch (and the column sum under ``stats``): ``y [M, N]``
-    bf16 (and the ``[2, N]`` f32 statistics)."""
+    """One GEMM launch on the route of :func:`conv_plan` (after the
+    prologue pass, where the plan takes one; and the column sum under
+    ``stats``): ``(y [M, N] bf16 (and the [2, N] f32 statistics),
+    route)``."""
     from . import _build
 
     lib = _build.library()
-    y = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    groups = _groups(x.device, M, N)
-    part = (torch.empty(2, groups, N, dtype=torch.float32, device=x.device)
-            if stats else None)
     H, W, C = hwc
-    err = lib.paddle_conv_bn_gemm(
-        x.data_ptr(), None if s is None else s.data_ptr(),
-        None if b is None else b.data_ptr(), w.data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), M, K, N, H, W, C,
-        int(s is not None), int(stats), int(C > 0), groups, _stream(x))
+    plan = conv_plan(M, N, C or None, _sms(x.device), s is not None)
+    y = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    part = (torch.empty(2, plan["groups"], N, dtype=torch.float32,
+                        device=x.device) if stats else None)
+    pro = int(s is not None)
+    if plan["prologue"] == "pass":
+        x, pro = conv_bn_prologue(x, s, b), 2 if C else 0
+    args = (x.data_ptr(), None if s is None else s.data_ptr(),
+            None if b is None else b.data_ptr(), w.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr(), M, K, N, H, W, C,
+            pro, int(stats), int(C > 0))
+    if plan["route"] == "wgmma":
+        err = lib.paddle_conv_bn_wgmma(*args, plan["bn"], plan["nwg"],
+                                       plan["groups"], _stream(x))
+    else:
+        err = lib.paddle_conv_bn_gemm(*args, plan["groups"], _stream(x))
     _build.check(err, what)
-    return (y, conv_bn_column_sum(part)) if stats else y
+    out = (y, conv_bn_column_sum(part)) if stats else y
+    return out, plan["route"]
+
+
+def _count(fn, route):
+    fn.launches += 1
+    if route == "wgmma":
+        fn.launches_wgmma += 1
+    else:
+        fn.launches_mma += 1
 
 
 # -- public entry points -------------------------------------------------------
@@ -263,8 +365,9 @@ def fused_conv1x1_bn(x2, s, b, w, bm=1024, bn=512):
     if not _on_card(x2, "fused_conv1x1_bn"):
         return fused_conv1x1_bn_plain(x2, s, b, w)
     _check_dev("fused_conv1x1_bn", x2, w, s, b)
-    out = _launch("fused_conv1x1_bn", x2, s, b, w, M, K, N, stats=True)
-    fused_conv1x1_bn.launches += 1
+    out, route = _launch("fused_conv1x1_bn", x2, s, b, w, M, K, N,
+                         stats=True)
+    _count(fused_conv1x1_bn, route)
     return out
 
 
@@ -290,9 +393,9 @@ def fused3x3(x, s, b, w, bn_blk=8, bc=None):
     if not _on_card(x, "fused3x3"):
         return fused3x3_plain(x, s, b, w)
     _check_dev("fused3x3", x, w, s, b, C=C)
-    y, st = _launch("fused3x3", x, s, b, w, n * H * W, 9 * C, Co, stats=True,
-                    hwc=(H, W, C))
-    fused3x3.launches += 1
+    (y, st), route = _launch("fused3x3", x, s, b, w, n * H * W, 9 * C, Co,
+                             stats=True, hwc=(H, W, C))
+    _count(fused3x3, route)
     return y.view(n, H, W, Co), st
 
 
@@ -310,8 +413,8 @@ def run_mm(x2, w, bm=1024, bn=512, kern=_k_mm, nstat=False):
     if not _on_card(x2, "run_mm"):
         return run_mm_plain(x2, w, stats=nstat)
     _check_dev("run_mm", x2, w)
-    out = _launch("run_mm", x2, None, None, w, M, K, N, stats=nstat)
-    run_mm.launches += 1
+    out, route = _launch("run_mm", x2, None, None, w, M, K, N, stats=nstat)
+    _count(run_mm, route)
     if nstat:
         run_mm.launches_stat += 1
     else:
@@ -328,15 +431,16 @@ def run_pro(x2, s, b, w, bm=1024, bn=512):
     if not _on_card(x2, "run_pro"):
         return run_pro_plain(x2, s, b, w)
     _check_dev("run_pro", x2, w, s, b)
-    out = _launch("run_pro", x2, s, b, w, M, K, N, stats=False)
-    run_pro.launches += 1
+    out, route = _launch("run_pro", x2, s, b, w, M, K, N, stats=False)
+    _count(run_pro, route)
     return out
 
 
-fused_conv1x1_bn.launches = 0
-fused3x3.launches = 0
-run_mm.launches = 0
+for _fn in (fused_conv1x1_bn, fused3x3, run_mm, run_pro):
+    _fn.launches = 0
+    _fn.launches_wgmma = 0
+fused3x3.launches_mma = 0
 run_mm.launches_mm = 0
 run_mm.launches_stat = 0
-run_pro.launches = 0
 conv_bn_column_sum.launches = 0
+conv_bn_prologue.launches = 0

@@ -1,6 +1,5 @@
-// The conv + batch-norm experiment kernels, for Hopper (sm_90a): one GEMM
-// template whose instances replace the five Pallas kernel bodies of the
-// experiment scripts.
+// The conv + batch-norm experiment kernels, for Hopper (sm_90a): they
+// replace the five Pallas kernel bodies of the experiment scripts.
 //
 //   PROLOGUE STATS CONV3   replaces (Pallas body -> entry point)
 //   0        0     0       tools/exp_conv_bn2.py `_k_mm`   -> run_mm
@@ -23,36 +22,88 @@
 // column sums of y and y^2 over the block's rows, taken from the f32
 // accumulator (not the rounded y), padded rows masked; a second kernel
 // (the fixed-order column sum of ln_common.cuh, which LayerNorm's dw and db
-// use too) adds the blocks' partials,
-// so the statistics repeat bitwise (no atomics).  The TPU kernels carried
-// the sum across a sequential grid axis; here each block walks a fixed set
-// of row tiles itself and sums them in order.
+// use too) adds the blocks' partials [2, groups, N] in block order, so the
+// statistics repeat bitwise (no atomics).  The TPU kernels carried the sum
+// across a sequential grid axis; here block (column tile cx, group g) walks
+// the row tiles g, g + groups, ... of column tile cx itself, in that fixed
+// order, and sums them in order.
 //
 // What bounds it on the H100: 2 M K N flops against 2 (M K + K N + M N)
 // bytes.  With K or N of 64-256 (ResNet-50's 1x1 convs at 56^2 and 28^2)
 // that is under the card's ridge of ~295 flops a byte: bytes bound it, at
-// 3.35 TB/s, so the prologue and the statistics ride on loads and stores
-// the product needs anyway, and x is read once per 128-column tile (the
-// tiles of one row run side by side, so the re-reads hit the 50 MB L2).
-// The 3x3 convs and the wide 1x1 convs at 14^2 and 7^2 sit near or above
-// the ridge: operations bound them, at 989 TFLOP/s dense bf16.
+// 3.35 TB/s.  The 3x3 convs and the wide 1x1 convs at 14^2 and 7^2 sit
+// near or above the ridge: operations bound them, at 989 TFLOP/s dense
+// bf16.
 //
-// Design: a block of 8 warps owns a 128 x 128 tile of y at a time (128 x
-// 64 when N <= 64, so the 64-channel layers of the 56^2 stage do not
-// multiply zero columns) and walks the row tiles blockIdx.y, blockIdx.y +
-// gridDim.y, ... of its column tile (gridDim.y is chosen by the caller so
-// the grid fills the card about twice).  The K loop takes 32-wide slices
-// in two shared-memory stages: the next slice's 16-byte global loads are
-// issued into registers before the current slice's products and staged
-// (prologue applied) after them, one barrier a slice.  A is read with
-// ldmatrix, W with ldmatrix.trans from its row-major [K, N] slice (no
-// transposed copy); each warp multiplies a 64 x 32 (or 64 x 16) sub-tile
-// with mma.sync.m16n8k16 (bf16 in, f32 accumulators in registers) and
-// writes y from the registers.  The column sums of each row tile are
-// reduced over the warp with shuffles and added into the block's
-// shared-memory row, each column owned by one thread.
-// Not yet: wgmma, TMA loads, a deeper ring, and a 3x3 tile that re-uses
-// the shifted rows it has staged for the neighbouring taps.
+// Two routes, chosen by shape in conv_bn.py (`conv_plan`), never by a
+// failed build or launch:
+//
+// (1) `conv1x1_wgmma` and `conv3x3_wgmma` (conv_wgmma.cuh, instanced in
+//     conv_wgmma_1x1.cu and conv_wgmma_3x3.cu): every 1x1, and every 3x3
+//     with C % 64 == 0.  A persistent block of one producer warpgroup and
+//     NWG = 2 (128-row tiles; one block an SM) or 1 (64-row tiles; two
+//     blocks an SM, for small M) consumer warpgroups of 64 rows each; BN
+//     = 64, 128 or 256 columns, the widest that leaves half the card's
+//     SMs a tile (each slice's fixed cost buys more products: 98 tiles of
+//     128 x 256 took 0.0254 ms at M=12544 K=1024 N=256, 196 of 128 x 128
+//     0.0374, tools/conv_bn_sweep.py on the H100).  Block (cx,
+//     g) walks the row tiles g, g + groups, ... of column tile cx.  One
+//     producer thread keeps x's [BM, 64] K slice and W's [64, BN] slice
+//     (bf16, 128-byte swizzle) in flight in a 3-8 stage mbarrier ring (as
+//     deep as shared memory allows: loads in flight, not the tensor
+//     cores, pace a slice from L2), running on into the block's next tile
+//     while the consumers store the last one.  W is read in place as
+//     wgmma's MN-major B (its [K, N] rows are the reduction: the
+//     descriptor's transpose flag, sm90.cuh `wgmma_ss<N, 1>`), no
+//     transposed copy.  The consumers issue wgmma m64nBNk16 on x's tile as
+//     the K-major A, waited at depth 1, and the epilogue reduces the
+//     column sums of y and y^2 from the accumulator fragments (rows past
+//     M masked) over the warp by a halving shuffle exchange in a fixed
+//     order into the warp's own row of a shared [warp][2][BN] table, the
+//     block's tiles in their order, and rounds y to bf16 into swizzled
+//     64-column blocks (two 8 KB buffers a warpgroup, in turns) that TMA
+//     stores, clipped to M and N by the map, under the next tile.
+//     The prologue, two ways (`conv_plan`'s "prologue"):
+//     - "kernel", a 1x1 whose N fits one column tile (each x element
+//       meets the prologue once): each consumer warpgroup applies
+//       relu(x * s + b) to its 64 rows of x's slice in place in shared
+//       memory, in f32, rounded to bf16, s and b staged in shared memory
+//       once a block, writing 0 past M and past K (TMA's zero fill alone
+//       would become relu(b)); then wgmma reads that tile (never as a
+//       register A: ptxas serialised every wgmma of ln_matmul's
+//       register-A design, C7513).
+//     - "pass", the 3x3 and a 1x1 of several column tiles, where the
+//       in-place prologue would run nine times (the taps) or once per
+//       column tile on each element: `prologue_kernel` below writes
+//       relu(x * s + b) once, and the GEMM reads that.  The in-place
+//       prologue costs a shared-memory load and store of the tile on
+//       every slice, beside TMA's write and wgmma's read: at M=3136
+//       K=2048 N=512 (four column tiles) 0.0359 ms, against 0.0068 for
+//       the pass and 0.0155 for the product after it
+//       (tools/conv_bn_sweep.py on the H100).
+//     The 3x3's A slice: x is one 2-D map over the flat [n H W, C] image
+//     rows, and a tap (di, dj) of the tile's output pixels m0 .. m0 + BM
+//     is the box at rows m0 + (di - 1) W + (dj - 1), channels c0 .. c0 +
+//     64 (C % 64 == 0, so no slice straddles two taps).  Chosen over an
+//     im2col map or 4-D boxes of whole image rows because it is one map
+//     and one box shape for every tap and tiles stay any BM rows of any
+//     image size (7^2 and 14^2 images are 49 and 196 rows, no multiple of
+//     a tile); its cost is that a box row whose tap leaves the image row
+//     or the image reads a neighbouring pixel.  Three warps of the
+//     producer warpgroup (idle otherwise) take each landed stage, write
+//     those rows as 0 (from the pixel's coordinates: zero padding after
+//     the prologue, not relu(b)) and hand the stage to the consumers on a
+//     third mbarrier, so the consumers never stop for it.  Each tap
+//     re-reads x's rows from L2.
+// (2) `conv3x3_mma_kernel` below, the mma.sync implicit GEMM of the first
+//     port, kept for the 3x3 with C % 64 != 0 (C % 8 == 0): a block of 8
+//     warps owns a 128 x 128 tile of y (128 x 64 when Co <= 64) and walks
+//     the row tiles of its column tile; 32-wide K slices in two shared
+//     stages, the next slice's 16-byte global loads issued before the
+//     current slice's products and staged (prologue applied) after them;
+//     ldmatrix / ldmatrix.trans, mma.sync.m16n8k16, y stored from the
+//     registers, the same fixed-order statistics.
+#include "conv_wgmma.cuh"
 #include "ln_common.cuh"
 
 namespace {
@@ -104,15 +155,15 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// dynamic shared memory: two stages, then s and b as f32 (P floats each)
+// dynamic shared memory: two stages, then s and b as f32 (C floats each)
 template <int TBN>
-__host__ __device__ constexpr int smem_bytes(bool prologue, int P) {
-  return 2 * Tile<TBN>::kStageBytes + (prologue ? 2 * P * 4 : 0);
+__host__ __device__ constexpr int smem_bytes(int C) {
+  return 2 * Tile<TBN>::kStageBytes + 2 * C * 4;
 }
 
-template <bool PRO, bool STATS, bool CONV3, int TBN>
+template <int TBN>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
+conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x,
                  const float* __restrict__ s, const float* __restrict__ b,
                  const __nv_bfloat16* __restrict__ w,
                  __nv_bfloat16* __restrict__ y, float* __restrict__ part,
@@ -120,9 +171,9 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   using T = Tile<TBN>;
   constexpr int LDB = T::LDB, NJ = T::NJ, kStageElems = T::kStageElems;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float s_red[STATS ? 2 : 1][2][TBN];  // [warp row][sum, sumsq]
+  __shared__ float s_red[2][2][TBN];  // [warp row][sum, sumsq]
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int P = CONV3 ? C : K;
+  const int P = C;
   float* s_s = reinterpret_cast<float*>(smem + 2 * T::kStageBytes);
   float* s_b = s_s + P;
 
@@ -130,14 +181,12 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   const int warp = tid >> 5, lane = tid & 31;
   const int col0 = blockIdx.x * TBN;
   const int row_tiles = (M + BM - 1) / BM;
-  if (PRO)
-    for (int i = tid; i < P; i += kThreads) {
-      s_s[i] = s[i];
-      s_b[i] = b[i];
-    }
-  if (STATS)
-    for (int i = tid; i < 2 * 2 * TBN; i += kThreads)
-      (&s_red[0][0][0])[i] = 0.f;
+  for (int i = tid; i < P; i += kThreads) {
+    s_s[i] = s[i];
+    s_b[i] = b[i];
+  }
+  for (int i = tid; i < 2 * 2 * TBN; i += kThreads)
+    (&s_red[0][0][0])[i] = 0.f;
   __syncthreads();
 
   // staging: A vector r (0, 1) of a slice is tile row sr + 64 r, columns
@@ -156,33 +205,27 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 
   for (int rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
     const int row0 = rt * BM;
-    int pimg[2] = {0, 0}, ph[2] = {0, 0}, pw[2] = {0, 0};
-    if (CONV3) {
+    int pimg[2], ph[2], pw[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = row0 + sr + 64 * r;
-        pimg[r] = m / (H * W);
-        const int rem = m - pimg[r] * H * W;
-        ph[r] = rem / W;
-        pw[r] = rem - ph[r] * W;
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int m = row0 + sr + 64 * r;
+      pimg[r] = m / (H * W);
+      const int rem = m - pimg[r] * H * W;
+      ph[r] = rem / W;
+      pw[r] = rem - ph[r] * W;
     }
     uint4 ra[2], rb[T::kWVec];
     bool okA[2];
     auto fetch = [&](int k0) {
       const int k = k0 + sc;
-      const int tap = CONV3 ? k / C : 0, c = k - tap * C;
+      const int tap = k / C, c = k - tap * C;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        bool ok = row0 + sr + 64 * r < M && k < K;
-        long long off;
-        if (CONV3) {
-          const int hh = ph[r] + tap / 3 - 1, ww = pw[r] + tap % 3 - 1;
-          ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
-          off = (((long long)pimg[r] * H + hh) * W + ww) * C + c;
-        } else {
-          off = (long long)(row0 + sr + 64 * r) * K + k;
-        }
+        const int hh = ph[r] + tap / 3 - 1, ww = pw[r] + tap % 3 - 1;
+        const bool ok = row0 + sr + 64 * r < M && k < K && hh >= 0 &&
+                        hh < H && ww >= 0 && ww < W;
+        const long long off =
+            (((long long)pimg[r] * H + hh) * W + ww) * C + c;
         okA[r] = ok;
         ra[r] = ok ? __ldg(reinterpret_cast<const uint4*>(x + off)) : zero;
       }
@@ -202,8 +245,8 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         uint4 o = ra[r];
-        if (PRO && okA[r]) {
-          const int c = CONV3 ? k % C : k;
+        if (okA[r]) {
+          const int c = k % C;
           float f[8];
           unpack8(ra[r], f);
 #pragma unroll
@@ -278,7 +321,7 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
-    if (STATS) {
+    {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -311,7 +354,7 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  if (STATS) {
+  {
     // the block's partial row: the two warp rows added in order
     __syncthreads();
     const long long G = gridDim.y;
@@ -323,74 +366,122 @@ conv_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <bool PRO, bool STATS, bool CONV3, int TBN>
+template <int TBN>
 int launch_tile(const void* x, const float* s, const float* b, const void* w,
                 void* y, float* part, int M, int K, int N, int H, int W,
                 int C, int groups, cudaStream_t stream) {
   static int done = 0;
-  const int smem = smem_bytes<TBN>(PRO, CONV3 ? C : K);
+  const int smem = smem_bytes<TBN>(C);
   if (smem > 48 * 1024 && done < smem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_gemm_kernel<PRO, STATS, CONV3, TBN>,
+        conv3x3_mma_kernel<TBN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     done = smem;
   }
   const dim3 grid((N + TBN - 1) / TBN, groups);
-  conv_gemm_kernel<PRO, STATS, CONV3, TBN><<<grid, kThreads, smem, stream>>>(
+  conv3x3_mma_kernel<TBN><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)x, s, b, (const __nv_bfloat16*)w,
       (__nv_bfloat16*)y, part, M, K, N, H, W, C);
   return (int)cudaGetLastError();
 }
 
 // 64-wide tiles when N fits one, else 128-wide.
-template <bool PRO, bool STATS, bool CONV3>
-int launch(const void* x, const float* s, const float* b, const void* w,
+int launch_mma(const void* x, const float* s, const float* b, const void* w,
            void* y, float* part, int M, int K, int N, int H, int W, int C,
            int groups, cudaStream_t stream) {
   if (N <= 64)
-    return launch_tile<PRO, STATS, CONV3, 64>(x, s, b, w, y, part, M, K, N,
-                                              H, W, C, groups, stream);
-  return launch_tile<PRO, STATS, CONV3, 128>(x, s, b, w, y, part, M, K, N, H,
-                                             W, C, groups, stream);
+    return launch_tile<64>(x, s, b, w, y, part, M, K, N, H, W, C, groups,
+                           stream);
+  return launch_tile<128>(x, s, b, w, y, part, M, K, N, H, W, C, groups,
+                          stream);
+}
+
+// out = relu(x * s[c] + b[c]) in f32, each operation rounded, to bf16:
+// the prologue of the wgmma route's pass, once a row-major [rows, C]
+// element (C % 8 == 0), 16 bytes a thread.
+__global__ void __launch_bounds__(256)
+prologue_kernel(const __nv_bfloat16* __restrict__ x,
+                const float* __restrict__ s, const float* __restrict__ b,
+                __nv_bfloat16* __restrict__ out, long long n8, int C) {
+  for (long long v = blockIdx.x * 256LL + threadIdx.x; v < n8;
+       v += (long long)gridDim.x * 256) {
+    const int c = (int)(v * 8 % C);
+    float f[8], sv[8], bv[8];
+    unpack8(__ldg(reinterpret_cast<const uint4*>(x) + v), f);
+    load16(s + c, sv);
+    load16(s + c + 4, sv + 4);
+    load16(b + c, bv);
+    load16(b + c + 4, bv + 4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      f[e] = fmaxf(__fadd_rn(__fmul_rn(f[e], sv[e]), bv[e]), 0.f);
+    reinterpret_cast<uint4*>(out)[v] = pack8(f);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x bf16 [M, K] (or NHWC [n, H, W, C] with conv3, K = 9 C, M = n H W); s, b
-// f32 [K] (or [C]) when prologue; w bf16 [K, N] row-major; y bf16 [M, N];
-// part f32 [2, groups, N] when stats (the column sums of y and y^2 of each
-// block row).  K % 8 == 0, N % 8 == 0 and 16-byte aligned bases (the
-// wrapper checks).  groups: the blocks along M, 1 <= groups <= ceil(M /
-// 128).  Returns cudaGetLastError() after the launch (0 on success).
+// The mma.sync route: the 3x3 only.  x NHWC bf16 [n, H, W, C], K = 9 C,
+// M = n H W; s, b f32 [C]; w bf16 [K, N] row-major; y bf16 [M, N]; part
+// f32 [2, groups, N] (the column sums of y and y^2 of each block row).  C %
+// 8 == 0, N % 8 == 0 and 16-byte aligned bases (the wrapper checks).
+// groups: the blocks along M, 1 <= groups <= ceil(M / 128).  prologue,
+// stats and conv3 must be 1 (the 1x1 takes the wgmma route).  Returns
+// cudaGetLastError() after the launch (0 on success).
 int paddle_conv_bn_gemm(const void* x, const float* s, const float* b,
                         const void* w, void* y, float* part, int M, int K,
                         int N, int H, int W, int C, int prologue, int stats,
                         int conv3, int groups, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || groups < 1 ||
-      groups > (M + BM - 1) / BM || groups > 65535)
+      groups > (M + BM - 1) / BM || groups > 65535 || !conv3 || !prologue ||
+      !stats || C <= 0 || C % 8 || K != 9 * C || (long long)H * W <= 0 ||
+      M % (H * W))
     return (int)cudaErrorInvalidValue;
-  if (conv3) {
-    if (!prologue || !stats || C <= 0 || C % 8 || K != 9 * C ||
-        (long long)H * W <= 0 || M % (H * W))
-      return (int)cudaErrorInvalidValue;
-    return launch<true, true, true>(x, s, b, w, y, part, M, K, N, H, W, C,
-                                    groups, st);
-  }
-  if (prologue && stats)
-    return launch<true, true, false>(x, s, b, w, y, part, M, K, N, 0, 0, 0,
-                                     groups, st);
-  if (prologue)
-    return launch<true, false, false>(x, s, b, w, y, part, M, K, N, 0, 0, 0,
-                                      groups, st);
-  if (stats)
-    return launch<false, true, false>(x, s, b, w, y, part, M, K, N, 0, 0, 0,
-                                      groups, st);
-  return launch<false, false, false>(x, s, b, w, y, part, M, K, N, 0, 0, 0,
-                                     groups, st);
+  return launch_mma(x, s, b, w, y, part, M, K, N, H, W, C, groups,
+                    (cudaStream_t)stream);
+}
+
+// The wgmma route: x bf16 [M, K] (or NHWC [n, H, W, C] with conv3, K = 9
+// C, C % 64 == 0, M = n H W); prologue 0 (none) or 1 (applied in the
+// kernel, s, b f32 [K]) for the 1x1, 2 for the 3x3 (x is the prologue
+// pass's output; the kernel zeroes the taps outside the image); w bf16
+// [K, N] row-major; y bf16 [M, N]; part f32 [2, groups, N] when stats.
+// K % 8 == 0, N % 8 == 0 and 16-byte aligned bases (the wrapper checks);
+// (bn, nwg) one of (64, 1), (64, 2), (128, 2), (256, 2); groups: blocks
+// along M, 1 <= groups <= ceil(M / (64 nwg)).  Returns cudaGetLastError()
+// after the launch (0 on success).
+int paddle_conv_bn_wgmma(const void* x, const float* s, const float* b,
+                         const void* w, void* y, float* part, int M, int K,
+                         int N, int H, int W, int C, int prologue, int stats,
+                         int conv3, int bn, int nwg, int groups,
+                         void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || prologue < 0 ||
+      prologue > 2 || (prologue == 1 && (!s || !b)) || (stats && !part) ||
+      (prologue == 2 && !conv3))
+    return (int)cudaErrorInvalidValue;
+  if (conv3 && (prologue != 2 || C <= 0 || C % 64 || K != 9 * C ||
+                (long long)H * W <= 0 || M % (H * W)))
+    return (int)cudaErrorInvalidValue;
+  const paddle_conv::ConvCall c{x, s, b, w, y, part, M, K, N, H, W, C,
+                                prologue, stats, bn, nwg, groups,
+                                (cudaStream_t)stream};
+  return conv3 ? paddle_conv::conv3x3_wgmma(c)
+               : paddle_conv::conv1x1_wgmma(c);
+}
+
+// out bf16 [rows, C] = relu(x * s + b) of x bf16 [rows, C], s, b f32 [C];
+// C % 8 == 0, 16-byte aligned bases.  Returns cudaGetLastError().
+int paddle_conv_bn_prologue(const void* x, const float* s, const float* b,
+                            void* out, long long rows, int C, int blocks,
+                            void* stream) {
+  if (rows <= 0 || C <= 0 || C % 8 || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  prologue_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, s, b, (__nv_bfloat16*)out, rows * C / 8, C);
+  return (int)cudaGetLastError();
 }
 
 // stats [2, N] f32 = the column sums of part [2, groups, N], in block order.

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks for the bf16 flash-attention and
-// ln_matmul kernels: mbarriers, TMA tile loads, wgmma shared-memory
+// Hopper (sm_90a) building blocks for the bf16 flash-attention, ln_matmul
+// and conv+BN kernels: mbarriers, TMA tile loads, wgmma shared-memory
 // descriptors and the wgmma instructions themselves, in inline PTX (no
 // CUTLASS, no PyTorch header: the build stays a few seconds a source).
 //
@@ -105,6 +105,29 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, MapPos p,
       : "memory");
 }
 
+// The same for a 2-D map (`encode_2d`): the box at column `col`, row
+// `row`.  Coordinates past either end, negative ones included, read zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(col),
+         "r"(row)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -184,7 +207,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // m64nNk16, f32 += bf16 * bf16; acc = 0 overwrites d.  `ss`: A and B
-// from shared memory, both K-major (N = 64, 128, 256); `rs`: A from registers
+// from shared memory, A K-major, B K-major (TB = 0) or MN-major (TB = 1)
+// (N = 64, 128, 256); `rs`: A from registers
 // (the m16n8k16 A fragment of each warp's 16 rows), B MN-major (N = 32,
 // 64, 128: a head size).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -202,6 +226,7 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+template <int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int acc) {
   asm volatile(
@@ -211,7 +236,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -219,7 +244,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -243,6 +268,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+template <int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                              uint64_t db, int acc) {
   asm volatile(
@@ -256,7 +282,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -270,7 +296,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -304,6 +330,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+template <int TB>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
                                               uint64_t db, int acc) {
   asm volatile(
@@ -325,7 +352,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -352,15 +379,17 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
-template <int N>
+// TB = 1: B MN-major (its rows in shared memory are the reduction), the
+// layout of a row-major [K, N] weight read in place.
+template <int N, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
-  else if constexpr (N == 128) wgmma_ss_n128(d, da, db, acc);
-  else wgmma_ss_n256(d, da, db, acc);
+  if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, acc);
+  else if constexpr (N == 128) wgmma_ss_n128<TB>(d, da, db, acc);
+  else wgmma_ss_n256<TB>(d, da, db, acc);
 }
 
 template <int N>
@@ -442,6 +471,29 @@ inline int encode_map(CUtensorMap* map, MapPos* pos, const void* ptr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE,
                   swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                        : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The 2-D map over a row-major bf16 [rows, cols] matrix with a row pitch
+// of `pitch` elements (pitch * 2 a multiple of 16): boxes of `box_cols` x
+// `box_rows`, 128-byte swizzle (box_cols <= 64).  Returns 0 or
+// cudaErrorInvalidValue.
+inline int encode_2d(CUtensorMap* map, const void* ptr, long long rows,
+                     long long cols, long long pitch, int box_cols,
+                     int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn || ((uintptr_t)ptr & 15) || (pitch * 2) % 16 || rows <= 0 ||
+      cols <= 0 || box_cols * 2 > 128 || box_rows > 256)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(pitch * 2)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t ones[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(ptr), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -232,3 +232,72 @@ def test_costs_count_the_product_and_each_byte_once():
     # the ridge at ~0.015 ms
     assert 1e3 * max(flops / 989e12, nbytes / 3.35e12) == pytest.approx(
         0.0153, abs=2e-4)
+
+
+# the experiment scripts' shapes (chip_smoke.py phase 18): 1x1 (M, N) and
+# 3x3 (n, H, W, C, Co)
+_SCRIPT_1X1 = ((200704, 256), (200704, 64), (50176, 128), (50176, 512),
+               (12544, 256), (12544, 1024), (3136, 512), (3136, 2048),
+               (13312, 256), (12345, 64))
+_SCRIPT_3X3 = ((64, 56, 56, 64, 64), (64, 28, 28, 128, 128),
+               (64, 14, 14, 256, 256), (64, 7, 7, 512, 512),
+               (8, 14, 14, 256, 256))
+
+
+def _tiles_ok(plan, M, N, sms):
+    """The plan's invariants: a wgmma instance, groups within the row
+    tiles and, over the column tiles, within the card's blocks."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    assert (plan["bn"], plan["nwg"]) in ((64, 1), (64, 2), (128, 2),
+                                         (256, 2))
+    assert plan["bm"] == 64 * plan["nwg"]
+    occ = 2 if plan["nwg"] == 1 else 1
+    assert 1 <= plan["groups"] <= cdiv(M, plan["bm"])
+    assert (plan["groups"] == 1
+            or plan["groups"] * cdiv(N, plan["bn"]) <= occ * sms)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_conv_plan_takes_wgmma_for_every_script_shape(sms):
+    """Every 1x1 and every 3x3 of the scripts runs on the wgmma kernels;
+    a 1x1 whose N fits one column tile applies the prologue in the
+    kernel, the 3x3 and the wider 1x1 take the prologue pass; and the
+    statistics' partials ``[2, groups, N]`` have the plan's groups."""
+    for M, N in _SCRIPT_1X1:
+        plan = cb.conv_plan(M, N, sms=sms)
+        assert plan["route"] == "wgmma"
+        _tiles_ok(plan, M, N, sms)
+        assert plan["prologue"] == ("kernel" if N <= plan["bn"] else "pass")
+        assert cb.conv_plan(M, N, sms=sms, prologue=False)["prologue"] is None
+    for n, H, W, C, Co in _SCRIPT_3X3:
+        plan = cb.conv_plan(n * H * W, Co, C, sms=sms)
+        assert plan["route"] == "wgmma" and plan["prologue"] == "pass"
+        _tiles_ok(plan, n * H * W, Co, sms)
+
+
+def test_conv_plan_fills_the_card_with_wide_tiles():
+    """The widest column tile that still leaves half the card's
+    multiprocessors a tile; 64-row tiles (two blocks an SM) only where
+    128 x 64 tiles would not."""
+    assert cb.conv_plan(200704, 256)["bn"] == 256           # 1568 tiles
+    assert cb.conv_plan(12544, 256)["bn"] == 256            # 98 >= 66
+    p = cb.conv_plan(3136, 512)                             # 25 x 2 < 66
+    assert (p["bm"], p["bn"], p["groups"]) == (128, 128, 25)
+    p = cb.conv_plan(8 * 14 * 14, 256, 256)                 # 13 x 4 < 66
+    assert (p["bm"], p["bn"], p["nwg"]) == (64, 64, 1)
+    assert p["groups"] == 25                                 # 1568 / 64
+
+
+@pytest.mark.parametrize("C", [8, 16, 40, 72, 200])
+def test_conv_plan_keeps_mma_for_ragged_channels(C):
+    """A 3x3 whose C is not a multiple of 64 (a 64-wide K slice would
+    straddle two taps) takes the kept mma.sync kernel, by shape; its
+    groups fill the card twice over the column tiles."""
+    plan = cb.conv_plan(3 * 5 * 9, 40, C)
+    assert plan["route"] == "mma" and plan["prologue"] is None
+    assert (plan["bm"], plan["bn"], plan["groups"]) == (128, 64, 2)
+    plan = cb.conv_plan(64 * 56 * 56, 256, C)
+    assert plan["bn"] == 128
+    assert plan["groups"] == 2 * 132 // 2
+    assert cb.conv_plan(64 * 56 * 56, 256, C + 64 - C % 64)["route"] == \
+        "wgmma"

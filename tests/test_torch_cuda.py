@@ -14,8 +14,9 @@ takes them: a 2^-9 relative error a term, well inside it).  The case
 builders are shared with ``test_torch_kernels.py`` and
 ``test_torch_train.py``.  The LayerNorm kernels' dw and db are f32 sums
 over up to 1000 rows in another order than the plain version's: atol
-1e-3 there.  The conv+BN kernels' statistics are f32 column sums over up
-to 3000 rows of O(1) values: rtol 1e-5 and atol 1e-5 of the largest sum.
+1e-3 there.  The conv+BN kernels' statistics are f32 column sums of O(1)
+values, over up to 20000 rows in the 1x1 cases: rtol 1e-5 and atol 1e-5
+of the largest sum.
 """
 import numpy as np
 import pytest
@@ -725,14 +726,18 @@ def _close_stats(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(1024, 64, 256), (3000, 256, 64),
-                                   (77, 512, 136), (256, 2048, 512)])
+                                   (77, 512, 136), (256, 2048, 512),
+                                   (20000, 64, 64), (20000, 128, 128),
+                                   (20000, 64, 256), (20000, 64, 136)])
 def test_conv1x1_kernels_match_plain(cuda, M, K, N):
-    """Every 1x1 instance (``_kernel``, ``_k_mm``, ``_k_stat``,
-    ``_k_pro``) at a ragged M (3000, 77), a ragged N (136: a partial
-    column tile) and the scripts' channel counts; one launch each (each
-    ``run_mm`` body on its own counter), plus one column sum under the
-    statistics."""
+    """Every 1x1 body (``_kernel``, ``_k_mm``, ``_k_stat``, ``_k_pro``) at
+    a ragged M (3000, 77, 20000: not a multiple of 64 or 128), a ragged N
+    (136: a partial column tile) and the scripts' channel counts, over
+    the wgmma kernel's tile instances (``conv_plan``); one launch each
+    (each ``run_mm`` body on its own counter, all on the wgmma route),
+    plus one column sum under the statistics."""
     x, s, b, w = _conv_case(cuda, (M, K), K, (K, N), K, seed=M + N)
+    w0 = cb.run_mm.launches_wgmma
     n0 = (cb.fused_conv1x1_bn.launches, cb.run_mm.launches,
           cb.run_mm.launches_mm, cb.run_mm.launches_stat,
           cb.run_pro.launches, cb.conv_bn_column_sum.launches)
@@ -754,16 +759,43 @@ def test_conv1x1_kernels_match_plain(cuda, M, K, N):
           cb.run_mm.launches_mm, cb.run_mm.launches_stat,
           cb.run_pro.launches, cb.conv_bn_column_sum.launches)
     assert tuple(b_ - a for a, b_ in zip(n0, n1)) == (1, 2, 1, 1, 1, 2)
+    assert cb.run_mm.launches_wgmma - w0 == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(300, 200, 64), (20000, 200, 128),
+                                   (20000, 72, 256), (300, 2120, 64),
+                                   (20000, 200, 512)])
+def test_conv1x1_prologue_reads_zero_past_the_edges(cuda, M, K, N):
+    """b > 0, so relu(0 * s + b) > 0: the rows past M and the columns
+    past K (K = 200, 72, 2120: not a multiple of the 64-wide K slice)
+    that TMA fills with zeros must stay 0 after the prologue, in y and in
+    the statistics; in the kernel (one column tile; K = 2120 reads s and
+    b where they lie) and through the prologue pass (N = 512)."""
+    x, s, b, w = _conv_case(cuda, (M, K), K, (K, N), K, seed=K + N,
+                            b_pos=True)
+    y, st = cb.fused_conv1x1_bn(x, s, b, w, bn=N)
+    yp, stp = cb.fused_conv1x1_bn_plain(x, s, b, w)
+    torch.testing.assert_close(y, yp, **_tols(torch.bfloat16))
+    _close_stats(st, stp)
+    torch.testing.assert_close(cb.run_pro(x, s, b, w, bm=M, bn=N),
+                               cb.run_pro_plain(x, s, b, w),
+                               **_tols(torch.bfloat16))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,H,W,C,Co,b_pos", [
     (2, 56, 56, 64, 64, False), (4, 7, 7, 512, 512, False),
-    (3, 5, 9, 16, 40, True), (2, 14, 14, 256, 256, True)])
+    (3, 5, 9, 16, 40, True), (2, 14, 14, 256, 256, True),
+    (8, 14, 14, 256, 256, True), (64, 7, 7, 512, 512, True),
+    (32, 28, 28, 128, 128, False), (24, 28, 28, 64, 256, True),
+    (3, 5, 9, 64, 40, True)])
 def test_fused3x3_kernel_matches_plain(cuda, n, H, W, C, Co, b_pos):
-    """The implicit-GEMM 3x3 at the scripts' widths and a small ragged
-    image (5 x 9, Co = 40); b > 0 holds the zero padding after the
-    prologue at the border."""
+    """The implicit-GEMM 3x3 at the scripts' widths, Co = 64 at 56^2, the
+    small-M n = 8 14^2 and the 7^2 shape, over the wgmma kernel's tile
+    instances, and small ragged images (5 x 9, Co = 40; C = 16 takes the
+    kept mma.sync kernel); b > 0 holds the zero padding after the
+    prologue at the border and past the last row."""
     x, s, b, w = _conv_case(cuda, (n, H, W, C), C, (3, 3, C, Co), 9 * C,
                             seed=H * C, b_pos=b_pos)
     before = cb.fused3x3.launches
@@ -778,18 +810,83 @@ def test_fused3x3_kernel_matches_plain(cuda, n, H, W, C, Co, b_pos):
 
 @pytest.mark.cuda
 def test_conv_bn_statistics_repeat_bitwise(cuda):
-    """No atomics: two launches give the same bits, y and statistics."""
+    """No atomics: two launches give the same bits, y and statistics, on
+    each kernel: conv1x1_wgmma (the fused body and ``_k_stat``),
+    conv3x3_wgmma and the kept mma.sync 3x3."""
     x, s, b, w = _conv_case(cuda, (50176, 128), 128, (128, 512), 128, seed=3)
-    first = cb.fused_conv1x1_bn(x, s, b, w)
-    second = cb.fused_conv1x1_bn(x, s, b, w)
-    for a, b_ in zip(first, second):
-        assert torch.equal(a, b_)
-    x3, s3, b3, w3 = _conv_case(cuda, (8, 28, 28, 128), 128,
-                                (3, 3, 128, 128), 9 * 128, seed=4)
-    first = cb.fused3x3(x3, s3, b3, w3)
-    second = cb.fused3x3(x3, s3, b3, w3)
-    for a, b_ in zip(first, second):
-        assert torch.equal(a, b_)
+    for call in (lambda: cb.fused_conv1x1_bn(x, s, b, w),
+                 lambda: cb.run_mm(x, w, bm=50176, kern=cb._k_stat,
+                                   nstat=True)):
+        first, second = call(), call()
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
+    for shape, C, Co in (((8, 28, 28, 128), 128, 128),
+                         ((3, 5, 9, 16), 16, 40)):
+        x3, s3, b3, w3 = _conv_case(cuda, shape, C, (3, 3, C, Co), 9 * C,
+                                    seed=4)
+        first = cb.fused3x3(x3, s3, b3, w3, bn_blk=1)
+        second = cb.fused3x3(x3, s3, b3, w3, bn_blk=1)
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
+
+
+# the experiment scripts' shapes (chip_smoke.py phase 18)
+_SCRIPT_1X1 = ((200704, 64, 256), (200704, 256, 64), (50176, 512, 128),
+               (50176, 128, 512), (12544, 1024, 256), (12544, 256, 1024),
+               (3136, 2048, 512), (3136, 512, 2048), (13312, 1024, 256))
+_SCRIPT_3X3 = ((64, 56, 56, 64, 64), (64, 28, 28, 128, 128),
+               (64, 14, 14, 256, 256), (64, 7, 7, 512, 512),
+               (8, 14, 14, 256, 256))
+
+
+@pytest.mark.cuda
+def test_conv_bn_routes_by_shape(cuda, monkeypatch):
+    """Every script shape launches the wgmma kernels, each launch on its
+    route's counter, after one prologue pass where the plan takes one;
+    the ragged (3, 5, 9, 16, 40) launches the kept mma.sync 3x3.  The
+    statistics' partials have the plan's ``groups`` rows."""
+    seen = []
+    column_sum = cb.conv_bn_column_sum
+
+    def spy(part):
+        seen.append(tuple(part.shape))
+        return column_sum(part)
+    # the wrapper counts its launches on the module's name: the spy's
+    spy.launches = column_sum.launches
+    monkeypatch.setattr(cb, "conv_bn_column_sum", spy)
+    for M, K, N in _SCRIPT_1X1:
+        x, s, b, w = _conv_case(cuda, (M, K), K, (K, N), K, seed=1)
+        n0 = (cb.fused_conv1x1_bn.launches_wgmma, cb.run_mm.launches_wgmma,
+              cb.run_pro.launches_wgmma)
+        p0 = cb.conv_bn_prologue.launches
+        cb.fused_conv1x1_bn(x, s, b, w, bn=N)
+        cb.run_mm(x, w, bm=M, bn=N)
+        cb.run_pro(x, s, b, w, bm=M, bn=N)
+        torch.cuda.synchronize()
+        assert (cb.fused_conv1x1_bn.launches_wgmma, cb.run_mm.launches_wgmma,
+                cb.run_pro.launches_wgmma) == tuple(v + 1 for v in n0)
+        plan = cb.conv_plan(M, N, sms=cb._sms(x.device))
+        assert plan["route"] == "wgmma"
+        # fused_conv1x1_bn and run_pro: one pass each where the plan says
+        assert cb.conv_bn_prologue.launches - p0 == 2 * (
+            plan["prologue"] == "pass")
+        assert seen.pop() == (2, plan["groups"], N)
+    for n, H, W, C, Co in _SCRIPT_3X3 + ((3, 5, 9, 16, 40),):
+        x, s, b, w = _conv_case(cuda, (n, H, W, C), C, (3, 3, C, Co), 9 * C,
+                                seed=2)
+        n0 = (cb.fused3x3.launches_wgmma, cb.fused3x3.launches_mma)
+        p0 = cb.conv_bn_prologue.launches
+        cb.fused3x3(x, s, b, w, bn_blk=1)
+        torch.cuda.synchronize()
+        plan = cb.conv_plan(n * H * W, Co, C, sms=cb._sms(x.device))
+        mma = C % 64 != 0
+        assert plan["route"] == ("mma" if mma else "wgmma")
+        assert (cb.fused3x3.launches_wgmma,
+                cb.fused3x3.launches_mma) == (n0[0] + (not mma),
+                                              n0[1] + mma)
+        assert cb.conv_bn_prologue.launches - p0 == (not mma)
+        assert seen.pop() == (2, plan["groups"], Co)
+    column_sum.launches = spy.launches
 
 
 @pytest.mark.cuda

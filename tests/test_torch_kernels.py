@@ -253,7 +253,9 @@ def test_build_digest_follows_sources():
     assert {s.name for s in srcs} == {"flash_attention_fwd.cu",
                                       "flash_attention_bwd.cu",
                                       "paged_attention.cu", "layer_norm.cu",
-                                      "ln_matmul.cu", "conv_bn.cu"}
+                                      "ln_matmul.cu", "conv_bn.cu",
+                                      "conv_wgmma_1x1.cu",
+                                      "conv_wgmma_3x3.cu"}
     assert _build._digest(srcs) == _build._digest(srcs)
     assert _build._digest(srcs[:1]) != _build._digest(srcs)
 

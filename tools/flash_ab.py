@@ -1,11 +1,12 @@
-"""A/B of the flash-attention kernels and the GPT training cell between
+"""A/B of the flash-attention kernels and the GPT training cell, the
+fused-LayerNorm cell, the conv+BN kernels or the serving cell, between
 checkouts of the PyTorch/CUDA port, on one card, in turns.
 
 Usage, from the root of a checkout, with one CUDA card::
 
     git archive <parent> | tar -x -C build/parent
     python tools/flash_ab.py --roots build/parent . . build/parent \\
-        --out build/flash_ab.json [--mode fused-ln]
+        --out build/flash_ab.json [--mode fused-ln | conv-bn | serve]
 
 Each root runs in a fresh process that imports ``paddle_tpu_torch`` from
 that root (and builds its kernels there).  ``--mode flash`` (the default)
@@ -30,6 +31,18 @@ the ``ln_matmul`` kernels' ms (names holding ``ln_matmul`` or
 ``ln_stats``), the LayerNorm kernels' ms (``ln_fwd``, ``ln_bwd``,
 ``colsum2``), the busy share and the step's kernels by device time.
 
+``--mode conv-bn`` measures the conv+BN kernels (rows 11-13) at every
+case of ``chip_smoke.py`` phase 18: the 8 1x1 shapes (``fused_conv1x1_bn``),
+the 3 split shapes in their four variants (``run_mm`` ``_k_mm`` and
+``_k_stat``, ``run_pro``, ``fused_conv1x1_bn``), the ragged M and the 5
+3x3 cases (``fused3x3``): each case's device ms from CUDA-graph replays
+over the phase's rotating input sets (the same seed), through the public
+entry points only, so any two checkouts compare.
+
+``--mode serve`` runs ``chip_smoke.py`` phase 4's serving cell (f32
+pools, 24 requests of 32 new tokens on full-width gpt2-small-en, the
+teacher-forced check included): tokens/s and p50 time to first token.
+
 The helpers come from this checkout's ``chip_smoke.py``.  Prints one JSON
 line a run, the ``nvidia-smi`` name and power limit, and the mean of each
 root's runs with the ratio of the first root's to every other's.
@@ -51,7 +64,9 @@ KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
                   "busy_share"),
         "fused-ln": ("step_ms", "tokens_per_s", "flops_share",
                      "unfused_step_ms", "ln_matmul_ms", "ln_kernels_ms",
-                     "busy_share")}
+                     "busy_share"),
+        "conv-bn": None,          # the case names, from the run
+        "serve": ("tokens_per_s", "p50_ttft_ms")}
 
 
 def _smoke():
@@ -175,6 +190,73 @@ def measure_fused_ln(root: str, steps: int = 5, seed: int = 0) -> dict:
     return res
 
 
+def measure_conv_bn(root: str, seed: int = 18) -> dict:
+    """Device ms of every phase-18 conv+BN case of one root, in this
+    process (``root`` first on the path)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    cs = _smoke()
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: no CUDA card")
+    dev = torch.device("cuda", 0)
+    res = dict(root=root, package=os.path.dirname(cb.__file__))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    calls = {
+        "full": lambda x, s, b, w: cb.fused_conv1x1_bn(x, s, b, w),
+        "pro": lambda x, s, b, w: cb.run_pro(x, s, b, w),
+        "stat": lambda x, s, b, w: cb.run_mm(x, w, kern=cb._k_stat,
+                                              nstat=True),
+        "mm": lambda x, s, b, w: cb.run_mm(x, w)}
+    cases = ([(shape, ("full",)) for shape in cs.CONV1X1_SHAPES]
+             + [(shape, ("mm", "stat", "pro", "full"))
+                for shape in cs.SPLIT_SHAPES]
+             + [((12345, 256, 64), ("full",))])
+    for (M, K, N), tags in cases:
+        _, nbytes = cb.conv1x1_cost(M, K, N)
+        sets = [cs._conv_inputs(gen, dev, (M, K), K, (K, N), K)
+                for _ in range(cs._n_sets(nbytes))]
+        for tag in tags:
+            res[f"{tag} M={M} K={K} N={N}"] = cs._graph_ms(
+                cs._rotating(calls[tag], sets), 10)
+        del sets
+        torch.cuda.empty_cache()
+    for (n, H, W, C, Co), b_pos in ([(s, False) for s in cs.CONV3X3_SHAPES]
+                                    + [((8, 14, 14, 256, 256), True)]):
+        _, nbytes = cb.conv3x3_cost(n, H, W, C, Co)
+        sets = [cs._conv_inputs(gen, dev, (n, H, W, C), C, (3, 3, C, Co),
+                                9 * C, b_pos)
+                for _ in range(cs._n_sets(nbytes))]
+        name = f"3x3 n={n} {H}x{W} C={C}->{Co}{' b>0' if b_pos else ''}"
+        res[name] = cs._graph_ms(cs._rotating(cb.fused3x3, sets), 10)
+        del sets
+        torch.cuda.empty_cache()
+    return res
+
+
+def measure_serve(root: str, seed: int = 0) -> dict:
+    """Phase 4's serving cell of one root, in this process (``root``
+    first on the path)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    cs = _smoke()
+    from paddle_tpu_torch import serving
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: no CUDA card")
+    out = cs.phase_serve(torch.device("cuda", 0), None, 24, 32, seed, 1e-3)
+    return dict(root=root, package=os.path.dirname(serving.__file__),
+                tokens_per_s=out["tokens_per_s"],
+                p50_ttft_ms=out["p50_ttft_ms"])
+
+
+MEASURE = {"flash": measure, "fused-ln": measure_fused_ln,
+           "conv-bn": measure_conv_bn, "serve": measure_serve}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."],
@@ -185,8 +267,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     keys = KEYS[args.mode]
     if args.one:
-        fn = measure if args.mode == "flash" else measure_fused_ln
-        print(json.dumps(fn(args.one)))
+        print(json.dumps(MEASURE[args.mode](args.one)))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -203,6 +284,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"flash_ab: the run of {root} failed")
         run = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(run)
+        keys = keys or tuple(k for k in run if k not in ("root", "package"))
         print(json.dumps({k: run[k] for k in ("root", *keys)}))
     mean = {}
     for root in dict.fromkeys(args.roots):
