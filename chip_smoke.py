@@ -8,11 +8,12 @@ run with a non-zero exit, and nothing is caught):
 1. the card: ``nvidia-smi`` name and power limit, device name and count;
 2. build the CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    ``nvcc`` (seconds, plus the ``-Xptxas -v`` register/shared-memory
-   report) and print, for each flash, ``ln_matmul`` and conv+BN kernel,
-   the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
-   ``cuobjdump -sass`` finds in it ("cuobjdump not found" where there is
-   none; a print, and a gate only for the conv+BN wgmma kernels, which
-   must show both);
+   report) and print, for each flash, ``ln_matmul``, conv+BN and paged
+   kernel, the ``HGMMA`` (wgmma), ``UTMALDG`` (TMA load) and ``UBLKCP``
+   (1-D bulk copy) instructions ``cuobjdump -sass`` finds in it; a gate
+   for the conv+BN wgmma kernels, which must show HGMMA and UTMALDG, and
+   for every paged chunk kernel, which must show an async copy (UTMALDG
+   or UBLKCP; without cuobjdump the run fails);
 3. hold each kernel against its plain PyTorch version at the serving
    path's shapes, TF32 off, and time kernel, plain version, the bound
    (the larger of flops over the operands' peak, 67 TFLOP/s f32 or 989
@@ -20,7 +21,13 @@ run with a non-zero exit, and nothing is caught):
    attention, PyTorch's ``scaled_dot_product_attention`` as a yardstick
    the port never calls; f32 at B=4 (held at 1e-4) and one bf16 case at
    the prefill shape B=4 T=512 causal (bf16 tolerance); device ms from
-   CUDA-graph replays, the eager call's ms beside;
+   CUDA-graph replays, the eager call's ms beside; the paged decode
+   kernel at every case of ``PAGED_CASES`` (B=9 H=12 D=64 P=16: the
+   decode step's rows at W=1 and 4 over f32 and int8 pools, a full pool
+   of 8 rows at 560-639 tokens, and a 512-entry table at W=8), one launch
+   a call, held at 1e-4, with the gather + ``scaled_dot_product_attention``
+   yardstick beside (two calls: no one PyTorch call computes a paged
+   read);
 4. serve: ``gpt2-small-en`` at full width with random weights made from a
    numpy seed and loaded through ``load_jax_state``; ``Engine(max_slots=8,
    max_len=640, paged_kv=True, page_size=16)``; 24 requests (prompts of
@@ -222,21 +229,23 @@ def _kernel_name(mangled):
     """``flash_fwd_bf16_kernel<64>`` from a mangled kernel symbol."""
     import re
 
-    m = re.search(r"\d+((?:flash|ln|conv)_\w+?_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d+((?:flash|ln|conv|paged)_\w+?_kernel)I(.+?)EEv",
+                  mangled)
     if not m:
-        m = re.search(r"\d+((?:flash|ln|conv)_\w+?_kernel)", mangled)
+        m = re.search(r"\d+((?:flash|ln|conv|paged)_\w+?_kernel)", mangled)
         return m.group(1) if m else mangled
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"L[ib](\d+)E", r"\1,", args)
     args = "float," + args[1:] if args.startswith("f") else args
+    args = "int8," + args[1:] if args.startswith("a") else args
     return f"{m.group(1)}<{args.strip(',')}>"
 
 
 def _sass_counts(lib_path):
-    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
-    flash, ``ln_matmul`` and conv+BN kernel's SASS (``cuobjdump -sass``), as
-    ``{kernel: (hgmma, utmaldg)}``, or None where the toolkit has no
-    cuobjdump."""
+    """``HGMMA`` (wgmma), ``UTMALDG`` (TMA load) and ``UBLKCP`` (1-D bulk
+    copy) instructions in each flash, ``ln_matmul``, conv+BN and paged
+    kernel's SASS (``cuobjdump -sass``), as ``{kernel: (hgmma, utmaldg,
+    ublkcp)}``, or None where the toolkit has no cuobjdump."""
     import re
     import shutil
 
@@ -252,13 +261,15 @@ def _sass_counts(lib_path):
             name = m.group(1)
             fn = (_kernel_name(name) if "flash_" in name
                   or "ln_matmul_" in name or "conv_wgmma_" in name
-                  or "conv3x3_mma_" in name else None)
+                  or "conv3x3_mma_" in name or "paged_" in name else None)
             if fn:
-                counts[fn] = [0, 0]
+                counts[fn] = [0, 0, 0]
         elif fn and "HGMMA" in line:
             counts[fn][0] += 1
         elif fn and "UTMALDG" in line:
             counts[fn][1] += 1
+        elif fn and "UBLKCP" in line:
+            counts[fn][2] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -274,10 +285,18 @@ def phase_build():
     sass = _sass_counts(info.path)
     if sass is None:
         print("[build] HGMMA / UTMALDG: cuobjdump not found")
-    for name, (n, t) in sorted((sass or {}).items()):
-        print(f"[build] HGMMA {n:3d}, UTMALDG {t:3d} in {name}")
+    for name, (n, t, u) in sorted((sass or {}).items()):
+        print(f"[build] HGMMA {n:3d}, UTMALDG {t:3d}, UBLKCP {u:3d} in "
+              f"{name}")
         if name.startswith("conv_wgmma") and not (n > 0 and t > 0):
             _fail(f"{name}: no HGMMA or no UTMALDG in its SASS")
+        # the paged kernel moves pages with async bulk copies
+        if name.startswith("paged_chunk_kernel") and t == 0 and u == 0:
+            _fail(f"{name}: no UTMALDG or UBLKCP (async bulk copy) in its "
+                  f"SASS")
+    if not any(k.startswith("paged_chunk_kernel") for k in sass or {}):
+        _fail("no paged_chunk_kernel in the library's SASS (or no "
+              "cuobjdump): its bulk copies cannot be checked")
     return info.seconds, sass
 
 
@@ -350,20 +369,41 @@ def phase_flash(dev, tol=1e-4):
     return rows
 
 
-def _paged_inputs(dev, W, quant, n_sets):
-    """Decode-step shapes: 8 slots + the scratch lane, 12 heads, head
-    size 64, 16-position pages, 40-entry tables (max_len 640).  Rows sit
-    at a page start, on and next to a boundary, mid-page, and one is
-    parked with an all-sentinel table.  ``n_sets`` pool pairs (like the
-    12 layers of a step) keep the timed reads out of the 50 MB L2."""
+# phase_paged's cases: (name, W, pool, n_pt, lengths of the 8 live rows);
+# every case adds the scratch lane, parked at n_pt * P with an all-sentinel
+# table, and runs at B=9 H=12 D=64 P=16
+PAGED_CASES = (
+    ("serve W=1 f32", 1, "f32", 40, (0, 15, 16, 37, 100, 255, 333, 600)),
+    ("serve W=4 f32", 4, "f32", 40, (0, 15, 16, 37, 100, 255, 333, 600)),
+    ("serve W=1 int8", 1, "int8", 40, (0, 15, 16, 37, 100, 255, 333, 600)),
+    ("serve W=4 int8", 4, "int8", 40, (0, 15, 16, 37, 100, 255, 333, 600)),
+    # every row near max_len 640: the pool's 320 pages nearly all live
+    ("full pool W=1 f32", 1, "f32", 40,
+     (560, 575, 590, 600, 610, 620, 630, 639)),
+    # 8192 positions a row (n_pt 512), W=8: the table the whole-row kernel
+    # refused for its shared-memory scores
+    ("wide W=8 f32", 8, "f32", 512,
+     (0, 100, 1000, 2047, 4096, 6000, 8000, 8184)),
+)
+PAGED_H, PAGED_D, PAGED_P = 12, 64, 16
+
+
+def _paged_inputs(dev, case, n_sets):
+    """One case of :data:`PAGED_CASES` at decode-step shapes: 8 rows and
+    the parked scratch lane over a pool of 8 * n_pt pages; rows sit at a
+    page start, on and next to a boundary and mid-page.  ``n_sets`` pool
+    pairs (like the 12 layers of a step) keep the timed reads out of the
+    50 MB L2."""
     import numpy as np
     import torch
 
-    rs = np.random.RandomState(W + 2 * quant)
-    B, H, D, P, n_pt = 9, 12, 64, 16, 40
+    _, W, pool, n_pt, rows = case
+    quant = pool == "int8"
+    rs = np.random.RandomState(W + 2 * quant + n_pt)
+    H, D, P = PAGED_H, PAGED_D, PAGED_P
     NP = 8 * n_pt
-    lengths = np.array([0, 15, 16, 37, 100, 255, 333, 600, n_pt * P],
-                       np.int32)
+    lengths = np.array(list(rows) + [n_pt * P], np.int32)
+    B = len(lengths)
     pt = np.full((B, n_pt), NP, np.int32)
     perm = rs.permutation(NP)
     used = 0
@@ -371,7 +411,7 @@ def _paged_inputs(dev, W, quant, n_sets):
         need = -(-int(ln + W) // P)
         pt[b, :need] = perm[used:used + need]
         used += need
-    gen = torch.Generator(device=dev).manual_seed(W)
+    gen = torch.Generator(device=dev).manual_seed(W + n_pt)
     q = torch.randn(B, W, H, D, device=dev, generator=gen)
     sets = []
     for _ in range(n_sets):
@@ -385,54 +425,95 @@ def _paged_inputs(dev, W, quant, n_sets):
             kp = torch.randn(NP, P, H, D, device=dev, generator=gen)
             vp = torch.randn(NP, P, H, D, device=dev, generator=gen)
             ks = vs = None
-        sets.append((kp, vp, ks, vs))
-    return (q, torch.from_numpy(pt).to(dev),
-            torch.from_numpy(lengths).to(dev), lengths, sets)
+        sets.append((q, kp, vp, torch.from_numpy(pt).to(dev),
+                     torch.from_numpy(lengths).to(dev), ks, vs))
+    return lengths, sets
+
+
+def _paged_n_sets(case):
+    """Enough pool pairs that one rotation streams > 150 MB (the L2 holds
+    50 MB), at least 2 and at most 8."""
+    _, W, pool, n_pt, _ = case
+    pair = 2 * 8 * n_pt * PAGED_P * PAGED_H * PAGED_D * (
+        1 if pool == "int8" else 4)
+    return max(2, min(8, -(-150_000_000 // pair)))
+
+
+def paged_gather_sdpa(q, k_pages, v_pages, page_table, lengths,
+                      k_scale=None, v_scale=None):
+    """The yardstick of the paged kernel: gather every row's pages
+    (``k_pages[pt_safe]``, int8 dequantized) and one
+    ``scaled_dot_product_attention`` under the validity mask ``col <=
+    start + row``.  Two calls: no single PyTorch call computes a paged
+    read.  Timed beside the kernel only; the port never calls it."""
+    import torch
+    import torch.nn.functional as tF
+
+    B, W, H, D = q.shape
+    NP, P = k_pages.shape[:2]
+    virt = page_table.shape[1] * P
+    pt_safe = page_table.long().clamp(0, NP - 1)
+    k = k_pages[pt_safe].reshape(B, virt, H, D)
+    v = v_pages[pt_safe].reshape(B, virt, H, D)
+    if k_scale is not None:
+        k = k.float() * k_scale[pt_safe].reshape(B, virt, 1, 1)
+        v = v.float() * v_scale[pt_safe].reshape(B, virt, 1, 1)
+    cols = lengths.long()[:, None] + torch.arange(W, device=q.device)
+    mask = torch.arange(virt, device=q.device) <= cols[:, :, None]
+    out = tF.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None])
+    return out.transpose(1, 2)
 
 
 def phase_paged(dev, tol=1e-4):
+    """Kernel 7 against its plain version at every case of
+    :data:`PAGED_CASES`: device ms from CUDA-graph replays over rotating
+    pool sets (eager ms beside), the plain version, the gather + SDPA
+    yardstick and the bound (bytes)."""
     import torch
 
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     rows = []
-    for quant in (False, True):
-        for W in (1, 4):
-            q, pt, lens, lens_np, sets = _paged_inputs(dev, W, quant, 8)
-            live = lens < pt.shape[1] * 16
-            err = 0.0
-            for kp, vp, ks, vs in sets[:2]:
-                out = pa.paged_decode_attention(q, kp, vp, pt, lens, ks, vs)
-                torch.cuda.synchronize()
-                ref = pa.paged_decode_attention_plain(q, kp, vp, pt, lens,
-                                                      ks, vs)
-                err = max(err, float((out[live] - ref[live]).abs().max()))
-            if not err <= tol:
-                _fail(f"paged kernel W={W} quant={quant}: max abs err "
-                      f"{err} > {tol}")
-            it = [0]
-
-            def run(fn):
-                kp, vp, ks, vs = sets[it[0] % len(sets)]
-                it[0] += 1
-                return fn(q, kp, vp, pt, lens, ks, vs)
-
-            ms = _timed_ms(lambda: run(pa.paged_decode_attention), 96)
-            plain_ms = _timed_ms(lambda: run(pa.paged_decode_attention_plain),
-                                 16)
-            bound_ms, bound_by = _bound(*pa.paged_cost(
-                lens_np, W, 12, 64, 16, 40, quant))
-            rows.append(dict(B=9, W=W, H=12, D=64, P=16, n_pt=40,
-                             pool="int8" if quant else "f32",
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=bound_ms,
-                             bound_by=bound_by))
-            print(f"[paged] B=9 W={W} H=12 D=64 P=16 n_pt=40 "
-                  f"{'int8' if quant else 'f32'}: max_abs_err={err:.3e} "
-                  f"(tol {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-                  f" bound {bound_ms:.4f} ms ({bound_by})")
-            del sets
-            torch.cuda.empty_cache()
+    for case in PAGED_CASES:
+        name, W, pool, n_pt, _ = case
+        lens_np, sets = _paged_inputs(dev, case, _paged_n_sets(case))
+        live = sets[0][4] < n_pt * PAGED_P
+        err = 0.0
+        for args in sets[:2]:
+            before = pa.paged_decode_attention.launches
+            out = pa.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            if pa.paged_decode_attention.launches != before + 1:
+                _fail(f"paged kernel {name}: launches did not rise by one")
+            ref = pa.paged_decode_attention_plain(*args)
+            err = max(err, float((out[live] - ref[live]).abs().max()))
+            del out, ref
+        if not err <= tol:
+            _fail(f"paged kernel {name}: max abs err {err} > {tol}")
+        ms, eager_ms = _times(_rotating(pa.paged_decode_attention, sets),
+                              96)
+        plain_ms, plain_eager_ms = _times(
+            _rotating(pa.paged_decode_attention_plain, sets), 8, calls=4)
+        lib_ms, lib_eager_ms = _times(_rotating(paged_gather_sdpa, sets), 8,
+                                      calls=4)
+        bound_ms, bound_by = _bound(*pa.paged_cost(
+            lens_np, W, PAGED_H, PAGED_D, PAGED_P, n_pt, pool == "int8"))
+        rows.append(dict(case=name, B=len(lens_np), W=W, H=PAGED_H,
+                         D=PAGED_D, P=PAGED_P, n_pt=n_pt, pool=pool,
+                         max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                         plain_ms=plain_ms, plain_eager_ms=plain_eager_ms,
+                         library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"[paged] {name} (B={len(lens_np)} H={PAGED_H} D={PAGED_D} "
+              f"P={PAGED_P} n_pt={n_pt}): max_abs_err={err:.3e} (tol "
+              f"{tol}) kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms (eager {plain_eager_ms:.4f}), gather + "
+              f"sdpa {lib_ms:.4f} ms (eager {lib_eager_ms:.4f}), bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        del sets
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -505,8 +586,9 @@ def _device_profile(fn, trace_path=None, top=10):
     """``torch.profiler`` around ``fn()``: the window's wall time, the
     device's busy time in it (the merged intervals of the device's kernels
     and copies) and device time by kernel name, all in ms; ``busy_share``
-    is None when the profiler saw no device activity.  The chrome trace
-    goes to ``trace_path`` when one is given."""
+    is None when the profiler saw no device activity; ``all_launches``
+    counts each kernel name's launches.  The chrome trace goes to
+    ``trace_path`` when one is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -518,12 +600,13 @@ def _device_profile(fn, trace_path=None, top=10):
         wall_us = 1e6 * (time.perf_counter() - t0)
     if trace_path:
         prof.export_chrome_trace(trace_path)
-    spans, by_name = [], {}
+    spans, by_name, n_by_name = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             a, b = e.time_range.start, e.time_range.end
             spans.append((a, b))
             by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+            n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -533,7 +616,8 @@ def _device_profile(fn, trace_path=None, top=10):
     return dict(window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us if spans else None,
                 kernels_ms={k: v / 1e3 for k, v in ranked[:top]},
-                all_kernels_ms={k: v / 1e3 for k, v in ranked})
+                all_kernels_ms={k: v / 1e3 for k, v in ranked},
+                all_launches=n_by_name)
 
 
 def _print_profile(tag, what, res):
@@ -549,15 +633,24 @@ def _print_profile(tag, what, res):
 
 
 def _profile(engine, prompts, new, trace_path):
-    """A short serving window under :func:`_device_profile`."""
+    """A short serving window under :func:`_device_profile`, with the
+    paged decode read's calls in it, its kernels' launches and device
+    time (``paged_ms``)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
     steps0 = engine.stats()["decode_steps"]
+    calls0 = pa.paged_decode_attention.launches
 
     def window():
         for h in [engine.submit(p, max_new_tokens=new) for p in prompts]:
             h.result(timeout=600)
 
     res = _device_profile(window, trace_path)
-    res.pop("all_kernels_ms")
+    res["paged_calls"] = pa.paged_decode_attention.launches - calls0
+    res["paged_ms"] = sum(v for k, v in res.pop("all_kernels_ms").items()
+                          if "paged_" in k)
+    res["paged_kernel_launches"] = sum(
+        n for k, n in res.pop("all_launches").items() if "paged_" in k)
     res["decode_steps"] = engine.stats()["decode_steps"] - steps0
     _print_profile("profile", f"{len(prompts)} requests x {new} tokens, "
                    f"{res['decode_steps']} decode steps", res)
@@ -1393,7 +1486,7 @@ def phase_ln_matmul(dev, sass):
 
     from paddle_tpu_torch.kernels import ln_matmul as lnmm
 
-    counts = {k: v for k, v in (sass or {}).items()
+    counts = {k: v[:2] for k, v in (sass or {}).items()
               if k.startswith("ln_matmul_wgmma")}
     print(f"[ln-matmul] bf16 kernel SASS (HGMMA, UTMALDG): "
           f"{counts or 'cuobjdump not found'}")
@@ -2228,9 +2321,22 @@ def main(argv=None) -> int:
     del model, x1, y1
     torch.cuda.empty_cache()
     resnet_parity = phase_resnet_parity(dev, args.seed)
+    # the paged read in the serving profile's window: its kernels' launches
+    # and device ms a call (None where the profiler saw no device time)
+    prof = serve["profile"]
+
+    def per_call(x):
+        if not prof["paged_calls"] or prof["device_busy_share"] is None:
+            return None
+        return x / prof["paged_calls"]
+
+    print(f"[paged] serving window: {prof['paged_calls']} calls, "
+          f"{prof['paged_kernel_launches']} paged kernel launches, "
+          f"{prof['paged_ms']:.3f} ms of paged kernels")
+
     f_main = next(r for r in flash if r["Tq"] == 128 and r["causal"]
                   and r["dtype"] == "float32")
-    p_main = next(r for r in paged if r["W"] == 1 and r["pool"] == "f32")
+    p_main = next(r for r in paged if r["case"] == "serve W=1 f32")
     # kernel 2 (single tile, T <= 1024) and kernels 3, 4 (the split, T >
     # 1024): the separate-operand backward, bf16 causal, at the shapes of
     # the attention-training phase
@@ -2292,9 +2398,21 @@ def main(argv=None) -> int:
              replaces="paddle_tpu/kernels/paged_attention.py:281",
              launches=serve["paged_launches"],
              max_abs_err=max(r["max_abs_err"] for r in paged),
-             ms=p_main["ms"], plain_ms=p_main["plain_ms"],
+             ms=p_main["ms"], eager_ms=p_main["eager_ms"],
+             device_ms=per_call(prof["paged_ms"]),
+             kernel_launches_per_call=per_call(
+                 prof["paged_kernel_launches"]),
+             plain_ms=p_main["plain_ms"],
              bound_ms=p_main["bound_ms"], bound_by=p_main["bound_by"],
-             library_ms=None, shape="B=9 W=1 H=12 D=64 P=16 n_pt=40 f32"),
+             library_ms=p_main["library_ms"],
+             library="gather + scaled_dot_product_attention (two calls, "
+                     "no one-call equivalent)",
+             sass_async_copy={k: dict(UTMALDG=v[1], UBLKCP=v[2])
+                              for k, v in (sass or {}).items()
+                              if k.startswith("paged_")},
+             shape="B=9 W=1 H=12 D=64 P=16 n_pt=40 f32",
+             per_call_of="device_ms and kernel_launches_per_call: the "
+                         "serving profile's window, per paged call"),
     ]
     n_ln = fused["both"]["launches"]
     qkv = next(r for r in lnmm_rows if r["M"] == 2304 and r["N"] == 16384)
@@ -2364,7 +2482,7 @@ def main(argv=None) -> int:
             prologue_pass_launches=n_cb["conv_bn_prologue"],
             kernel_route=row["route"], tile=row["tile"],
             sass_hgmma_utmaldg={
-                k: v for k, v in (sass or {}).items()
+                k: v[:2] for k, v in (sass or {}).items()
                 if k.startswith("conv_wgmma_kernel<"
                                 + ("1" if row["kernel"] == "3x3" else "0"))}))
     if args.out:

@@ -59,10 +59,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _S,
          _I, _I, _I, _I, _I, _F, _I, _P],
     "paddle_paged_decode_attention":
-        [_P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "paddle_paged_attention_smem_bytes": [_I, _I, _I, _I],
-    "paddle_paged_attention_max_w": [],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "paddle_layer_norm_fwd":
         [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "paddle_layer_norm_bwd":

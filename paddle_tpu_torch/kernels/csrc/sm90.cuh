@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the bf16 flash-attention, ln_matmul
-// and conv+BN kernels: mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma instructions themselves, in inline PTX (no
-// CUTLASS, no PyTorch header: the build stays a few seconds a source).
+// Hopper (sm_90a) building blocks for the bf16 flash-attention, ln_matmul,
+// conv+BN and paged decode kernels: mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and the wgmma instructions themselves, in
+// inline PTX (no CUTLASS, no PyTorch header: the build stays a few seconds
+// a source).
 //
 // Shared-memory tiles are what TMA writes with a 128-byte swizzle (64
 // bf16 columns a row; 64-byte swizzle, 32 columns, for head size 32): a
@@ -114,6 +115,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The same for a 3-D map (`encode_3d`): the box at coordinates (c0, c1,
+// c2), c0 the innermost.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -495,6 +509,31 @@ inline int encode_2d(CUtensorMap* map, const void* ptr, long long rows,
                   const_cast<void*>(ptr), dims, strides, box, ones,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The 3-D map over a dense [n2, n1, n0] array of `dtype` elements of
+// `esize` bytes (n0 unit-stride, n0 * esize and n1 * n0 * esize multiples
+// of 16): boxes of b0 x b1 x b2, no swizzle (the box lands dense,
+// [b2][b1][b0]).  Returns 0 or cudaErrorInvalidValue.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType dtype, int esize,
+                     const void* ptr, long long n0, long long n1,
+                     long long n2, int b0, int b1, int b2) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn || ((uintptr_t)ptr & 15) || (n0 * esize) % 16 || n0 <= 0 ||
+      n1 <= 0 || n2 <= 0 || b0 > 256 || b1 > 256 || b2 > 256)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1,
+                              (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(n0 * esize),
+                                 (cuuint64_t)(n1 * n0 * esize)};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  CUresult r = fn(map, dtype, 3, const_cast<void*>(ptr), dims, strides, box,
+                  ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

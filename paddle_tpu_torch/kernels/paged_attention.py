@@ -3,44 +3,79 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel ``paddle_tpu/kernels/paged_attention.py``
 ``paged_decode_attention`` -> ``_decode_kernel``, the serving decode read
-of the paged KV pool.  The kernel is ``csrc/paged_attention.cu``: one
-block per (row, head) walks the row's page table itself, dequantizes int8
-pages right after the load, keeps the row's ``[W, n_pt*P]`` scores in
-shared memory, takes the whole-row f32 softmax (not an online rescale:
-greedy argmax stays aligned with the plain gather-then-softmax read), then
-streams the V pages for ``probs @ V``.  Only positions below
-``start + W`` are read, so bytes scale with the resident tokens.
+of the paged KV pool.  The kernel is ``csrc/paged_attention.cu``, split
+over pages: a block of the chunk kernel takes one row's chunk of
+consecutive positions (whole pages, or a divisor of a long page) for one
+head, moves its K and V into shared memory with TMA boxes that
+are all in flight at once, and writes the chunk's softmax max, sum and
+unnormalised ``o`` to a workspace; a merge kernel combines a row's chunks
+by the log-sum-exp rule in chunk order.  The result is the whole-row f32
+softmax regrouped: only the rounding differs from the plain
+gather-then-softmax read (well inside the 1e-4 the tests hold it to), and
+a call repeats bit for bit.  Chunks at or past
+``start + W`` are never loaded, so bytes scale with the resident tokens;
+the grid comes from the shapes alone (:func:`paged_plan`) and the kernel
+finds the live chunks itself, so a launch never syncs and can be captured
+in a CUDA graph.  No table is too wide: the row's scores never sit in one
+block.
 
 What bounds it on the H100: bytes.  About 0.5 flop per pool byte at W=1
 f32, far below the ridge; :func:`paged_cost` counts the bytes the row's
 resident tokens need.
 
 :func:`paged_decode_attention` picks the plain version for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.  Every launch
+only; for CUDA tensors it launches the kernels or raises.  Every call
 adds one to ``paged_decode_attention.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "paged_cost", "paged_smem_bytes", "MAX_SMEM_BYTES", "MAX_W"]
+           "paged_cost", "paged_plan", "MAX_W"]
 
 NEG_INF = -1e30
-MAX_W = 8                    # widest query span the kernel takes (kMaxW)
-WARPS = 8                    # warps per block (kThreads / 32)
-# the most dynamic shared memory one block can opt into on Hopper
-MAX_SMEM_BYTES = 232448
+MAX_W = 8                  # widest query span the kernel takes (kMaxW)
+CHUNK_POSITIONS = 64       # positions a chunk block reads, at most
 
 
-def paged_smem_bytes(W, D, P, n_pt) -> int:
-    """Shared memory one block of the kernel requests (mirrors
-    ``paged_smem_bytes`` in the CUDA source): scores ``[W, n_pt*P]``, q,
-    per-warp partial outputs and the row's page ids."""
-    return 4 * (W * n_pt * P + W * D + WARPS * W * D) + 4 * n_pt
+@functools.lru_cache(maxsize=256)
+def paged_plan(B, W, H, D, P, n_pt, chunk_positions=CHUNK_POSITIONS) -> dict:
+    """The launch of one call, from the shapes alone (never from
+    ``lengths``, so it needs no sync and is the same for every step of an
+    engine); a block reads one head:
+
+    * ``segment``: positions one TMA box (a stage with its own mbarrier)
+      holds, never crossing a page: the page, or for pages longer than
+      ``chunk_positions`` the largest divisor of ``P`` not above it;
+    * ``chunk``: positions a block reads, ``segments * segment`` (at most
+      ``chunk_positions``, which the kernel caps at 64), and ``n_chunks``
+      of them cover a row;
+    * ``grid``: ``(B * H * n_chunks,)`` chunk blocks, one for every (row,
+      chunk, head) item the shapes allow: block i takes the i-th live item
+      (those below a row's ``start + W``, counted in the kernel from
+      ``lengths``), so the live items are the grid's first blocks and
+      spread over the SMs; the rest exit at once;
+    * ``workspace_bytes``: the f32 partial outputs ``[B, n_chunks, H, W,
+      D]`` and chunk max and sum ``[2, B, n_chunks, H, W]``.
+
+    Cached: an engine asks for the same plan every decode step (the dict
+    is shared; do not change it).
+    """
+    if P <= chunk_positions:
+        segment = P
+    else:
+        segment = max(d for d in range(1, chunk_positions + 1) if P % d == 0)
+    segments = max(1, min(32, min(chunk_positions, n_pt * P) // segment))
+    chunk = segments * segment
+    n_chunks = -(-n_pt * P // chunk)
+    return dict(grid=(B * H * n_chunks,), segment=segment, segments=segments,
+                chunk=chunk, n_chunks=n_chunks,
+                workspace_bytes=4 * B * n_chunks * H * W * (D + 2))
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
@@ -121,7 +156,10 @@ def paged_cost(lengths, W, H, D, P, n_pt, quant):
 
 
 def _launch(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
-            scale, quant):
+            scale, quant, plan=None):
+    """Launch the kernels on CUDA tensors, under ``plan`` (default: the
+    :func:`paged_plan` of the shapes; ``tools/paged_sweep.py`` passes
+    others)."""
     from . import _build
 
     B, W, H, D = q.shape
@@ -137,32 +175,38 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
                          f"got {D}")
     if not 1 <= W <= MAX_W:
         raise ValueError(f"the paged kernel takes 1 <= W <= {MAX_W}, got {W}")
-    smem = paged_smem_bytes(W, D, P, n_pt)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"W*n_pt*P = {W}*{n_pt}*{P} scores need {smem} bytes of shared "
-            f"memory per block, more than the {MAX_SMEM_BYTES} a Hopper "
-            f"block can hold")
     tensors = [q, k_pages, v_pages, page_table, lengths] + \
         ([k_scale, v_scale] if quant else [])
     if any(t.device != q.device for t in tensors):
         raise ValueError("all operands must lie on q's device")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the TMA copies need 16-byte aligned pools")
     page_table = page_table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     if quant:
         k_scale = k_scale.float().contiguous()
         v_scale = v_scale.float().contiguous()
+    if plan is None:
+        plan = paged_plan(B, W, H, D, P, n_pt)
+    n_chunks = plan["n_chunks"]
     lib = _build.library()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the workspace: partial outputs, then the chunks' max and sum
+    work = torch.empty(plan["workspace_bytes"] // 4, device=q.device)
+    part_o = work.data_ptr()
+    # the raw handle: a decode step makes 12 calls, and building a
+    # torch.cuda.Stream object costs several µs of each
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     err = lib.paddle_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, W, H, D, P, n_pt, NP, ctypes.c_float(scale), int(quant), stream)
+        part_o, part_o + 4 * B * n_chunks * H * W * D,
+        B, W, H, D, P, n_pt, NP, plan["segment"], plan["segments"],
+        n_chunks, ctypes.c_float(scale), int(quant), stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -182,7 +226,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
         k_scale / v_scale: ``[NP, P]`` f32, required iff the pools are int8.
 
     Returns ``[B, W, H, D]``.  CPU tensors take
-    :func:`paged_decode_attention_plain`; CUDA tensors launch the kernel.
+    :func:`paged_decode_attention_plain`; CUDA tensors launch the kernels.
     """
     quant = _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
     if scale is None:

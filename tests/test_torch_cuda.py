@@ -28,6 +28,8 @@ from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import ln_matmul as lnmm
 from paddle_tpu_torch.kernels import paged_attention as pa
 
+MAX_W = pa.MAX_W
+
 
 @pytest.fixture
 def cuda():
@@ -47,21 +49,20 @@ def _qkv(B, Tq, Tk, H, D, seed):
             rs.randn(B, Tk, H, D).astype(np.float32))
 
 
-def _case(W, quant, seed=0):
-    """The matrix of tests/test_paged_attention.py: 5 rows over P=8,
-    n_pt=4 pools, lengths at a page start (0), a page boundary (8),
-    mid-page (5, 13) and one parked row (virt) with an all-sentinel
-    table."""
+def _paged_case(W, quant, lengths, n_pt=4, P=8, H=2, D=32, seed=0):
+    """numpy operands of one paged read over pools of B * n_pt + 3 pages:
+    row b at ``lengths[b]`` holds the pages its ``start + W`` positions
+    need; a row at n_pt * P is parked, with an all-sentinel table."""
     rs = np.random.RandomState(seed)
-    P, n_pt, H, D = 8, 4, 2, 32
-    lengths = np.array([0, 5, 8, 13, n_pt * P], np.int32)
+    lengths = np.asarray(lengths, np.int32)
     B = len(lengths)
     NP = B * n_pt + 3
     perm = rs.permutation(NP - 1)
     pt = np.full((B, n_pt), NP, np.int32)
-    for b, ln in enumerate(lengths[:-1]):
-        need = -(-int(ln + W) // P)
-        pt[b, :need] = perm[b * n_pt:b * n_pt + need]
+    for b, ln in enumerate(lengths):
+        if ln < n_pt * P:
+            need = -(-int(ln + W) // P)
+            pt[b, :need] = perm[b * n_pt:b * n_pt + need]
     q = rs.randn(B, W, H, D).astype(np.float32)
     if quant:
         kp = rs.randint(-127, 128, (NP, P, H, D)).astype(np.int8)
@@ -72,6 +73,28 @@ def _case(W, quant, seed=0):
     kp = rs.randn(NP, P, H, D).astype(np.float32)
     vp = rs.randn(NP, P, H, D).astype(np.float32)
     return q, kp, vp, pt, lengths, None, None
+
+
+def _case(W, quant, seed=0, n_pt=4):
+    """The matrix of tests/test_paged_attention.py: rows over P=8 pools,
+    lengths at a page start (0), a page boundary (8), mid-page (5, 13)
+    and one parked row (virt) with an all-sentinel table; with a 16-entry
+    table also rows deep into it (64, 120)."""
+    rows = [0, 5, 8, 13] + ([64, 120] if n_pt == 16 else [])
+    return _paged_case(W, quant, rows + [n_pt * 8], n_pt=n_pt, seed=seed)
+
+
+def _paged_check(args, n_launches=1):
+    """The kernel's output on the card against the plain version's on
+    the live rows (parked rows are never read), at 1e-4."""
+    before = pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + n_launches
+    ref = pa.paged_decode_attention_plain(*args)
+    live = args[4] < args[3].shape[1] * args[1].shape[1]
+    torch.testing.assert_close(out[live], ref[live], rtol=1e-4, atol=1e-4)
+    return out
 
 
 def _on(dev, arrays):
@@ -95,18 +118,89 @@ def test_flash_kernel_matches_plain(cuda, tq, tk, causal):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
 
 
+def _boundary_rows(W, D, n_pt=32, P=8, H=2):
+    """Rows whose live span ends on a chunk boundary of the kernel's plan,
+    one position past it, starts on one, and a first and a parked row."""
+    c = pa.paged_plan(1, W, H, D, P, n_pt)["chunk"]
+    assert 2 * c + MAX_W <= n_pt * P
+    return [c - W, c - W + 1, c, 2 * c - W, 2 * c - W + 1, 0, n_pt * P]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("W", [1, 4])
-def test_paged_kernel_matches_plain(cuda, W, quant):
-    args = _on(cuda, _case(W, quant))
-    before = pa.paged_decode_attention.launches
-    out = pa.paged_decode_attention(*args)
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("W", [1, 4, 8])
+def test_paged_kernel_matches_plain(cuda, W, D, quant):
+    _paged_check(_on(cuda, _case(W, quant)) if D == 32 else _on(
+        cuda, _case(W, quant, n_pt=16)) if D == 64 else _on(
+        cuda, _paged_case(W, quant, [0, 5, 8, 13, 32], D=D)))
+    # live spans ending on, and one past, the plan's chunk boundaries
+    _paged_check(_on(cuda, _paged_case(
+        W, quant, _boundary_rows(W, D), n_pt=32, D=D, seed=W + D)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_kernel_all_parked(cuda, quant):
+    """A batch of idle slots reads nothing and writes zeros."""
+    out = _paged_check(_on(cuda, _paged_case(4, quant, [32, 32, 32])))
+    assert not out.any()
+
+
+@pytest.mark.cuda
+def test_paged_kernel_wide_table(cuda):
+    """The table the whole-row kernel refused (W=8, 1024 entries of 16
+    positions) and a second row of 4096 positions."""
+    _paged_check(_on(cuda, _paged_case(8, False, [16376, 4095, 16384],
+                                       n_pt=1024, P=16, seed=1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_kernel_repeats_bitwise(cuda, quant):
+    args = _on(cuda, _paged_case(4, quant, _boundary_rows(4, 64),
+                                 n_pt=32, D=64))
+    a = pa.paged_decode_attention(*args)
+    b = pa.paged_decode_attention(*args)
     torch.cuda.synchronize()
-    assert pa.paged_decode_attention.launches == before + 1
-    ref = pa.paged_decode_attention_plain(*args)
-    live = args[4] < args[3].shape[1] * args[1].shape[1]
-    torch.testing.assert_close(out[live], ref[live], rtol=1e-4, atol=1e-4)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paged_launch_does_not_sync(cuda):
+    args = _on(cuda, _case(4, True, n_pt=16))
+    pa.paged_decode_attention(*args)         # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.paged_decode_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_kernel_in_cuda_graph(cuda, quant):
+    """Captured once and replayed, the read equals the eager call's; new
+    lengths written into the captured tensor are read at replay."""
+    args = _on(cuda, _case(4, quant, n_pt=16))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_decode_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_decode_attention(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, pa.paged_decode_attention(*args))
+    args[4].copy_(torch.tensor([1, 6, 9, 14, 60, 100, 128],
+                               dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, pa.paged_decode_attention(*args))
 
 
 # (B, Tq, Tk, H, D), fused: the fused operand is self-attention (Tq == Tk)

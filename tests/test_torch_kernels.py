@@ -189,10 +189,11 @@ def _t(x):
     return None if x is None else torch.from_numpy(x)
 
 
+@pytest.mark.parametrize("n_pt", [4, 16])
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("W", [1, 4])
-def test_paged_plain_matches_jax(W, quant):
-    q, kp, vp, pt, lengths, ks, vs = _case(W, quant)
+@pytest.mark.parametrize("W", [1, 4, 8])
+def test_paged_plain_matches_jax(W, quant, n_pt):
+    q, kp, vp, pt, lengths, ks, vs = _case(W, quant, n_pt=n_pt)
     want = np.asarray(jpa.paged_decode_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
         jnp.asarray(lengths),
@@ -216,17 +217,56 @@ def test_paged_scale_validation():
         pa.paged_decode_attention(q, kp, vp, pt, lengths, k_scale=ks)
 
 
-def test_paged_launch_refuses_oversized_scores():
-    """The kernel keeps the row's [W, n_pt*P] scores in shared memory;
-    a table too wide for one block raises before anything launches."""
-    q = torch.zeros(1, 4, 2, 32)
-    pool = torch.zeros(8, 16, 2, 32)
-    pt = torch.zeros(1, 1024, dtype=torch.int32)
-    assert pa.paged_smem_bytes(4, 32, 16, 1024) > pa.MAX_SMEM_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        pa._launch(q, pool, pool, pt, torch.zeros(1, dtype=torch.int32),
-                   None, None, 1.0, False)
-    assert pa.paged_smem_bytes(1, 64, 16, 40) < 48 * 1024
+# (B, W, H, D, P, n_pt, quant) -> (grid, chunk positions, workspace bytes):
+# the serving shape, the table the whole-row kernel refused, one page
+PLANS = [
+    ((9, 1, 12, 64, 16, 40, False), ((1080,), 64, 4 * 9 * 10 * 12 * 66)),
+    ((4, 8, 2, 32, 16, 1024, False),
+     ((2048,), 64, 4 * 4 * 256 * 2 * 8 * 34)),
+    ((2, 4, 12, 64, 16, 1, True), ((24,), 16, 4 * 2 * 1 * 12 * 4 * 66)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS, ids=["serve", "wide", "page"])
+def test_paged_plan(shape, want, monkeypatch):
+    """The launch comes from the shapes alone; no width is refused: the
+    call reaches the kernel with the planned chunking and workspace, or
+    with a plan the caller passes."""
+    B, W, H, D, P, n_pt, quant = shape
+    plan = pa.paged_plan(*shape[:6])
+    assert (plan["grid"], plan["chunk"], plan["workspace_bytes"]) == want
+    assert plan["grid"] == (B * H * plan["n_chunks"],)
+    assert plan["n_chunks"] * plan["chunk"] >= n_pt * P
+    assert P % plan["segment"] == 0
+    assert plan["chunk"] == plan["segments"] * plan["segment"]
+    calls = []
+
+    class Lib:
+        def paddle_paged_decode_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    NP = 4
+    pool = torch.zeros(NP, P, H, D, dtype=torch.int8 if quant else
+                       torch.float32)
+    scales = (torch.ones(NP, P), torch.ones(NP, P)) if quant else (None,
+                                                                   None)
+    args = (torch.zeros(B, W, H, D), pool, pool,
+            torch.zeros(B, n_pt, dtype=torch.int32),
+            torch.zeros(B, dtype=torch.int32), *scales, 0.125, quant)
+    before = pa.paged_decode_attention.launches
+    out = pa._launch(*args)
+    assert out.shape == (B, W, H, D)
+    assert pa.paged_decode_attention.launches == before + 1
+    small = pa.paged_plan(*shape[:6], chunk_positions=8)
+    pa._launch(*args, plan=small)
+    assert [c[10:20] for c in calls] == [
+        (B, W, H, D, P, n_pt, NP, p["segment"], p["segments"],
+         p["n_chunks"]) for p in (plan, small)]
+    assert small["segment"] == 8 and small["chunk"] == 8
 
 
 def test_paged_cost_counts_resident_tokens():

@@ -1,12 +1,14 @@
 """A/B of the flash-attention kernels and the GPT training cell, the
-fused-LayerNorm cell, the conv+BN kernels or the serving cell, between
-checkouts of the PyTorch/CUDA port, on one card, in turns.
+fused-LayerNorm cell, the conv+BN kernels, the paged decode kernel or the
+serving cell, between checkouts of the PyTorch/CUDA port, on one card, in
+turns.
 
 Usage, from the root of a checkout, with one CUDA card::
 
     git archive <parent> | tar -x -C build/parent
     python tools/flash_ab.py --roots build/parent . . build/parent \\
-        --out build/flash_ab.json [--mode fused-ln | conv-bn | serve]
+        --out build/flash_ab.json [--mode fused-ln | conv-bn | paged |
+        serve]
 
 Each root runs in a fresh process that imports ``paddle_tpu_torch`` from
 that root (and builds its kernels there).  ``--mode flash`` (the default)
@@ -39,9 +41,23 @@ the 3 split shapes in their four variants (``run_mm`` ``_k_mm`` and
 over the phase's rotating input sets (the same seed), through the public
 entry points only, so any two checkouts compare.
 
+``--mode paged`` measures the paged decode kernel (row 7) at every case
+of ``chip_smoke.py``'s ``PAGED_CASES`` (the same seeds): device ms from
+CUDA-graph replays over the phase's rotating pool sets, the eager call's
+ms (back-to-back calls: the host's time where the host is the slower
+side), the host's µs a call (``_host_us``: issuing calls between two
+syncs, so the device's time does not enter) and of that the wrapper's
+Python alone (``python_us``: the C entry point stubbed out, so the rest
+is the C side's launches), through the public entry point only, after
+one call is held against the plain version at 1e-4.  A case the root's kernel refuses
+(``ValueError``) reads null.
+
 ``--mode serve`` runs ``chip_smoke.py`` phase 4's serving cell (f32
 pools, 24 requests of 32 new tokens on full-width gpt2-small-en, the
-teacher-forced check included): tokens/s and p50 time to first token.
+teacher-forced check included) and its profiled window of 8 requests:
+tokens/s, p50 time to first token, the host's ms per decode step, and
+from the window the paged kernels' device ms and the device's busy
+share.
 
 The helpers come from this checkout's ``chip_smoke.py``.  Prints one JSON
 line a run, the ``nvidia-smi`` name and power limit, and the mean of each
@@ -66,7 +82,10 @@ KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
                      "unfused_step_ms", "ln_matmul_ms", "ln_kernels_ms",
                      "busy_share"),
         "conv-bn": None,          # the case names, from the run
-        "serve": ("tokens_per_s", "p50_ttft_ms")}
+        "paged": None,
+        "serve": ("tokens_per_s", "p50_ttft_ms", "decode_step_ms",
+                  "window_paged_ms", "window_decode_steps",
+                  "window_busy_share")}
 
 
 def _smoke():
@@ -236,6 +255,76 @@ def measure_conv_bn(root: str, seed: int = 18) -> dict:
     return res
 
 
+class _StubLibrary:
+    """A kernel library whose paged entry point launches nothing."""
+
+    @staticmethod
+    def paddle_paged_decode_attention(*args):
+        return 0
+
+
+def _host_us(call, calls=64, reps=5):
+    """The host's µs a call: the wall time of issuing ``calls`` calls
+    after a sync and before the next (too few to fill the launch queue,
+    so the device's time does not enter), the median of ``reps``."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        times.append(1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2]
+
+
+def measure_paged(root: str) -> dict:
+    """Device and eager ms of the paged kernel at every ``PAGED_CASES``
+    case of one root, in this process (``root`` first on the path)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    cs = _smoke()
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: no CUDA card")
+    dev = torch.device("cuda", 0)
+    res = dict(root=root, package=os.path.dirname(pa.__file__))
+    for case in cs.PAGED_CASES:
+        name = case[0]
+        _, sets = cs._paged_inputs(dev, case, cs._paged_n_sets(case))
+        try:
+            out = pa.paged_decode_attention(*sets[0])
+        except ValueError as e:
+            print(f"flash_ab: {root} refuses {name}: {e}", file=sys.stderr)
+            res[f"{name} ms"] = res[f"{name} eager_ms"] = None
+            res[f"{name} host_us"] = res[f"{name} python_us"] = None
+            continue
+        live = sets[0][4] < case[3] * cs.PAGED_P
+        err = float((out[live] - pa.paged_decode_attention_plain(
+            *sets[0])[live]).abs().max())
+        if not err <= 1e-4:
+            raise SystemExit(f"flash_ab: {root} {name}: max abs err {err}")
+        call = cs._rotating(pa.paged_decode_attention, sets)
+        res[f"{name} ms"] = cs._graph_ms(call, 10)
+        res[f"{name} eager_ms"] = cs._timed_ms(call, 96)
+        res[f"{name} host_us"] = _host_us(call)
+        # the wrapper's Python alone: the C entry point stubbed out
+        real = _build.library
+        _build.library = lambda: _StubLibrary()
+        try:
+            res[f"{name} python_us"] = _host_us(call)
+        finally:
+            _build.library = real
+        del sets, out
+        torch.cuda.empty_cache()
+    return res
+
+
 def measure_serve(root: str, seed: int = 0) -> dict:
     """Phase 4's serving cell of one root, in this process (``root``
     first on the path)."""
@@ -247,14 +336,21 @@ def measure_serve(root: str, seed: int = 0) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: no CUDA card")
-    out = cs.phase_serve(torch.device("cuda", 0), None, 24, 32, seed, 1e-3)
+    out = cs.phase_serve(torch.device("cuda", 0), None, 24, 32, seed, 1e-3,
+                         profile=True)
+    prof = out["profile"]
     return dict(root=root, package=os.path.dirname(serving.__file__),
                 tokens_per_s=out["tokens_per_s"],
-                p50_ttft_ms=out["p50_ttft_ms"])
+                p50_ttft_ms=out["p50_ttft_ms"],
+                decode_step_ms=out["decode_step_ms"],
+                window_paged_ms=prof["paged_ms"],
+                window_decode_steps=prof["decode_steps"],
+                window_busy_share=prof["device_busy_share"])
 
 
 MEASURE = {"flash": measure, "fused-ln": measure_fused_ln,
-           "conv-bn": measure_conv_bn, "serve": measure_serve}
+           "conv-bn": measure_conv_bn, "paged": measure_paged,
+           "serve": measure_serve}
 
 
 def main(argv=None) -> int:
@@ -289,9 +385,12 @@ def main(argv=None) -> int:
     mean = {}
     for root in dict.fromkeys(args.roots):
         mine = [r for r in runs if r["root"] == root]
-        mean[root] = {k: sum(r[k] for r in mine) / len(mine) for k in keys}
+        mean[root] = {k: (None if any(r[k] is None for r in mine)
+                          else sum(r[k] for r in mine) / len(mine))
+                      for k in keys}
     first = args.roots[0]
-    ratio = {root: {k: mean[first][k] / mean[root][k] for k in keys}
+    ratio = {root: {k: (None if None in (mean[first][k], mean[root][k])
+                        else mean[first][k] / mean[root][k]) for k in keys}
              for root in mean if root != first}
     print(smi)
     print(json.dumps(dict(mean=mean, first_over=ratio)))
