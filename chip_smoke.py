@@ -30,16 +30,24 @@ run with a non-zero exit, and nothing is caught):
    read);
 4. serve: ``gpt2-small-en`` at full width with random weights made from a
    numpy seed and loaded through ``load_jax_state``; ``Engine(max_slots=8,
-   max_len=640, paged_kv=True, page_size=16)``; 24 requests (prompts of
-   32-128 tokens and one of 512, 32 new tokens each) from a background
+   max_len=640, paged_kv=True, page_size=16)``; a warm-up request (which
+   captures the decode step as a CUDA graph), then 24 requests (prompts
+   of 32-128 tokens and one of 512, 32 new tokens each) from a background
    thread; the launch counters, set to 0 just before, must equal prefill
-   batches x 12 (flash) and decode steps x 12 (paged);
+   batches x 12 (flash), and the decode steps' paged reads decode steps
+   x 12: none eager, all from the graph's replays (one a decode step;
+   the launches one replay makes are counted at capture), with
+   ``decode_compiles`` 1; host ms per decode step, device ms per
+   replayed step (CUDA events around each replay) and, after the profiled
+   window, one full-width step with every slot live timed as graph
+   replays and as eager runs;
 5. teacher forcing: every served token's logit under the plain no-cache
    forward on the CPU (same weights, over ``prompt + generated[:-1]``)
    lies within 1e-3 of that position's maximum;
 6. where the time goes: 8 more requests on the f32 engine (after the
    launch counters are read) under ``torch.profiler``: the device's busy
-   share of the window and device time by kernel;
+   share of the window and device time by kernel; where the profiler sees
+   the paged kernels, two (chunk and merge) for every paged read;
 7. the same serving checks with ``kv_dtype="int8"`` pools, a shorter run,
    margin 2e-2;
 8. tokens/s, p50 time to first token and peak device memory;
@@ -155,7 +163,18 @@ run with a non-zero exit, and nothing is caught):
    with the launch counters set to 0 just before and read just after
    (these are the ``launches`` of rows 11-13, each ``run_mm`` body on its
    own counter; every launch on the wgmma route's counters, and one
-   prologue pass for each call whose plan takes one).
+   prologue pass for each call whose plan takes one);
+22. (run after 7) the serving fast path, f32 pools then int8:
+   ``Engine(max_slots=8, max_len=640, page_size=16, prefix_cache=True,
+   prefix_block=16, speculative_k=4)`` on full-width gpt2-small-en; a
+   384-token system prompt, one request that seeds the prefix cache, then
+   16 requests of the prompt and a 16-64-token tail (32 new tokens, 4
+   sampled at temperature 0.8, top-k 40): 16 prefix hits and no
+   copy-on-write page, ``decode_compiles`` 1 and a replay a decode step
+   (12 paged launches each), the tail prefills' paged reads 12 x their
+   column groups of at most 8 queries, every greedy token teacher-forced
+   (1e-3 f32, 2e-2 int8); tokens/s, p50 TTFT, the drafts' acceptance and
+   the greedy tokens that differ from a plain engine's on the card.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -539,14 +558,16 @@ def _random_state(model, seed):
     return state
 
 
-def _serve(engine, prompts, new, rate_rs):
+def _serve(engine, prompts, new, rate_rs, kws=None):
     """Submit from a background thread with exponential gaps (50/s, as
-    the JAX bench's serving leg); wait for every result."""
+    the JAX bench's serving leg), request i with ``kws[i]`` (sampling
+    arguments) when given; wait for every result."""
     handles = []
 
     def feed():
-        for p in prompts:
-            handles.append(engine.submit(p, max_new_tokens=new))
+        for i, p in enumerate(prompts):
+            handles.append(engine.submit(p, max_new_tokens=new,
+                                         **(kws[i] if kws else {})))
             time.sleep(min(rate_rs.exponential(1.0 / 50.0), 0.25))
 
     t0 = time.perf_counter()
@@ -616,6 +637,7 @@ def _device_profile(fn, trace_path=None, top=10):
     return dict(window_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us if spans else None,
                 kernels_ms={k: v / 1e3 for k, v in ranked[:top]},
+                kernels_launches={k: n_by_name[k] for k, _ in ranked[:top]},
                 all_kernels_ms={k: v / 1e3 for k, v in ranked},
                 all_launches=n_by_name)
 
@@ -629,24 +651,43 @@ def _print_profile(tag, what, res):
           f"{res['device_busy_ms']:.2f} ms "
           f"({100 * res['device_busy_share']:.1f}% of the window)")
     for k, v in res["kernels_ms"].items():
-        print(f"[{tag}]   {v:10.3f} ms  {k[:100]}")
+        n = res.get("kernels_launches", {}).get(k)
+        print(f"[{tag}]   {v:10.3f} ms  {'' if n is None else f'{n:6d}x  '}"
+              f"{k[:100]}")
+
+
+def _replayed(st, key):
+    """A graph-replay counter of an engine's stats (0 for an engine
+    without a decode graph: ``tools/flash_ab.py`` runs checkouts before
+    it)."""
+    return st.get(key, 0)
+
+
+def _paged_calls(engine):
+    """The paged reads an engine has issued so far: the wrapper's launch
+    counter (eager calls and captures) and the launches its decode-graph
+    replays made (one replay makes the launches counted at capture)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    return (pa.paged_decode_attention.launches +
+            _replayed(engine.stats(), "replayed_paged_launches"))
 
 
 def _profile(engine, prompts, new, trace_path):
     """A short serving window under :func:`_device_profile`, with the
-    paged decode read's calls in it, its kernels' launches and device
-    time (``paged_ms``)."""
-    from paddle_tpu_torch.kernels import paged_attention as pa
-
+    paged decode read's calls in it (eager and replayed), its kernels'
+    launches and device time (``paged_ms``).  Where the profiler saw the
+    paged kernels, it must have seen the chunk kernel and the merge kernel
+    of every call."""
     steps0 = engine.stats()["decode_steps"]
-    calls0 = pa.paged_decode_attention.launches
+    calls0 = _paged_calls(engine)
 
     def window():
         for h in [engine.submit(p, max_new_tokens=new) for p in prompts]:
             h.result(timeout=600)
 
     res = _device_profile(window, trace_path)
-    res["paged_calls"] = pa.paged_decode_attention.launches - calls0
+    res["paged_calls"] = _paged_calls(engine) - calls0
     res["paged_ms"] = sum(v for k, v in res.pop("all_kernels_ms").items()
                           if "paged_" in k)
     res["paged_kernel_launches"] = sum(
@@ -654,7 +695,42 @@ def _profile(engine, prompts, new, trace_path):
     res["decode_steps"] = engine.stats()["decode_steps"] - steps0
     _print_profile("profile", f"{len(prompts)} requests x {new} tokens, "
                    f"{res['decode_steps']} decode steps", res)
+    if res["paged_kernel_launches"] and \
+            res["paged_kernel_launches"] != 2 * res["paged_calls"]:
+        _fail(f"profile: {res['paged_kernel_launches']} paged kernel "
+              f"launches on the device for {res['paged_calls']} paged calls "
+              f"(a chunk and a merge kernel each)")
     return res
+
+
+def _step_ms(engine, iters=20):
+    """Device ms of one decode step at the engine's full width, every
+    slot live (rows at 100 .. 520 tokens over pages of their own): CUDA
+    events around back-to-back replays of the engine's decode graph, and
+    around back-to-back eager runs of the same step (what the host's
+    launches cost where they are the slower side).  The engine must be
+    idle with every page free: the step writes into free pages."""
+    import numpy as np
+    import torch
+
+    st = engine.stats()
+    if st["kv_pages_used"] or st["active_slots"] or len(engine._graphs) != 1:
+        _fail(f"step timing needs an idle engine with one graph: {st}")
+    n_rows, W = engine._ids.shape
+    n_pt = engine._page_tables.shape[1]
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, engine.model.config.vocab_size, (n_rows, W))
+    lengths = np.full(n_rows, engine._park, np.int32)
+    tables = np.full((n_rows, n_pt), engine._page_alloc.num_pages, np.int32)
+    for r in range(n_rows - 1):
+        lengths[r] = 100 + 60 * r
+        tables[r] = np.arange(r * n_pt, (r + 1) * n_pt)
+    graph = next(iter(engine._graphs.values())).graph
+    with torch.no_grad():
+        engine._stage(ids, lengths, tables)
+        replay_ms = _timed_ms(graph.replay, iters)
+        eager_ms = _timed_ms(engine._decode_forward, iters)
+    return replay_ms, eager_ms
 
 
 def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
@@ -664,21 +740,13 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
 
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import paged_attention as pa
-    from paddle_tpu_torch.models import build_gpt, load_jax_state
     from paddle_tpu_torch.serving import Engine
 
     tag = (f"serve{'-int8' if kv_dtype else ''}"
            f"{'-ln' if ln_mode != 'off' else ''}")
     t_build = time.perf_counter()
-    model = build_gpt("gpt2-small-en", device=dev)
+    model, cpu_model = _gpt2_small(dev, seed)
     cfg = model.config
-    if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
-            cfg.vocab_size) != (768, N_LAYERS, 12, 50304):
-        _fail(f"gpt2-small-en is not at full width: {cfg}")
-    state = _random_state(model, seed)
-    load_jax_state(model, state)
-    cpu_model = build_gpt("gpt2-small-en", device="cpu")
-    load_jax_state(cpu_model, state)
     t_build = time.perf_counter() - t_build
     rs = np.random.RandomState(seed)
     prompts = [rs.randint(0, cfg.vocab_size, rs.randint(32, 129))
@@ -688,9 +756,12 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
     engine = Engine(model, max_slots=8, max_len=640, paged_kv=True,
                     page_size=16, max_queue=2 * n_req, kv_dtype=kv_dtype,
                     device=dev)
+    graph = hasattr(engine, "compile_stats")       # the decode graph
+    step_ms = (None, None)
     try:
         with _toggles(ln_mode):
-            # warm-up outside the counted run: cuBLAS handles, allocator
+            # warm-up outside the counted run: cuBLAS handles, allocator,
+            # and the decode graph's capture
             engine.submit(prompts[0][:40], max_new_tokens=4).result(
                 timeout=600)
             base = engine.stats()
@@ -707,12 +778,20 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
             st = engine.stats()
         prof = (_profile(engine, prompts[:8], new, trace_path)
                 if profile else None)
+        if profile and graph:
+            step_ms = _step_ms(engine)
     finally:
         engine.shutdown()
+
+    def delta(key):
+        return _replayed(st, key) - _replayed(base, key)
+
     prefills = st["prefill_batches"] - base["prefill_batches"]
     steps = st["decode_steps"] - base["decode_steps"]
+    replays = delta("decode_graph_replays")
     prefill_ms = 1e3 * (st["prefill_seconds"] - base["prefill_seconds"])
     decode_ms = 1e3 * (st["decode_seconds"] - base["decode_seconds"])
+    device_ms = 1e3 * delta("decode_device_seconds")
     done = st["completed"] - base["completed"]
     if done != n_req or any(len(o) != new for o in outs):
         _fail(f"{tag}: {done}/{n_req} requests completed: {st}")
@@ -721,11 +800,22 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
     if flash_n != prefills * N_LAYERS or flash_n == 0:
         _fail(f"{tag}: flash launches {flash_n} != prefill batches "
               f"{prefills} x {N_LAYERS}")
-    if paged_n != steps * N_LAYERS or paged_n == 0:
-        _fail(f"{tag}: paged launches {paged_n} != decode steps {steps} x "
+    # the decode steps' paged reads: eager launches counted by the wrapper
+    # and, with the decode graph (captured in the warm-up), the replays'
+    paged_total = paged_n + delta("replayed_paged_launches")
+    if paged_total != steps * N_LAYERS or paged_total == 0:
+        _fail(f"{tag}: paged launches {paged_n} + replayed "
+              f"{paged_total - paged_n} != decode steps {steps} x "
               f"{N_LAYERS}")
+    if graph and (st["decode_compiles"] != 1 or replays != steps
+                  or paged_n != 0):
+        _fail(f"{tag}: decode_compiles {st['decode_compiles']} (want 1), "
+              f"replays {replays} (want the {steps} decode steps), eager "
+              f"paged launches {paged_n} (want 0)")
     # every LayerNorm of a prefill batch or decode step is one kernel
-    # forward with LayerNorm "full", none otherwise
+    # forward with LayerNorm "full", none otherwise (the decode steps'
+    # from the graph's replays)
+    ln_n["ln_fwd"] += delta("replayed_ln_fwd_launches")
     ln_want = dict(ln_matmul=0, ln_fwd=0, ln_bwd=0, ln_bwd_reduce=0)
     if ln_mode == "full":
         ln_want["ln_fwd"] = (prefills + steps) * (2 * N_LAYERS + 1)
@@ -738,21 +828,175 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
                p50_ttft_ms=1e3 * ttft[len(ttft) // 2],
                peak_memory_bytes=peak, prefill_batches=prefills,
                decode_steps=steps, flash_launches=flash_n,
-               paged_launches=paged_n, ln_launches=ln_n,
+               paged_launches=paged_total, eager_paged_launches=paged_n,
+               decode_compiles=st.get("decode_compiles"),
+               decode_graph_replays=replays, ln_launches=ln_n,
                slot_reuses=st["slot_reuses"],
                prefill_batch_ms=prefill_ms / max(prefills, 1),
                decode_step_ms=decode_ms / max(steps, 1),
+               device_step_ms=device_ms / replays if replays else None,
+               replay_step_ms=step_ms[0], eager_step_ms=step_ms[1],
                teacher_forced_worst_gap=worst, margin=margin,
                model_build_s=t_build, profile=prof)
     print(f"[{tag}] {n_req} requests x {new} tokens in {wall:.3f} s: "
           f"{res['tokens_per_s']:.1f} tokens/s, p50 TTFT "
           f"{res['p50_ttft_ms']:.2f} ms, peak memory {peak / 2**20:.1f} "
           f"MiB; {prefills} prefill batches ({flash_n} flash launches), "
-          f"{steps} decode steps ({paged_n} paged launches, "
-          f"{ln_n['ln_fwd']} LayerNorm forward launches); teacher-forced"
-          f" worst gap {worst:.3e} (margin {margin}); host wall per "
-          f"prefill batch {res['prefill_batch_ms']:.3f} ms, per decode "
-          f"step {res['decode_step_ms']:.3f} ms")
+          f"{steps} decode steps ({paged_total} paged launches, "
+          f"{paged_n} of them eager; {ln_n['ln_fwd']} LayerNorm forward "
+          f"launches); decode_compiles {res['decode_compiles']}, "
+          f"{replays} graph replays; teacher-forced worst gap "
+          f"{worst:.3e} (margin {margin}); host wall per prefill batch "
+          f"{res['prefill_batch_ms']:.3f} ms, per decode step "
+          f"{res['decode_step_ms']:.3f} ms; device ms per replayed step "
+          f"{_ms(res['device_step_ms'])}")
+    if step_ms[0] is not None:
+        print(f"[{tag}] one decode step, 8 live slots: graph replay "
+              f"{step_ms[0]:.4f} ms, eager {step_ms[1]:.4f} ms")
+    return res
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def _gpt2_small(dev, seed):
+    """gpt2-small-en at full width on ``dev`` and on the CPU, with the
+    same random weights from ``seed``."""
+    from paddle_tpu_torch.models import build_gpt, load_jax_state
+
+    model = build_gpt("gpt2-small-en", device=dev)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
+            cfg.vocab_size) != (768, N_LAYERS, 12, 50304):
+        _fail(f"gpt2-small-en is not at full width: {cfg}")
+    state = _random_state(model, seed)
+    load_jax_state(model, state)
+    cpu_model = build_gpt("gpt2-small-en", device="cpu")
+    load_jax_state(cpu_model, state)
+    return model, cpu_model
+
+
+FAST_SYSTEM, FAST_REQ, FAST_NEW, FAST_SPEC_K = 384, 16, 32, 4
+
+
+def phase_fastpath(dev, seed, margin, kv_dtype=None):
+    """The serving fast path on full-width gpt2-small-en: ``Engine(
+    max_slots=8, max_len=640, page_size=16, prefix_cache=True,
+    prefix_block=16, speculative_k=4)``.  A 384-token system prompt (24
+    full pages); one request with it runs first and seeds the cache (and
+    the decode graph's capture); then 16 requests of the prompt and a tail
+    of 16-64 tokens, 32 new tokens each, 4 of them sampled (temperature
+    0.8, top-k 40), from a background thread.  Gates: every request
+    completes; 16 prefix hits, no copy-on-write page (the match is
+    page-aligned); one decode capture and a replay a decode step, 12 paged
+    launches a replay; the tail prefills' eager paged launches 12 x the
+    column groups of their buckets; every greedy token within ``margin``
+    of the plain CPU forward's maximum.  Printed beside: tokens/s, p50
+    TTFT, the drafts' acceptance, and how many greedy tokens differ from
+    a plain engine's (no prefix cache, no drafts) on the card."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.serving import Engine
+
+    tag = f"fastpath{'-int8' if kv_dtype else ''}"
+    model, cpu_model = _gpt2_small(dev, seed)
+    V = model.config.vocab_size
+    rs = np.random.RandomState(seed)
+    system = rs.randint(0, V, FAST_SYSTEM)
+    first = np.concatenate([system, rs.randint(0, V, 16)])
+    prompts = [np.concatenate([system, rs.randint(0, V, rs.randint(16, 65))])
+               for _ in range(FAST_REQ)]
+    sampled = set(rs.choice(FAST_REQ, 4, replace=False).tolist())
+    kws = [dict(temperature=0.8, top_k=40, seed=i) if i in sampled else {}
+           for i in range(FAST_REQ)]
+    kw = dict(max_slots=8, max_len=640, page_size=16, max_queue=2 * FAST_REQ,
+              kv_dtype=kv_dtype, device=dev)
+    engine = Engine(model, prefix_cache=True, prefix_block=16,
+                    speculative_k=FAST_SPEC_K, **kw)
+    try:
+        engine.submit(first, max_new_tokens=FAST_NEW).result(timeout=600)
+        base = engine.stats()
+        torch.cuda.synchronize()
+        pa.paged_decode_attention.launches = 0
+        handles, outs, wall = _serve(engine, prompts, FAST_NEW, rs, kws)
+        eager = pa.paged_decode_attention.launches
+        st = engine.stats()
+    finally:
+        engine.shutdown()
+
+    def delta(key):
+        return st[key] - base[key]
+
+    steps, replays = delta("decode_steps"), delta("decode_graph_replays")
+    groups = delta("tail_prefill_read_groups")
+    checks = {
+        "completed": (delta("completed"), FAST_REQ),
+        "new tokens": (sum(len(o) for o in outs), FAST_REQ * FAST_NEW),
+        "prefix_hits": (delta("prefix_hits"), FAST_REQ),
+        "page_cow_copies": (st["page_cow_copies"], 0),
+        "decode_compiles": (st["decode_compiles"], 1),
+        "graph replays": (replays, steps),
+        "replayed paged launches": (delta("replayed_paged_launches"),
+                                    N_LAYERS * replays),
+        "tail prefill paged launches": (eager, N_LAYERS * groups)}
+    for what, (got, want) in checks.items():
+        if got != want or (what != "page_cow_copies" and want == 0):
+            _fail(f"{tag}: {what} {got} != {want}: {st}")
+    greedy = [i for i in range(FAST_REQ) if i not in sampled]
+    worst = _teacher_forced(cpu_model, [prompts[i] for i in greedy],
+                            [outs[i] for i in greedy], margin)
+    plain = Engine(model, **kw)
+    try:
+        plain_outs = [h.result(timeout=600) for h in
+                      [plain.submit(prompts[i], max_new_tokens=FAST_NEW)
+                       for i in greedy]]
+    finally:
+        plain.shutdown()
+    differ = int(sum((outs[i] != p).sum() for i, p in zip(greedy,
+                                                          plain_outs)))
+    ttft = sorted(h.ttft_s for h in handles)
+    res = dict(kv_dtype=kv_dtype or "f32", requests=FAST_REQ,
+               new_tokens=FAST_NEW, sampled=len(sampled), wall_s=wall,
+               tokens_per_s=FAST_REQ * FAST_NEW / wall,
+               p50_ttft_ms=1e3 * ttft[len(ttft) // 2],
+               prefix_hits=delta("prefix_hits"),
+               page_cow_copies=st["page_cow_copies"],
+               decode_compiles=st["decode_compiles"], decode_steps=steps,
+               decode_graph_replays=replays,
+               paged_launches=delta("replayed_paged_launches") + eager,
+               tail_prefill_paged_launches=eager, tail_read_groups=groups,
+               tail_prefill_batches=delta("prefill_batches"),
+               spec_drafted=delta("spec_drafted"),
+               spec_accepted=delta("spec_accepted"),
+               acceptance=delta("spec_accepted") / max(delta("spec_drafted"),
+                                                       1),
+               decode_step_ms=1e3 * delta("decode_seconds") / max(steps, 1),
+               tail_prefill_batch_ms=(1e3 * delta("prefill_seconds")
+                                      / max(delta("prefill_batches"), 1)),
+               device_step_ms=(1e3 * delta("decode_device_seconds")
+                               / max(replays, 1)),
+               greedy_tokens=len(greedy) * FAST_NEW,
+               greedy_tokens_differing_from_plain=differ,
+               teacher_forced_worst_gap=worst, margin=margin)
+    print(f"[{tag}] {FAST_REQ} requests (4 sampled) x {FAST_NEW} tokens on "
+          f"a {FAST_SYSTEM}-token shared prompt in {wall:.3f} s: "
+          f"{res['tokens_per_s']:.1f} tokens/s, p50 TTFT "
+          f"{res['p50_ttft_ms']:.2f} ms; {res['prefix_hits']} prefix hits, "
+          f"{res['page_cow_copies']} COW pages; {steps} decode steps = "
+          f"{replays} graph replays (decode_compiles "
+          f"{res['decode_compiles']}), host {res['decode_step_ms']:.3f} ms "
+          f"and device {res['device_step_ms']:.4f} ms a step, host "
+          f"{res['tail_prefill_batch_ms']:.3f} ms a tail prefill; drafts "
+          f"accepted {res['spec_accepted']}/{res['spec_drafted']} "
+          f"({100 * res['acceptance']:.1f}%); paged launches: "
+          f"{res['paged_launches']} ({eager} eager in "
+          f"{res['tail_prefill_batches']} tail prefills, {groups} read "
+          f"groups); teacher-forced worst gap {worst:.3e} (margin "
+          f"{margin}); {differ} of {res['greedy_tokens']} greedy tokens "
+          f"differ from a plain engine's")
     return res
 
 
@@ -2291,6 +2535,14 @@ def main(argv=None) -> int:
         print(f"[metrics] {res['kv_dtype']}: {res['tokens_per_s']:.1f} "
               f"tokens/s, p50 TTFT {res['p50_ttft_ms']:.2f} ms, peak "
               f"memory {res['peak_memory_bytes']} bytes on {smi}")
+    # phase 22, the serving fast path, beside the other serving phases
+    torch.cuda.empty_cache()
+    fast = [phase_fastpath(dev, args.seed + 3, 1e-3),
+            phase_fastpath(dev, args.seed + 4, 2e-2, "int8")]
+    for res in fast:
+        print(f"[metrics] fast path {res['kv_dtype']}: "
+              f"{res['tokens_per_s']:.1f} tokens/s, p50 TTFT "
+              f"{res['p50_ttft_ms']:.2f} ms on {smi}")
     # the new phases follow PR 1's: their profiler sessions (the backward's
     # per-kernel split) must not sit before the serving phases' host timing
     torch.cuda.empty_cache()
@@ -2397,6 +2649,10 @@ def main(argv=None) -> int:
              source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:281",
              launches=serve["paged_launches"],
+             graph_replays=serve["decode_graph_replays"],
+             fastpath_launches=[r["paged_launches"] for r in fast],
+             fastpath_tail_prefill_launches=[
+                 r["tail_prefill_paged_launches"] for r in fast],
              max_abs_err=max(r["max_abs_err"] for r in paged),
              ms=p_main["ms"], eager_ms=p_main["eager_ms"],
              device_ms=per_call(prof["paged_ms"]),
@@ -2412,7 +2668,11 @@ def main(argv=None) -> int:
                               if k.startswith("paged_")},
              shape="B=9 W=1 H=12 D=64 P=16 n_pt=40 f32",
              per_call_of="device_ms and kernel_launches_per_call: the "
-                         "serving profile's window, per paged call"),
+                         "serving profile's window, per paged call",
+             launches_of="phase 4's decode steps: the launches one replay "
+                         "of the decode graph makes (counted at capture) "
+                         "x its replays; fastpath_*: phase 22's replays "
+                         "and tail prefills (f32, int8)"),
     ]
     n_ln = fused["both"]["launches"]
     qkv = next(r for r in lnmm_rows if r["M"] == 2304 and r["N"] == 16384)
@@ -2493,6 +2753,7 @@ def main(argv=None) -> int:
                            flash_bwd=bwd, dead_rows=dead,
                            fused_fwd=fused_fwd,
                            fused_bwd=fused_bwd, serve=[serve, serve8],
+                           fastpath=fast,
                            attention_train=att, train=train,
                            parity=parity, layernorm=ln_rows,
                            ln_matmul=lnmm_rows, fused_train=fused,

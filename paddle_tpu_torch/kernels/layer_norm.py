@@ -35,9 +35,10 @@ import torch
 
 from .flash_attention import _on_card
 
-__all__ = ["enable_fused_layernorm", "layer_norm_fused",
-           "layer_norm_fused_ok", "layer_norm_fwd", "layer_norm_bwd",
-           "layer_norm_fwd_plain", "layer_norm_bwd_plain", "layernorm_cost"]
+__all__ = ["enable_fused_layernorm", "fused_layernorm_mode",
+           "layer_norm_fused", "layer_norm_fused_ok", "layer_norm_fwd",
+           "layer_norm_bwd", "layer_norm_fwd_plain", "layer_norm_bwd_plain",
+           "layernorm_cost"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,6 +61,12 @@ def enable_fused_layernorm(flag):
         raise ValueError(
             f"enable_fused_layernorm: unknown mode {flag!r} "
             f"(expected off|full|bwd)")
+
+
+def fused_layernorm_mode() -> str:
+    """The routing mode :func:`enable_fused_layernorm` set: "off", "full"
+    or "bwd" (a serving engine keys its decode graph on it)."""
+    return _MODE
 
 
 # -- plain versions ------------------------------------------------------------

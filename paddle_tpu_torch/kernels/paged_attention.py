@@ -24,8 +24,10 @@ f32, far below the ridge; :func:`paged_cost` counts the bytes the row's
 resident tokens need.
 
 :func:`paged_decode_attention` picks the plain version for CPU tensors
-only; for CUDA tensors it launches the kernels or raises.  Every call
-adds one to ``paged_decode_attention.launches``.
+only; for CUDA tensors it launches the kernels or raises.  Every launch
+of the pair adds one to ``paged_decode_attention.launches``: one a call,
+or one a column group of a read wider than :data:`MAX_W`
+(:func:`paged_by_groups`).
 """
 from __future__ import annotations
 
@@ -36,11 +38,27 @@ import math
 import torch
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "paged_cost", "paged_plan", "MAX_W"]
+           "paged_by_groups", "paged_groups", "paged_cost", "paged_plan",
+           "MAX_W", "SPARE_PAGE"]
 
 NEG_INF = -1e30
 MAX_W = 8                  # widest query span the kernel takes (kMaxW)
 CHUNK_POSITIONS = 64       # positions a chunk block reads, at most
+
+
+class _SparePage:
+    """The type of :data:`SPARE_PAGE`."""
+
+    def __repr__(self):
+        return "SPARE_PAGE"
+
+
+#: Last element of a paged cache tuple whose pools carry one spare page
+#: past the mappable ones: ``(k_pages, v_pages, lengths, page_table[,
+#: k_scale, v_scale], SPARE_PAGE)``.  The model writes what a table cannot
+#: place to the spare page instead of filtering it out, and reads the pools
+#: without it (``models/gpt.py``, ``GPTSelfAttention._paged``).
+SPARE_PAGE = _SparePage()
 
 
 @functools.lru_cache(maxsize=256)
@@ -134,12 +152,37 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
     return torch.matmul(probs, vh).transpose(1, 2)
 
 
+def paged_groups(W):
+    """The column groups a read of ``W`` queries runs as: ``(first query,
+    width)`` pairs of at most :data:`MAX_W` queries, one kernel call each
+    (the kernel is instanced up to ``MAX_W``)."""
+    return [(g, min(MAX_W, W - g)) for g in range(0, W, MAX_W)]
+
+
+def paged_by_groups(read, q, k_pages, v_pages, page_table, lengths,
+                    k_scale=None, v_scale=None, scale=None):
+    """A read wider than :data:`MAX_W` queries as column groups: queries
+    ``g .. g+w-1`` through ``read`` at start positions ``lengths + g``.
+    The span's writes all land before the read, so each group attends to
+    exactly the positions its queries see in the whole read (a tail
+    prefill's W is its pow2 bucket, up to the table's length)."""
+    return torch.cat([read(q[:, g:g + w], k_pages, v_pages, page_table,
+                           lengths + g, k_scale, v_scale, scale)
+                      for g, w in paged_groups(q.shape[1])], dim=1)
+
+
 def paged_cost(lengths, W, H, D, P, n_pt, quant):
-    """Analytic work of one call: (flops, bytes) for the tokens each row
+    """Analytic work of one read: (flops, bytes) for the tokens each row
     really holds — ``min(start + W, n_pt*P)`` positions for a live row,
     none for a parked one.  Bytes: those positions' K and V (int8 pools:
     1 byte each plus an f32 scale per position), q in and out in f32,
-    and the row's page-table entries and length."""
+    and the row's page-table entries and length.  A read wider than
+    :data:`MAX_W` is the sum of its column groups' (:func:`paged_groups`),
+    each of which reads the row's positions again."""
+    if W > MAX_W:
+        costs = [paged_cost([int(x) + g for x in lengths], w, H, D, P, n_pt,
+                            quant) for g, w in paged_groups(W)]
+        return tuple(map(sum, zip(*costs)))
     virt = n_pt * P
     flops = 0.0
     nbytes = 0.0
@@ -226,7 +269,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
         k_scale / v_scale: ``[NP, P]`` f32, required iff the pools are int8.
 
     Returns ``[B, W, H, D]``.  CPU tensors take
-    :func:`paged_decode_attention_plain`; CUDA tensors launch the kernels.
+    :func:`paged_decode_attention_plain`; CUDA tensors launch the kernels,
+    once for each group of :func:`paged_groups` when ``W`` is wider than
+    :data:`MAX_W`.
     """
     quant = _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
     if scale is None:
@@ -236,8 +281,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
                                             lengths, k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
-    return _launch(q, k_pages, v_pages, page_table, lengths, k_scale,
-                   v_scale, float(scale), quant)
+
+    def launch(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
+               scale):
+        return _launch(q, k_pages, v_pages, page_table, lengths, k_scale,
+                       v_scale, float(scale), quant)
+
+    if q.shape[1] > MAX_W:
+        return paged_by_groups(launch, q, k_pages, v_pages, page_table,
+                               lengths, k_scale, v_scale, scale)
+    return launch(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
+                  scale)
 
 
 paged_decode_attention.launches = 0

@@ -15,7 +15,9 @@ model's serving path:
   n_pt])`` and the int8 6-tuple ``(..., k_scale, v_scale)``.  Position
   ``p`` of row ``r`` lives at ``pages[page_table[r, p // P], p % P]``.
   The new keys/values are written into the pools in place, then read
-  back through the paged decode kernel.
+  back through the paged decode kernel.  Either tuple may end in
+  :data:`SPARE_PAGE` (the serving engine's form): the pools then hold a
+  spare page past the mappable ones, and the write has a fixed shape.
 
 The LayerNorms are the port's ``nn.LayerNorm`` (``F.layer_norm``), so
 ``kernels.layer_norm.enable_fused_layernorm("full" | "bwd")`` sends them
@@ -30,7 +32,7 @@ Hidden, embedding and attention dropout apply in training mode only, with
 torch's generator (the JAX draws' distribution, not their bits).
 ``GPTPretrainingCriterion`` is the masked next-token loss.  Not ported
 yet: recompute, MoE, scan-layers, the fused head loss, growing-concat and
-dense per-slot caches (ROADMAP "Port queue").
+dense per-slot caches (ROADMAP module entries 2 and 4).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.ln_matmul import ln_matmul_enabled
-from ..kernels.paged_attention import paged_decode_attention
+from ..kernels.paged_attention import SPARE_PAGE, paged_decode_attention
 from ..nn import LayerNorm
 from ..nn import functional as F
 from ..serving.kv_quant import quantize_rows
@@ -52,7 +54,7 @@ __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTSelfAttention",
            "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
            "GPTForPretraining", "GPTPretrainingCriterion", "build_gpt",
            "gpt_num_params", "gpt_train_flops_per_token",
-           "QKV_LAYOUT_HEAD_MAJOR"]
+           "QKV_LAYOUT_HEAD_MAJOR", "SPARE_PAGE"]
 
 
 @dataclass
@@ -152,7 +154,7 @@ class GPTSelfAttention(nn.Module):
             if not (isinstance(pos0, int) and pos0 == 0):
                 raise NotImplementedError(
                     "the dense per-slot cache (a 3-tuple with a tensor "
-                    "length) is ROADMAP 'Port queue' item 2; the port "
+                    "length) is ROADMAP module entry 4; the port "
                     "takes the static prefill form (k_buf, v_buf, 0)")
             # static prefill: no past to attend over, so the prompt keeps
             # the causal flash path; the buffers take the new keys/values
@@ -160,54 +162,83 @@ class GPTSelfAttention(nn.Module):
             v_buf[:, :t] = v.to(v_buf.dtype)
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
             new_cache = (k_buf, v_buf, t)
-        elif len(cache) in (4, 6):
+        elif len(cache) - (cache[-1] is SPARE_PAGE) in (4, 6):
             out, new_cache = self._paged(q, k, v, cache)
         else:
             raise NotImplementedError(
                 f"a {len(cache)}-tuple cache: the port takes the static "
-                f"prefill 3-tuple and the paged 4/6-tuples (ROADMAP 'Port "
-                f"queue' item 2)")
+                f"prefill 3-tuple and the paged 4/6-tuples, each paged one "
+                f"with or without SPARE_PAGE (ROADMAP module entry 4)")
         out = self.out_proj(out.reshape(b, t, self.num_heads * self.head_dim))
         return out, new_cache
 
     @staticmethod
     def _paged(q, k, v, cache):
         """Write the span's keys/values through the page table, then read
-        the row's pages with the paged decode kernel."""
+        the row's pages with the paged decode kernel.
+
+        With :data:`SPARE_PAGE` at the end of the cache tuple the pools
+        hold one page past those a table may map: every span position is
+        written by one fixed-shape ``index_put_`` (no host sync, so the
+        step can be captured in a CUDA graph), and sentinel, off-table and
+        parked positions land on the spare page, which no table maps and
+        the read never sees (it reads the pools without it).  Without the
+        marker every page is mappable, and those positions are dropped by
+        a boolean filter, which syncs the host."""
+        spare = cache[-1] is SPARE_PAGE
+        if spare:
+            cache = cache[:-1]
         k_pages, v_pages, start, pt = cache[:4]
         quant = len(cache) == 6
         if not torch.is_tensor(start) or start.dim() != 1:
             raise ValueError("the paged cache takes per-slot [B] lengths")
         t = q.shape[1]
-        n_pages, psz = k_pages.shape[0], k_pages.shape[1]
+        n_pages = k_pages.shape[0] - int(spare)     # pages a table maps
+        psz = k_pages.shape[1]
         n_pt = pt.shape[1]
         cols = start.long()[:, None] + torch.arange(t, device=q.device)[None]
         pslot = (cols // psz).clamp(0, n_pt - 1)
         pid = torch.where(cols < n_pt * psz, pt.long().gather(1, pslot),
                           torch.full_like(cols, n_pages))
-        # sentinel (>= num_pages) and off-the-end positions are unwritable:
-        # they are dropped, never clamped onto a real page
-        keep = pid < n_pages
-        idx = (pid[keep], (cols % psz)[keep])
+        off = cols % psz
+        if spare:
+            # sentinel (>= num_pages) and off-the-end positions go to the
+            # spare page: never clamped onto a real page
+            idx = (pid.clamp(max=n_pages).flatten(), off.flatten())
+
+            def sel(x):
+                return x.flatten(0, 1)
+        else:
+            # ... or are dropped
+            keep = pid < n_pages
+            idx = (pid[keep], off[keep])
+
+            def sel(x):
+                return x[keep]
         # the pools are updated in place, as the JAX engine's donated
         # buffers are: no pool-sized copy per layer per step
         if quant:
             k_scale, v_scale = cache[4], cache[5]
             kq, ksc = quantize_rows(k)
             vq, vsc = quantize_rows(v)
-            k_pages.index_put_(idx, kq[keep])
-            v_pages.index_put_(idx, vq[keep])
-            k_scale.index_put_(idx, ksc[keep])
-            v_scale.index_put_(idx, vsc[keep])
+            k_pages.index_put_(idx, sel(kq))
+            v_pages.index_put_(idx, sel(vq))
+            k_scale.index_put_(idx, sel(ksc))
+            v_scale.index_put_(idx, sel(vsc))
         else:
             k_scale = v_scale = None
-            k_pages.index_put_(idx, k[keep].to(k_pages.dtype))
-            v_pages.index_put_(idx, v[keep].to(v_pages.dtype))
-        out = paged_decode_attention(q, k_pages, v_pages, pt, start,
-                                     k_scale=k_scale, v_scale=v_scale)
+            k_pages.index_put_(idx, sel(k).to(k_pages.dtype))
+            v_pages.index_put_(idx, sel(v).to(v_pages.dtype))
+        read = [k_pages, v_pages, k_scale, v_scale]
+        if spare:
+            read = [None if x is None else x[:n_pages] for x in read]
+        out = paged_decode_attention(q, read[0], read[1], pt, start,
+                                     k_scale=read[2], v_scale=read[3])
         new_cache = (k_pages, v_pages, start + t, pt)
         if quant:
             new_cache = new_cache + (k_scale, v_scale)
+        if spare:
+            new_cache = new_cache + (SPARE_PAGE,)
         return out, new_cache
 
 

@@ -1,8 +1,9 @@
 """SlotPool — host-side bookkeeping for the engine's decode lanes.
 
 The port's own copy of ``paddle_tpu/serving/slot_pool.py`` (pure Python: the
-port imports nothing of the JAX package), without the prefix cache's
-``cached`` slot state, which this slice does not port.
+port imports nothing of the JAX package), without the dense pool's
+``cached`` slot state: on the paged pool a cached prefix holds pages, never
+a lane.
 
 The engine runs one batched decode step over ``max_slots`` lanes (plus a
 scratch lane); this class owns the *index* side of that arrangement: which

@@ -84,13 +84,15 @@ def _case(W, quant, seed=0, n_pt=4):
     return _paged_case(W, quant, rows + [n_pt * 8], n_pt=n_pt, seed=seed)
 
 
-def _paged_check(args, n_launches=1):
+def _paged_check(args):
     """The kernel's output on the card against the plain version's on
-    the live rows (parked rows are never read), at 1e-4."""
+    the live rows (parked rows are never read), at 1e-4; one launch a
+    column group of at most MAX_W queries."""
     before = pa.paged_decode_attention.launches
     out = pa.paged_decode_attention(*args)
     torch.cuda.synchronize()
-    assert pa.paged_decode_attention.launches == before + n_launches
+    assert pa.paged_decode_attention.launches == before + len(
+        pa.paged_groups(args[0].shape[1]))
     ref = pa.paged_decode_attention_plain(*args)
     live = args[4] < args[3].shape[1] * args[1].shape[1]
     torch.testing.assert_close(out[live], ref[live], rtol=1e-4, atol=1e-4)
@@ -201,6 +203,143 @@ def test_paged_kernel_in_cuda_graph(cuda, quant):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, pa.paged_decode_attention(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("W", [12, 16, 24])
+def test_paged_grouped_wide_read_matches_plain(cuda, W, quant):
+    """A read wider than MAX_W runs the kernel once a column group (the
+    tail prefill's route) and equals the plain read at the whole width."""
+    _paged_check(_on(cuda, _paged_case(W, quant, [0, 5, 8, 13, 30, 64],
+                                       n_pt=8, P=8, seed=W)))
+
+
+# -- the serving engine's decode graph ----------------------------------------
+
+def _tiny_engine(dev, **kw):
+    from paddle_tpu_torch.models import build_gpt, load_jax_state, \
+        to_jax_state
+    from paddle_tpu_torch.serving import Engine
+
+    state = to_jax_state(build_gpt("gpt-tiny", device="cpu", seed=5,
+                                   max_position_embeddings=128))
+    models = []
+    for d in ("cpu", dev):
+        m = build_gpt("gpt-tiny", device=d, max_position_embeddings=128)
+        load_jax_state(m, state)
+        models.append(m)
+    return models[0], Engine(models[1], device=dev, **kw)
+
+
+def _live_step(engine, rs, step):
+    """Decode inputs over every lane: rows 0-2 live at different lengths
+    (pages 3b.. of their own), row 3 and the scratch lane parked."""
+    n_rows, W = engine._ids.shape
+    n_pt = engine._page_tables.shape[1]
+    P = engine._page_alloc.page_size
+    ids = rs.randint(0, 1024, (n_rows, W)).astype(np.int64)
+    lengths = np.full(n_rows, engine._park, np.int32)
+    tables = np.full((n_rows, n_pt), engine._page_alloc.num_pages, np.int32)
+    for r, ln in enumerate((3, 17, 30)):
+        lengths[r] = ln + step * W
+        tables[r] = np.arange(r * n_pt, (r + 1) * n_pt)
+    assert lengths[:3].max() + W <= n_pt * P
+    return ids, lengths, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 4], ids=["W1", "W4"])
+def test_decode_graph_replay_equals_eager_step(cuda, k):
+    """Three decode steps over live and parked lanes: the graph's replay
+    gives the eager step's logits bit for bit; one capture, three
+    replays, and each replay counts the paged launches of one step."""
+    _, eng = _tiny_engine(cuda, max_slots=4, max_len=64, page_size=8,
+                          speculative_k=k, auto_start=False)
+    rs = np.random.RandomState(0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for pool in eng._kpools + eng._vpools:
+            pool.copy_(torch.randn(pool.shape, device=cuda, generator=g))
+        for step in range(3):
+            inputs = _live_step(eng, rs, step)
+            eng._stage(*inputs)
+            eager, eager_ids = (t.clone() for t in eng._decode_forward())
+            logits, toks = eng._run_decode(*inputs)
+            torch.cuda.synchronize()
+            assert torch.equal(logits, eager)
+            np.testing.assert_array_equal(toks, eager_ids.cpu().numpy())
+    st = eng.stats()
+    eng.shutdown()
+    assert st["decode_compiles"] == 1 and st["decode_graph_replays"] == 3
+    assert st["replayed_paged_launches"] == 3 * 2      # 2 layers a step
+    assert st["decode_device_seconds"] > 0
+
+
+@pytest.mark.cuda
+def test_decode_step_does_not_sync(cuda):
+    """One eager decode forward (inputs staged from pinned memory, the
+    write through the spare page, the paged kernel, the head) with any
+    host sync an error."""
+    _, eng = _tiny_engine(cuda, max_slots=4, max_len=64, page_size=8,
+                          speculative_k=3, kv_dtype="int8", auto_start=False)
+    inputs = _live_step(eng, np.random.RandomState(1), 0)
+    with torch.no_grad():
+        eng._stage(*inputs)
+        eng._decode_forward()                 # builds and loads first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._stage(*inputs)
+            eng._decode_forward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    eng.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32", "int8"])
+def test_serving_gates_restated_for_replays(cuda, kv_dtype):
+    """The fast path on the card: shared-prompt traffic through the
+    prefix cache and the 3-wide verify.  One decode capture, a replay a
+    decode step, the paged launches of the replays (2 a step) and of the
+    tail prefills (2 x the column groups of each tail bucket), every
+    request complete, and every served token within the plain CPU
+    forward's margin of its maximum."""
+    cpu_model, eng = _tiny_engine(cuda, max_slots=4, max_len=96,
+                                  page_size=8, prefix_cache=True,
+                                  prefix_block=8, speculative_k=3,
+                                  kv_dtype=kv_dtype)
+    rs = np.random.RandomState(2)
+    shared = rs.randint(0, 1024, 32)
+    prompts = [np.concatenate([shared, rs.randint(0, 1024, n)])
+               for n in (3, 9, 17, 5)]
+    base = pa.paged_decode_attention.launches
+    try:
+        outs = [eng.submit(shared, max_new_tokens=4).result(timeout=300)]
+        outs += [h.result(timeout=300) for h in
+                 [eng.submit(p, max_new_tokens=12) for p in prompts]]
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    # the two warm-up steps and the capture: 2 layers each
+    eager = pa.paged_decode_attention.launches - base - 3 * 2
+    assert st["completed"] == 5 and st["decode_compiles"] == 1
+    assert st["decode_graph_replays"] == st["decode_steps"] > 0
+    assert st["replayed_paged_launches"] == 2 * st["decode_steps"]
+    assert st["prefix_hits"] == 4 and st["page_cow_copies"] == 0
+    assert st["tail_prefill_compiles"] >= 1 and st["spec_drafted"] > 0
+    # tail prefills: one read a layer, a launch a group of <= 8 queries
+    assert eager == 2 * st["tail_prefill_read_groups"] > 0
+    margin = 1e-3 if kv_dtype is None else 2e-2
+    with torch.no_grad():
+        for p, g in zip([shared] + prompts, outs):
+            seq = np.concatenate([p, g[:-1]]).astype(np.int64)
+            lg = cpu_model(torch.from_numpy(seq[None]))[0][len(p) - 1:]
+            gap = lg.max(-1).values - lg[torch.arange(len(g)),
+                                         torch.from_numpy(g)]
+            assert float(gap.max()) <= margin
 
 
 # (B, Tq, Tk, H, D), fused: the fused operand is self-attention (Tq == Tk)

@@ -145,16 +145,17 @@ def test_sampling_is_reproducible_and_in_top_k(models):
 def test_unported_flags_raise(models):
     _, pm = models
     for kw, what in [(dict(paged_kv=False), "dense slot pool"),
-                     (dict(prefix_cache=True), "prefix_cache"),
-                     (dict(speculative_k=3), "speculative_k"),
                      (dict(adapters=object()), "adapters"),
                      (dict(weight_dtype="int8"), "weight_dtype"),
                      (dict(host_prefix_mb=1.0), "host prefix"),
                      (dict(decode_kernel="xla"), "decode_kernel")]:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(NotImplementedError,
+                           match=f"{what}.*module entry 4"):
             Engine(pm, max_slots=2, max_len=32, device="cpu", **kw)
     with pytest.raises(ValueError, match="kv_dtype"):
         Engine(pm, max_slots=2, max_len=32, device="cpu", kv_dtype="fp8")
+    with pytest.raises(ValueError, match="speculative_k"):
+        Engine(pm, max_slots=2, max_len=32, device="cpu", speculative_k=-1)
 
 
 def test_admission_limits_queue_and_shutdown(models):

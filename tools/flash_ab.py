@@ -55,7 +55,9 @@ one call is held against the plain version at 1e-4.  A case the root's kernel re
 ``--mode serve`` runs ``chip_smoke.py`` phase 4's serving cell (f32
 pools, 24 requests of 32 new tokens on full-width gpt2-small-en, the
 teacher-forced check included) and its profiled window of 8 requests:
-tokens/s, p50 time to first token, the host's ms per decode step, and
+tokens/s, p50 time to first token, the host's ms per decode step, the
+device ms per replayed decode step (CUDA events around each replay of
+the decode graph; null for a checkout whose engine has no graph), and
 from the window the paged kernels' device ms and the device's busy
 share.
 
@@ -84,8 +86,8 @@ KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
         "conv-bn": None,          # the case names, from the run
         "paged": None,
         "serve": ("tokens_per_s", "p50_ttft_ms", "decode_step_ms",
-                  "window_paged_ms", "window_decode_steps",
-                  "window_busy_share")}
+                  "device_step_ms", "window_paged_ms",
+                  "window_decode_steps", "window_busy_share")}
 
 
 def _smoke():
@@ -343,6 +345,7 @@ def measure_serve(root: str, seed: int = 0) -> dict:
                 tokens_per_s=out["tokens_per_s"],
                 p50_ttft_ms=out["p50_ttft_ms"],
                 decode_step_ms=out["decode_step_ms"],
+                device_step_ms=out["device_step_ms"],
                 window_paged_ms=prof["paged_ms"],
                 window_decode_steps=prof["decode_steps"],
                 window_busy_share=prof["device_busy_share"])
