@@ -176,6 +176,36 @@ run with a non-zero exit, and nothing is caught):
    (1e-3 f32, 2e-2 int8); tokens/s, p50 TTFT, the drafts' acceptance and
    the greedy tokens that differ from a plain engine's on the card.
 
+23. (phases 23-27 run last, in this order) the fused flash forward and
+   backward (rows 5, 6) at the GPT-3 1.3B model's attention shape, B=8
+   T=1024 H=16 D=128 bf16 causal, as phase 9's training-shape cases:
+   against the plain versions (bf16 tolerance), device ms, SDPA and the
+   bound;
+24. the GPT-3 1.3B training recipe of ``bench_gpt_1p3b``
+   (``bench.py:307-383``) at full width and depth: gpt3-1.3B-en (24
+   layers, h 2048, 16 heads, vocab 50304, positions 1024) with
+   ``scan_layers`` and ``use_recompute``, dropout 0, built in bf16 on the
+   card from a seeded generator (bf16 parameters and AdamW slots), AdamW
+   lr 1e-4 and weight decay 0.01, ``compute_dtype=bfloat16``, batch 8 x
+   1024 from ``RandomState(seed)``: one warm-up and 5 timed steps with
+   the plain versions tripped, then one profiled step; step ms,
+   tokens/s, the flops share (``gpt_train_flops_per_token``, recompute
+   not counted, over 989 TFLOP/s), peak memory, busy share, time by
+   kernel and the attention kernels' sum; gated on finite, falling
+   losses, one step build, and exactly 48 fused forwards (24 + 24
+   replayed by recompute) and 24 of each backward kernel a step;
+25. the recipe's f32 parity: 2 layers at gpt3-1.3B-en's width, batch 2 x
+   1024, recompute, scan-layers, the fused head loss, a warm-up + cosine
+   schedule and ``ClipGradByGlobalNorm(1.0)``, three steps on the card
+   and on the CPU from the same weights: losses within 1e-4 relative,
+   4 fused forwards and 2 of each backward kernel a step on the card;
+26. one bf16 step of that clipped, scheduled recipe with its batch on the
+   card under ``torch.cuda.set_sync_debug_mode("error")`` (after a
+   warm-up step): nothing may wait for the device;
+27. phase 11's gpt2-small step with ``fuse_head_loss=True``: phase 11's
+   launches, losses within 1e-3 relative of phase 11's, step ms and peak
+   memory beside phase 11's, one profiled step.
+
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
 
@@ -1107,13 +1137,14 @@ def _max_err(got, want, dtype, what):
 
 def _split_ms(fn, calls=3):
     """Device ms per call of each flash backward kernel in ``fn`` (delta,
-    dk/dv, dq; f32 or bf16 instance), from ``torch.profiler``."""
+    dk/dv, dq; f32 or bf16 instance), from ``torch.profiler``; None for a
+    kernel the profiler did not see (not measured)."""
     res = _device_profile(lambda: [fn() for _ in range(calls)])
-    out = {"delta": 0.0, "dkv": 0.0, "dq": 0.0}
+    out = {"delta": None, "dkv": None, "dq": None}
     for name, ms in res["all_kernels_ms"].items():
         for part in out:
             if f"flash_bwd_{part}_" in name:
-                out[part] += ms / calls
+                out[part] = (out[part] or 0.0) + ms / calls
     return out
 
 
@@ -1195,9 +1226,11 @@ def _bwd_case(dev, gen, dtype, B, tq, tk, fused, causal, H=12, D=64,
         for part in ("dq", "dkv"):
             row[f"bound_{part}"] = _bound(*fa.flash_bwd_cost(
                 B, tq, tk, H, D, causal, itemsize=item, part=part), peak)
-        parts = (f" (delta {row['kernel_ms']['delta']:.4f}, dk/dv "
-                 f"{row['kernel_ms']['dkv']:.4f}, dq "
-                 f"{row['kernel_ms']['dq']:.4f})")
+        parts = " (" + ", ".join(
+            f"{label} " + ("not measured" if row["kernel_ms"][part] is None
+                           else f"{row['kernel_ms'][part]:.4f}")
+            for part, label in (("delta", "delta"), ("dkv", "dk/dv"),
+                                ("dq", "dq"))) + ")"
     print(f"[flash-bwd] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms"
           f"{parts} (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms (eager "
           f"{plain_eager_ms:.4f}), sdpa fwd+bwd {lib_ms:.4f} ms (eager "
@@ -1347,10 +1380,10 @@ def phase_attention_train(dev):
     return res
 
 
-def _train_model(dev, seed, **overrides):
+def _train_model(dev, seed, name="gpt2-small-en", **overrides):
     from paddle_tpu_torch.models import build_gpt, load_jax_state
 
-    model = build_gpt("gpt2-small-en", device=dev, hidden_dropout_prob=0.0,
+    model = build_gpt(name, device=dev, hidden_dropout_prob=0.0,
                       attention_dropout_prob=0.0, **overrides)
     load_jax_state(model, _random_state(model, seed))
     return model
@@ -1411,18 +1444,19 @@ def _plain_attention_loss(dev, seed, batch, seq):
 
 
 def _run_train(dev, seed, steps, batch, seq, ln_mode="off",
-               fused_proj=False):
+               fused_proj=False, **overrides):
     """One warm-up and ``steps`` timed bf16 AdamW steps of full-width
     gpt2-small-en from the seed's weights and batch, under the given
-    fused-LayerNorm toggles, with every launch counter set to 0 just
-    before and read just after, and the plain versions tripped.  Returns
-    the numbers and a function that runs one more step (toggles on)."""
+    fused-LayerNorm toggles and config ``overrides``, with every launch
+    counter set to 0 just before and read just after, and the plain
+    versions tripped.  Returns the numbers and a function that runs one
+    more step (toggles on)."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.models import gpt_train_flops_per_token
 
-    model = _train_model(dev, seed)
+    model = _train_model(dev, seed, **overrides)
     cfg = model.config
     if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
             cfg.vocab_size) != (768, N_LAYERS, 12, 50304):
@@ -1451,7 +1485,7 @@ def _run_train(dev, seed, steps, batch, seq, ln_mode="off",
     tokens_per_s = steps * batch * seq / wall
     share = tokens_per_s * gpt_train_flops_per_token(cfg, seq) / BF16_PEAK
     res = dict(batch=batch, seq=seq, steps=steps, ln_mode=ln_mode,
-               ln_matmul=fused_proj, losses=losses,
+               ln_matmul=fused_proj, overrides=overrides, losses=losses,
                step_ms=1e3 * wall / steps, tokens_per_s=tokens_per_s,
                flops_share=share, peak_memory_bytes=peak, launches=n,
                launches_per_step={k: v // (steps + 1) for k, v in n.items()})
@@ -2498,6 +2532,268 @@ def phase_conv_bn_model(model, x):
     return dict(rows=rows, launches=n)
 
 
+# -- the GPT-3 1.3B training recipe (phases 23-27) ------------------------------
+
+RECIPE = dict(scan_layers=True, use_recompute=True)
+N_LAYERS_1P3B = 24
+
+
+def phase_flash_d128(dev):
+    """Rows 5 and 6 at the 1.3B model's attention shape (phase 23): the
+    fused forward and backward at B=8 T=1024 H=16 D=128 bf16 causal,
+    against their plain versions, SDPA and the bound."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fwd = _fused_fwd_case(dev, gen, B=8, T=1024, H=16, D=128)
+    bwd = _bwd_case(dev, gen, torch.bfloat16, 8, 1024, 1024, True, True,
+                    H=16, D=128, plain_iters=1, split=True)
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def _recipe_launches(steps, layers):
+    """Attention launches of ``steps`` steps under recompute: each layer's
+    fused forward twice (the forward, and its replay in ``backward()``),
+    each fused backward kernel once; nothing else (no LayerNorm kernel)."""
+    want = {k: 0 for k in {**_attention_counters(), **_ln_counters()}}
+    want.update(fused_fwd=2 * layers * steps, fused_bwd_delta=layers * steps,
+                fused_bwd_dkv=layers * steps, fused_bwd_dq=layers * steps)
+    return want
+
+
+def phase_gpt_1p3b(dev, smi, seed, steps=5, batch=8, seq=1024):
+    """Phase 24: ``bench_gpt_1p3b``'s recipe at full width and depth:
+    gpt3-1.3B-en (24 layers, h 2048, 16 heads, vocab 50304) with
+    ``scan_layers`` and ``use_recompute``, dropout 0, built in bf16 on the
+    card from a seeded generator (parameters and AdamW slots bf16), AdamW
+    lr 1e-4 and weight decay 0.01, batch 8 x 1024 from
+    ``RandomState(seed)``: one warm-up and 5 timed steps, then one
+    profiled step.  Gates: losses finite and falling, one step build, and
+    exactly 48 fused forwards and 24 of each backward kernel a step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import (GPTPretrainingCriterion, build_gpt,
+                                         gpt_train_flops_per_token)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    model = build_gpt("gpt3-1.3B-en", device=dev, seed=seed,
+                      dtype=torch.bfloat16,
+                      max_position_embeddings=max(seq, 1024),
+                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                      **RECIPE)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
+            cfg.vocab_size) != (2048, N_LAYERS_1P3B, 16, 50304):
+        _fail(f"gpt3-1.3B-en is not at full width and depth: {cfg}")
+    opt = AdamW(learning_rate=1e-4, parameters=model, weight_decay=0.01)
+    step = make_train_step(model, opt, loss_fn=GPTPretrainingCriterion(),
+                           compute_dtype=torch.bfloat16)
+    x, y = _train_batch(dev, seed, batch, seq, cfg.vocab_size)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _attention_counters(zero=True)
+    _ln_counters(zero=True)
+    with _no_plain():
+        losses = [float(step(x, y))]                   # warm-up
+        t0 = time.perf_counter()
+        outs = [step(x, y) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = {**_attention_counters(), **_ln_counters()}
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(v) for v in outs]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        _fail(f"gpt3-1.3B: losses {losses} are not finite and falling")
+    if step.compile_count != 1:
+        _fail(f"gpt3-1.3B: {step.compile_count} step builds for one "
+              f"signature")
+    want = _recipe_launches(steps + 1, N_LAYERS_1P3B)
+    if n != want:
+        _fail(f"gpt3-1.3B: launches {n} != {want}")
+    tokens_per_s = steps * batch * seq / wall
+    flops_tok = gpt_train_flops_per_token(cfg, seq)
+    with _no_plain():
+        prof = _device_profile(lambda: step(x, y))
+    prof["attention_ms"] = sum(v for k, v in prof.pop(
+        "all_kernels_ms").items() if "flash_" in k)
+    res = dict(model="gpt3-1.3B-en", batch=batch, seq=seq, steps=steps,
+               build_s=build_s, losses=losses, step_ms=1e3 * wall / steps,
+               tokens_per_s=tokens_per_s, flops_per_token=flops_tok,
+               flops_share=tokens_per_s * flops_tok / BF16_PEAK,
+               peak_memory_bytes=peak, launches=n,
+               launches_per_step={k: v // (steps + 1) for k, v in n.items()},
+               profile=prof)
+    print(f"[gpt-1.3b] gpt3-1.3B-en B={batch} T={seq} bf16 params and "
+          f"slots, scan_layers + recompute, AdamW: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)} (built in "
+          f"{build_s:.1f} s)")
+    print(f"[gpt-1.3b] {res['step_ms']:.3f} ms a step, {tokens_per_s:.1f} "
+          f"tokens/s, flops share {100 * res['flops_share']:.2f}% of the "
+          f"989 TFLOP/s dense bf16 peak (H100 SXM data sheet; "
+          f"{flops_tok / 1e9:.3f} GFLOP a token, recompute not counted), "
+          f"peak memory {peak} bytes, launches a step "
+          f"{res['launches_per_step']} on {smi}")
+    _print_profile("gpt-1.3b-profile", "one step", prof)
+    print(f"[gpt-1.3b-profile] attention kernels (flash forward, delta, "
+          f"dk/dv, dq): {prof['attention_ms']:.3f} ms of the step")
+    del model, opt, step, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _recipe_optimizer(model, lr=1e-4):
+    """The pretraining schedule of the recipe phases: a linear warm-up of
+    2 steps from lr / 10 into a cosine decay over 10, AdamW (weight decay
+    0.01) with ``ClipGradByGlobalNorm(1.0)``."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    sched = LinearWarmup(CosineAnnealingDecay(lr, T_max=10), 2, lr / 10, lr)
+    return sched, AdamW(learning_rate=sched, parameters=model,
+                        weight_decay=0.01,
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def phase_recipe_parity(dev, seed, tol=1e-4, steps=3):
+    """Phase 25: the recipe's step in f32 on the card against the CPU:
+    gpt3-1.3B-en's width (h 2048, 16 heads of 128, vocab 50304) with 2
+    layers, recompute, scan-layers and the fused head loss, the warm-up +
+    cosine schedule and the global-norm clip at 1.0, batch 2 x 1024, 3
+    steps from the same numpy-seeded weights: losses within 1e-4
+    relative; on the card 4 fused forwards and 2 of each backward kernel
+    a step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn.clip import global_norm
+
+    ids = np.random.RandomState(seed + 2).randint(
+        0, 50304, size=(2, 1025)).astype(np.int64)
+    losses, norms, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    for where in (dev, torch.device("cpu")):
+        model = _train_model(where, seed, "gpt3-1.3B-en", num_layers=2,
+                             max_position_embeddings=1024,
+                             fuse_head_loss=True, **RECIPE)
+        sched, opt = _recipe_optimizer(model)
+        step = make_train_step(model, opt, loss_fn=GPTPretrainingCriterion())
+        _attention_counters(zero=True)
+        _ln_counters(zero=True)
+        run, gn = [], []
+        for _ in range(steps):
+            run.append(float(step(ids[:, :-1], ids[:, 1:])))
+            # the step clipped .grad in place: 1.0 where the clip acted
+            gn.append(float(global_norm([p.grad for p in
+                                         model.parameters()])))
+            sched.step()
+        losses[where.type], norms[where.type] = run, gn
+        launches[where.type] = {**_attention_counters(), **_ln_counters()}
+        del model, step, opt
+    n_card = launches[dev.type]
+    want = _recipe_launches(steps, 2)
+    if n_card != want:
+        _fail(f"recipe parity: launches on the card {n_card} != {want}")
+    card, cpu = np.array(losses[dev.type]), np.array(losses["cpu"])
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    print(f"[recipe-parity] 2 layers of gpt3-1.3B-en, B=2 T=1024 f32, "
+          f"recompute + fused head + warm-up/cosine + clip 1.0: card "
+          f"{card.tolist()}, cpu {cpu.tolist()}, max rel diff {rel:.3e} "
+          f"(tol {tol}); gradient norm after the clip, card "
+          f"{norms[dev.type]}, cpu {norms['cpu']}; launches {n_card}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= tol:
+        _fail(f"recipe parity: card and CPU losses differ by {rel} > {tol}")
+    torch.cuda.empty_cache()
+    return dict(card=card.tolist(), cpu=cpu.tolist(), max_rel_diff=rel,
+                tol=tol, clipped_norms=norms, launches=n_card)
+
+
+def phase_recipe_sync(dev, seed):
+    """Phase 26: one bf16 step of the clipped, scheduled recipe (2 layers
+    of gpt3-1.3B-en, bf16 parameters, fused head, recompute) with its
+    batch already on the card, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
+    the device raises.  A warm-up step first builds what the first call
+    builds."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, build_gpt
+
+    model = build_gpt("gpt3-1.3B-en", device=dev, seed=seed,
+                      dtype=torch.bfloat16, num_layers=2,
+                      max_position_embeddings=1024, hidden_dropout_prob=0.0,
+                      attention_dropout_prob=0.0, fuse_head_loss=True,
+                      **RECIPE)
+    sched, opt = _recipe_optimizer(model)
+    step = make_train_step(model, opt, loss_fn=GPTPretrainingCriterion(),
+                           compute_dtype=torch.bfloat16)
+    x, y = _train_batch(dev, seed, 2, 1024, model.config.vocab_size)
+    first = float(step(x, y))
+    sched.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step(x, y)
+        sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    second = float(loss)
+    if not (math.isfinite(first) and math.isfinite(second)):
+        _fail(f"recipe sync step: losses {first}, {second} not finite")
+    print(f"[recipe-sync] one bf16 recipe step under "
+          f"set_sync_debug_mode('error'): no sync; losses {first:.6f}, "
+          f"{second:.6f}")
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return dict(losses=[first, second], synced=False)
+
+
+def phase_fused_head_train(dev, seed, smi, base, steps=5, batch=16,
+                           seq=1024):
+    """Phase 27: phase 11's gpt2-small step with ``fuse_head_loss=True``
+    (the ``[B, T, V]`` logits never exist): its launches are phase 11's,
+    its losses within 1e-3 relative of phase 11's; step ms and peak
+    memory beside phase 11's, and one profiled step."""
+    import torch
+
+    res, one_step = _run_train(dev, seed, steps, batch, seq,
+                               fuse_head_loss=True)
+    if res["launches"] != _want_launches(steps + 1):
+        _fail(f"fused-head train: launches {res['launches']} != "
+              f"{_want_launches(steps + 1)}")
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(res["losses"], base["losses"]))
+    res["max_rel_diff"] = rel
+    if not rel <= FUSED_LOSS_RTOL:
+        _fail(f"fused-head train: losses {res['losses']} differ from the "
+              f"unfused {base['losses']} by {rel} > {FUSED_LOSS_RTOL}")
+    prof = _device_profile(one_step)
+    prof.pop("all_kernels_ms")
+    res["profile"] = prof
+    _print_train("train-fused-head", res, smi)
+    print(f"[train-fused-head] against the unfused head (phase 11): "
+          f"{res['step_ms']:.3f} / {base['step_ms']:.3f} ms a step, peak "
+          f"memory {res['peak_memory_bytes']} / "
+          f"{base['peak_memory_bytes']} bytes, losses within {rel:.3e} "
+          f"(tol {FUSED_LOSS_RTOL})")
+    _print_profile("train-fused-head-profile", "one step", prof)
+    del one_step
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -2573,6 +2869,13 @@ def main(argv=None) -> int:
     del model, x1, y1
     torch.cuda.empty_cache()
     resnet_parity = phase_resnet_parity(dev, args.seed)
+    # the GPT-3 1.3B recipe's phases (23-27) follow the earlier ones
+    torch.cuda.empty_cache()
+    d128_fwd, d128_bwd = phase_flash_d128(dev)
+    big = phase_gpt_1p3b(dev, smi, args.seed)
+    recipe_parity = phase_recipe_parity(dev, args.seed)
+    recipe_sync = phase_recipe_sync(dev, args.seed)
+    fused_head = phase_fused_head_train(dev, args.seed, smi, train)
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -2595,7 +2898,7 @@ def main(argv=None) -> int:
     sep_1024, sep_1100 = (next(
         r for r in bwd if r["dtype"] == "bfloat16" and not r["fused"]
         and r["causal"] and r["Tq"] == t) for t in (1024, 1100))
-    bwd_err = max(r["max_abs_err"] for r in bwd + [fused_bwd])
+    bwd_err = max(r["max_abs_err"] for r in bwd + [fused_bwd, d128_bwd])
     bwd_src = "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
     fa_py = "paddle_tpu/kernels/flash_attention.py"
 
@@ -2610,7 +2913,8 @@ def main(argv=None) -> int:
                     plain_ms=row["plain_ms"], bound_ms=bound[0],
                     bound_by=bound[1], library_ms=row["library_ms"],
                     library_bwd_ms=row["library_bwd_ms"],
-                    shape=f"B={row['B']} T={row['Tq']} H=12 D=64 "
+                    shape=f"B={row['B']} T={row['Tq']} H={row['H']} "
+                          f"D={row['D']} "
                           f"{row['dtype']} causal"
                           f"{' fused' if row['fused'] else ''}")
 
@@ -2638,6 +2942,22 @@ def main(argv=None) -> int:
         bwd_row("flash_attention_qkv_fused_bwd (delta + dk/dv + dq kernels)",
                 534, n_tr["fused_bwd_delta"] + n_tr["fused_bwd_dkv"]
                 + n_tr["fused_bwd_dq"], fused_bwd),
+        dict(name="flash_attention_qkv_fused at D=128 (gpt3-1.3B recipe)",
+             route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+             replaces=f"{fa_py}:490", launches=big["launches"]["fused_fwd"],
+             max_abs_err=d128_fwd["max_abs_err"], ms=d128_fwd["ms"],
+             eager_ms=d128_fwd["eager_ms"], plain_ms=d128_fwd["plain_ms"],
+             bound_ms=d128_fwd["bound_ms"], bound_by=d128_fwd["bound_by"],
+             library_ms=d128_fwd["library_ms"],
+             shape="B=8 T=1024 H=16 D=128 bfloat16 causal",
+             launches_of="phase 24: 6 steps, 48 a step (24 forward + 24 "
+                         "replayed by recompute)"),
+        bwd_row("flash_attention_qkv_fused_bwd at D=128 (gpt3-1.3B recipe; "
+                "delta + dk/dv + dq kernels)", 534,
+                big["launches"]["fused_bwd_delta"]
+                + big["launches"]["fused_bwd_dkv"]
+                + big["launches"]["fused_bwd_dq"], d128_bwd),
         bwd_row("flash_attention_bwd (delta + dk/dv + dq kernels)", 371,
                 n_att[1024]["bwd_delta"] + n_att[1024]["bwd_dkv"]
                 + n_att[1024]["bwd_dq"], sep_1024),
@@ -2760,7 +3080,11 @@ def main(argv=None) -> int:
                            parity_ln=parity_ln, serve_ln=serve_ln,
                            conv_bn=conv_rows, resnet_train=resnet,
                            resnet_parity=resnet_parity,
-                           conv_bn_model=conv_model, kernels=kernels,
+                           conv_bn_model=conv_model,
+                           flash_d128=[d128_fwd, d128_bwd], gpt_1p3b=big,
+                           recipe_parity=recipe_parity,
+                           recipe_sync=recipe_sync,
+                           fused_head_train=fused_head, kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -14,8 +14,8 @@ rather than fall back to the CPU (``device.resolve_device``).
 This package never imports ``jax`` or ``paddle_tpu``; only the tests
 import both, to hold the port against the reference.
 """
-from . import distributed, models, nn, optimizer, vision
+from . import distributed, models, nn, optimizer, regularizer, vision
 from .device import resolve_device
 
 __all__ = ["resolve_device", "distributed", "models", "nn", "optimizer",
-           "vision"]
+           "regularizer", "vision"]

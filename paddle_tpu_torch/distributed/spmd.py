@@ -15,7 +15,22 @@ update on the model's device, as the JAX step does in one jitted program:
 * the model runs in training mode, the JAX model's default;
 * buffers (batch norm's running statistics) are not cast: they stay f32
   and update in place inside the forward, as the JAX step carries its
-  ``buffers`` through ``functional_call`` uncast.
+  ``buffers`` through ``functional_call`` uncast;
+* the update reads the optimizer's learning rate (its scheduler's
+  ``get_lr()``) at every step and clips the gradients with its
+  ``grad_clip`` first, in place and on the device: for
+  ``ClipGradByGlobalNorm`` the global norm of all gradients in f32, then
+  ``scale = min(1, clip_norm / max(gn, 1e-12))`` (``nn/clip.py``), the
+  JAX step's rule; its bias correction counts the step's own steps
+  (``t = step + 1``), as the JAX train state does.
+
+``state_dict()`` / ``load_state_dict()`` carry the train state in the JAX
+step's canonical ``train_state_v2`` layout: ``params``, ``slots``
+(``{name: {slot: tensor}}``), ``buffers``, ``step``, ``opt_step_count``
+and ``meta``, by the port's parameter names and shapes
+(``models.convert`` maps a JAX snapshot onto them and back).  The step
+updates the module's own parameters in place, so ``sync_to_model()`` has
+nothing to write back.
 
 ``run_steps(*stacked)`` takes ``[K, B, ...]`` stacks of K batches and runs
 K steps, returning the K losses as one f32 tensor; where the JAX step
@@ -32,6 +47,7 @@ sharding and offload options are not taken.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["ShardedTrainStep", "make_train_step"]
@@ -79,6 +95,7 @@ class ShardedTrainStep:
         self.device = next(model.parameters()).device
         optimizer.name_parameters(model)
         self._plans: dict = {}
+        self._step = 0          # the train state's step (JAX TrainState)
 
     @property
     def compile_count(self) -> int:
@@ -113,7 +130,10 @@ class ShardedTrainStep:
         self.optimizer.clear_grad()
         loss = self._loss(plan, batch)
         loss.backward()
-        self.optimizer.step()
+        self._step += 1
+        with torch.no_grad():
+            self.optimizer._apply(self._step, clip_in_place=True)
+        self.optimizer._step_count += 1
         return loss.detach()
 
     def run_steps(self, *stacked):
@@ -122,6 +142,83 @@ class ShardedTrainStep:
                         for b in stacked)
         return torch.stack([self(*(b[i] for b in stacked))
                             for i in range(int(stacked[0].shape[0]))])
+
+    # -- the train state -----------------------------------------------------
+    def _entries(self):
+        """(trainable parameters, everything else in the state dict): the
+        JAX step's ``params`` and ``buffers``."""
+        params = {n: p for n, p in self.model.named_parameters()
+                  if p.requires_grad}
+        buffers = {n: t for n, t in self.model.state_dict().items()
+                   if n not in params}
+        return params, buffers
+
+    def state_dict(self) -> dict:
+        """A host snapshot of the train state (CPU copies: one wait for
+        the device) in the ``train_state_v2`` layout.  Slots of a
+        parameter not updated yet are zeros, as the JAX state starts
+        them."""
+        params, buffers = self._entries()
+
+        def host(t):
+            return t.detach().to("cpu", copy=True)
+
+        opt = self.optimizer
+        return {
+            "params": {n: host(p) for n, p in params.items()},
+            "slots": {n: {k: host(v) for k, v in opt.slots_of(n, p).items()}
+                      for n, p in params.items()},
+            "buffers": {n: host(t) for n, t in buffers.items()},
+            "step": torch.tensor(self._step, dtype=torch.int32),
+            "opt_step_count": torch.tensor(opt._step_count,
+                                           dtype=torch.int64),
+            "meta": {"format": "train_state_v2", "mesh": {}}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` (tensors or numpy arrays).  Every
+        leaf is checked before anything is written: a missing leaf raises
+        ``KeyError`` and a shape that does not fit ``ValueError``, each
+        naming the leaf, and leave the step as it was."""
+        params, buffers = self._entries()
+        opt = self.optimizer
+
+        def leaf(tree, key, like, section):
+            if key not in tree:
+                raise KeyError(f"train state: {section} leaf {key!r} is "
+                               f"missing")
+            v = tree[key]
+            v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+            if tuple(v.shape) != tuple(like.shape):
+                raise ValueError(f"train state: {section} leaf {key!r} has "
+                                 f"shape {tuple(v.shape)}, this step needs "
+                                 f"{tuple(like.shape)}")
+            return v
+
+        src_slots = state.get("slots", {})
+        new_p = {n: leaf(state.get("params", {}), n, p, "params")
+                 for n, p in params.items()}
+        new_s = {n: {k: leaf(src_slots.get(n, {}), k, p, f"slots/{n}")
+                     for k in opt.slots_of(n, p)}
+                 for n, p in params.items()}
+        new_b = {n: leaf(state.get("buffers", {}), n, t, "buffers")
+                 for n, t in buffers.items()}
+        step, count = int(state["step"]), int(state["opt_step_count"])
+        for n, p in params.items():
+            p.copy_(new_p[n])
+            slots = opt.slots_of(n, p)
+            for k, dst in slots.items():
+                dst.copy_(new_s[n][k])
+            opt._slots[n] = slots
+        for n, t in buffers.items():
+            t.copy_(new_b[n])
+        self._step = step
+        opt._step_count = count
+
+    def sync_to_model(self) -> None:
+        """Nothing to do: the step updates the module's own parameters
+        and buffers in place (the JAX step keeps its own copies and
+        writes them back here)."""
 
 
 def make_train_step(model, optimizer, loss_fn=None,

@@ -30,9 +30,33 @@ as one ``F.fused_ln_linear`` (the ``ln_matmul`` kernel), and only
 
 Hidden, embedding and attention dropout apply in training mode only, with
 torch's generator (the JAX draws' distribution, not their bits).
-``GPTPretrainingCriterion`` is the masked next-token loss.  Not ported
-yet: recompute, MoE, scan-layers, the fused head loss, growing-concat and
-dense per-slot caches (ROADMAP module entries 2 and 4).
+``GPTPretrainingCriterion`` is the masked next-token loss.
+
+The training recipe's options (``GPTConfig``):
+
+* ``use_recompute``: in training each decoder layer runs under
+  ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the
+  JAX model's ``recompute(layer, x)``.  The layer's parameter values are
+  inputs of the checkpointed function, as the JAX ``recompute`` passes the
+  layer's state: the train step runs the model over values cast to its
+  ``compute_dtype`` (``torch.func.functional_call``) and restores the
+  masters before ``backward()``, so a replay that read the layer's
+  attributes would recompute with the f32 masters.
+* ``scan_layers``: accepted, and the same per-layer loop runs.  The JAX
+  form scans one traced body over the stacked layer parameters (compile
+  time that does not grow with depth; under recompute, one layer
+  rematerialised at a time).  PyTorch compiles nothing, the parameters
+  stay per-layer objects in both (the state dict does not change), and
+  per-layer checkpointing already recomputes one layer at a time.
+* ``fuse_head_loss``: in training ``GPTForPretraining`` returns
+  ``FusedHeadOutput(hidden, tied weight)`` and the criterion runs
+  ``F.fused_linear_nll_loss`` (the ``[B, T, V]`` logits never exist).  The
+  weight is whatever the embedding holds at that moment: the parameter
+  itself eagerly (its head gradient reaches the tied table), the cast
+  value inside the train step's ``functional_call``.
+
+Not ported: MoE (``moe_num_experts > 0``), ``fuse_qkv=False`` (ROADMAP
+module entry 2), growing-concat and dense per-slot caches (entry 4).
 """
 from __future__ import annotations
 
@@ -42,6 +66,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.ln_matmul import ln_matmul_enabled
@@ -52,7 +77,8 @@ from ..serving.kv_quant import quantize_rows
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTSelfAttention",
            "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
-           "GPTForPretraining", "GPTPretrainingCriterion", "build_gpt",
+           "FusedHeadOutput", "GPTForPretraining",
+           "GPTPretrainingCriterion", "build_gpt",
            "gpt_num_params", "gpt_train_flops_per_token",
            "QKV_LAYOUT_HEAD_MAJOR", "SPARE_PAGE"]
 
@@ -69,7 +95,17 @@ class GPTConfig:
     attention_dropout_prob: float = 0.1
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
+    use_recompute: bool = False
+    scan_layers: bool = False       # the same per-layer loop (docstring)
+    fuse_qkv: bool = True
     activation: str = "gelu"
+    moe_num_experts: int = 0
+    moe_top_k: int = 0
+    moe_every_n_layers: int = 2
+    moe_capacity_factor: float = 1.2
+    moe_aux_loss_weight: float = 0.01
+    moe_gate: str = "gshard"
+    fuse_head_loss: bool = False
 
     def __post_init__(self):
         if not self.intermediate_size:
@@ -78,6 +114,15 @@ class GPTConfig:
             raise NotImplementedError(
                 f"activation {self.activation!r}: the port has exact gelu "
                 f"only")
+        if self.moe_num_experts > 0:
+            raise NotImplementedError(
+                f"moe_num_experts={self.moe_num_experts}: the MoE FFN is "
+                f"not ported yet (ROADMAP module entry 2)")
+        if not self.fuse_qkv:
+            raise NotImplementedError(
+                "fuse_qkv=False (separate q, k, v projections) is not "
+                "ported; the port has the fused head-major qkv projection "
+                "(ROADMAP module entry 2)")
 
 
 # FleetX / GPT-3 paper ladder (vocab padded to a 128 multiple)
@@ -344,14 +389,35 @@ class GPTModel(nn.Module):
                 max=self.config.max_position_embeddings - 1)
         x = self.embeddings(input_ids, position_ids)
         new_caches = [] if caches is not None else None
+        recompute = self.config.use_recompute and self.training
         for i, layer in enumerate(self.layers):
-            if caches is None:
-                x = layer(x)
-            else:
+            if caches is not None:
                 x, c = layer(x, cache=caches[i])
                 new_caches.append(c)
+            elif recompute:
+                # the values the layer holds now (the train step's cast
+                # ones inside its functional_call) ride as inputs, so the
+                # replay in backward() computes with them
+                names, values = zip(*layer.named_parameters())
+                x = checkpoint(_call_layer, layer, names, x, *values,
+                               use_reentrant=False)
+            else:
+                x = layer(x)
         x = self.final_norm(x)
         return x if caches is None else (x, new_caches)
+
+
+def _call_layer(layer, names, x, *values):
+    return torch.func.functional_call(layer, dict(zip(names, values)), (x,))
+
+
+class FusedHeadOutput(tuple):
+    """``(hidden, head_weight)``: what ``GPTForPretraining`` returns in
+    training with ``config.fuse_head_loss``, for the criterion's
+    ``F.fused_linear_nll_loss``."""
+
+    def __new__(cls, hidden, weight):
+        return super().__new__(cls, (hidden, weight))
 
 
 class GPTForPretraining(nn.Module):
@@ -369,7 +435,13 @@ class GPTForPretraining(nn.Module):
         if caches is not None:
             x, new_caches = self.gpt(input_ids, position_ids, caches=caches)
             return self.lm_head(x), new_caches
-        return self.lm_head(self.gpt(input_ids, position_ids))
+        x = self.gpt(input_ids, position_ids)
+        if self.config.fuse_head_loss and self.training:
+            # the embedding's current value: the parameter eagerly, the
+            # cast value inside the train step's functional_call
+            return FusedHeadOutput(
+                x, self.gpt.embeddings.word_embeddings.weight)
+        return self.lm_head(x)
 
     def lm_head(self, hidden_states):
         return torch.matmul(hidden_states,
@@ -392,8 +464,13 @@ class GPTPretrainingCriterion(nn.Module):
         self.ignore_index = ignore_index
 
     def forward(self, prediction_scores, masked_lm_labels, loss_mask=None):
-        loss = F.fused_nll_loss(prediction_scores, masked_lm_labels,
-                                ignore_index=self.ignore_index)
+        if isinstance(prediction_scores, FusedHeadOutput):
+            hidden, w = prediction_scores
+            loss = F.fused_linear_nll_loss(hidden, w, masked_lm_labels,
+                                           ignore_index=self.ignore_index)
+        else:
+            loss = F.fused_nll_loss(prediction_scores, masked_lm_labels,
+                                    ignore_index=self.ignore_index)
         loss = loss.reshape(-1).float()
         if loss_mask is not None:
             m = loss_mask.reshape(-1).float()
@@ -420,9 +497,11 @@ def gpt_train_flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
 def _init_weights(model: nn.Module, config: GPTConfig, seed: int):
     """Normal(0, initializer_range) weights (residual-path projections
     scaled by 1/sqrt(2L)), zero biases, unit LayerNorms — the JAX
-    model's init recipe, drawn from a CPU ``torch.Generator`` (the values
-    differ from JAX's; parity runs load the JAX weights instead)."""
-    gen = torch.Generator().manual_seed(int(seed))
+    model's init recipe, drawn in place from a ``torch.Generator`` on the
+    model's device (the values differ from JAX's; parity runs load the JAX
+    weights instead)."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
     std = config.initializer_range
     out_std = std / math.sqrt(2.0 * config.num_layers)
     with torch.no_grad():
@@ -433,13 +512,15 @@ def _init_weights(model: nn.Module, config: GPTConfig, seed: int):
                 p.fill_(1.0)
             else:
                 s = out_std if ("out_proj" in name or "fc1" in name) else std
-                p.copy_(torch.normal(0.0, s, tuple(p.shape), generator=gen))
+                p.normal_(0.0, s, generator=gen)
 
 
 def build_gpt(name_or_config="gpt-tiny", for_pretraining=True, device=None,
-              seed: int = 0, **overrides):
+              seed: int = 0, dtype=None, **overrides):
     """Build a GPT on ``device`` (default ``"cuda"``; raises without a
-    card) in eval mode, with weights from ``seed``."""
+    card) in eval mode, with weights from ``seed`` drawn there, its
+    floating parameters in ``dtype`` (default f32; the JAX recipe's
+    ``set_default_dtype("bfloat16")`` is ``dtype=torch.bfloat16``)."""
     dev = resolve_device(device)
     if isinstance(name_or_config, GPTConfig):
         if "hidden_size" in overrides and "intermediate_size" not in overrides:
@@ -448,8 +529,11 @@ def build_gpt(name_or_config="gpt-tiny", for_pretraining=True, device=None,
                if overrides else name_or_config)
     else:
         cfg = gpt_config(name_or_config, **overrides)
-    model = GPTModel(cfg)
-    if for_pretraining:
-        model = GPTForPretraining(model)
+    with dev:
+        model = GPTModel(cfg)
+        if for_pretraining:
+            model = GPTForPretraining(model)
+    if dtype is not None:
+        model.to(dtype)
     _init_weights(model, cfg, seed)
-    return model.to(dev).eval()
+    return model.eval()

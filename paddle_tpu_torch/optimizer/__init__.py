@@ -1,4 +1,6 @@
 """Optimizers of the port (``paddle_tpu.optimizer`` counterparts)."""
-from .optimizer import Adam, AdamW, Momentum, Optimizer
+from . import lr
+from .optimizer import Adam, AdamW, L1Decay, L2Decay, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "Momentum", "Adam", "AdamW", "L1Decay",
+           "L2Decay"]

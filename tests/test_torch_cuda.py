@@ -1134,3 +1134,149 @@ def test_conv_bn_kernels_refuse_what_they_cannot_read(cuda):
     x12, s12, b12, w12 = _conv_case(cuda, (256, 12), 12, (12, 128), 12, 6)
     with pytest.raises(ValueError, match="multiples of 8"):
         cb.run_mm(x12, w12)
+
+
+# -- the GPT training recipe (recompute, fused head, schedule, clip) ----------
+
+def _recipe(model, compute_dtype=None, lr=1e-4):
+    """The recipe's step: a 2-step linear warm-up into a cosine decay,
+    AdamW (weight decay 0.01) with ``ClipGradByGlobalNorm(1.0)``."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    sched = LinearWarmup(CosineAnnealingDecay(lr, T_max=10), 2, lr / 10, lr)
+    opt = AdamW(learning_rate=sched, parameters=model, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return sched, make_train_step(model, opt,
+                                  loss_fn=GPTPretrainingCriterion(),
+                                  compute_dtype=compute_dtype)
+
+
+RECIPE = dict(use_recompute=True, scan_layers=True, fuse_head_loss=True,
+              hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+
+
+@pytest.mark.cuda
+def test_recipe_parity_on_card_matches_cpu(cuda):
+    """Three f32 steps of the recipe at gpt3-1.3B-en's width (h 2048, 16
+    heads of 128, vocab 50304) with 2 layers, batch 2 x 1024, on the card
+    (kernels) and on the CPU (plain versions) from the same weights:
+    losses within 1e-4 relative; under recompute each layer's fused
+    forward runs twice, so 4 forwards and 2 of each backward kernel a
+    step."""
+    from paddle_tpu_torch.models import (build_gpt, load_jax_state,
+                                         to_jax_state)
+
+    ids = np.random.RandomState(2).randint(0, 50304, (2, 1025))
+    kw = dict(num_layers=2, max_position_embeddings=1024, **RECIPE)
+    state = to_jax_state(build_gpt("gpt3-1.3B-en", device="cpu", seed=3,
+                                   **kw))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = build_gpt("gpt3-1.3B-en", device=dev, **kw)
+        load_jax_state(model, state)
+        sched, step = _recipe(model)
+        before = (fa.flash_attention_qkv_fused.launches,
+                  fa.flash_attention_qkv_fused_bwd.launches_dq,
+                  fa.flash_attention_qkv_fused_bwd.launches_dkv)
+        run = []
+        for _ in range(3):
+            run.append(float(step(ids[:, :-1], ids[:, 1:])))
+            sched.step()
+        losses[str(dev)] = run
+        after = (fa.flash_attention_qkv_fused.launches,
+                 fa.flash_attention_qkv_fused_bwd.launches_dq,
+                 fa.flash_attention_qkv_fused_bwd.launches_dkv)
+        want = (0, 0, 0) if dev == "cpu" else (12, 6, 6)
+        assert tuple(b - a for a, b in zip(before, after)) == want
+        del model, step
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_recipe_step_syncs_nothing(cuda):
+    """One bf16 step of the clipped, scheduled recipe (bf16 parameters,
+    recompute, the fused head, heads of 128) with its batch on the card
+    waits for the device nowhere: under ``set_sync_debug_mode("error")``
+    a synchronising call raises."""
+    from paddle_tpu_torch.models import build_gpt
+
+    model = build_gpt("gpt-tiny", device=cuda, dtype=torch.bfloat16,
+                      hidden_size=256, num_attention_heads=2,
+                      max_position_embeddings=128, **RECIPE)
+    sched, step = _recipe(model, torch.bfloat16)
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 1024, (2, 129))).to(cuda)
+    x, y = ids[:, :-1], ids[:, 1:]
+    first = step(x, y)                  # builds what the first call builds
+    sched.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = step(x, y)
+        sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite([float(first), float(second)]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_linear_nll_loss_on_card_matches_cpu(cuda, dtype):
+    """The chunked head loss on the card (cuBLAS products with f32
+    results) against the CPU's (f32 products of the same values), with
+    ignored rows and a ragged last chunk: f32 at 1e-5; bf16 at 1e-2 (the
+    dlogits round to bf16 on both sides, the products sum in another
+    order)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    rs = np.random.RandomState(7)
+    h = torch.from_numpy(rs.randn(300, 128).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rs.randn(5000, 128) * 0.1).astype(np.float32)).to(
+        dtype)
+    lab = torch.from_numpy(rs.randint(0, 5000, (300,)))
+    lab[::9] = -100
+    out = {}
+    for dev in ("cpu", cuda):
+        ht, wt = (t.to(dev).detach().requires_grad_() for t in (h, w))
+        nll = F.fused_linear_nll_loss(ht, wt, lab.to(dev), chunk_size=2048)
+        nll.sum().backward()
+        out[str(dev)] = [t.detach().cpu().float()
+                         for t in (nll, ht.grad, wt.grad)]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_global_norm_clip_on_card_matches_cpu(cuda):
+    """``ClipGradByGlobalNorm`` on f32 and bf16 gradients in one list: the
+    f32 norm and the scaled gradients agree with the CPU's (f32 1e-6; bf16
+    within one rounding), and nothing waits for the device."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.clip import global_norm
+
+    rs = np.random.RandomState(8)
+    grads = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dt)
+             for s, dt in (((300, 70), torch.float32),
+                           ((1000,), torch.bfloat16),
+                           ((64, 64), torch.bfloat16))]
+    want = ClipGradByGlobalNorm(1.0).clip_list(grads)
+    on_card = [g.to(cuda) for g in grads]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ClipGradByGlobalNorm(1.0).clip_list(on_card, in_place=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_allclose(float(global_norm(on_card)), 1.0, rtol=1e-2)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        tol = 1e-6 if w.dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(g.cpu().float(), w.float(), rtol=tol,
+                                   atol=tol)

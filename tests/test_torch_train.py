@@ -48,7 +48,9 @@ from paddle_tpu_torch.models import (GPTPretrainingCriterion, build_gpt,
                                      gpt_config, gpt_num_params,
                                      gpt_train_flops_per_token,
                                      load_jax_state, to_jax_state)
-from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
+from paddle_tpu_torch.optimizer.lr import StepDecay
 from test_torch_cuda import _bwd_case
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -269,10 +271,31 @@ def test_adam_folds_l2_and_refuses_unported_options():
     p.grad = torch.zeros(3)
     opt.step()                  # g = 0 + 0.5 * p: the step moves p down
     assert bool((p < 1).all())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        AdamW(learning_rate=lambda: 0.1, parameters=[p])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        AdamW(parameters=[p], grad_clip=object())
+    # a scheduler is read at each step; what is neither a number nor a
+    # scheduler is refused
+    sched = StepDecay(learning_rate=0.1, step_size=1, gamma=0.5)
+    q = torch.ones(3, requires_grad=True)
+    opt = AdamW(learning_rate=sched, parameters=[q], weight_decay=0.0)
+    q.grad = torch.ones(3)
+    opt.step()                  # Adam's first step moves by lr exactly
+    sched.step()
+    opt.step()
+    np.testing.assert_allclose(q.detach().numpy(), 1 - 0.1 - 0.05,
+                               rtol=1e-6)
+    with pytest.raises(TypeError, match="scheduler"):
+        AdamW(learning_rate=lambda: 0.1, parameters=[q])
+    # the clip scales copies: the parameter's .grad stays as it was
+    r = torch.zeros(4, requires_grad=True)
+    opt = Momentum(learning_rate=1.0, momentum=0.0, parameters=[r],
+                   grad_clip=ClipGradByGlobalNorm(1.0))
+    r.grad = torch.full((4,), 2.0)                  # global norm 4
+    opt.step()
+    np.testing.assert_allclose(r.detach().numpy(), -0.5, rtol=1e-6)
+    np.testing.assert_allclose(r.grad.numpy(), 2.0)
+    for kw, what in [(dict(moe_num_experts=4), "MoE"),
+                     (dict(fuse_qkv=False), "fuse_qkv")]:
+        with pytest.raises(NotImplementedError, match=f"{what}.*entry 2"):
+            gpt_config("gpt-tiny", **kw)
 
 
 # -- the step ------------------------------------------------------------------
