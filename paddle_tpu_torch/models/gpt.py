@@ -55,6 +55,13 @@ The training recipe's options (``GPTConfig``):
   itself eagerly (its head gradient reaches the tied table), the cast
   value inside the train step's ``functional_call``.
 
+With a cache, inside the serving engine's
+``serving.adapters.adapter_scope``, each row's LoRA delta (gathered from
+the engine's adapter banks by the row's bank id) is added to the fused qkv
+after the base projection, as in JAX's ``GPTSelfAttention``; the int8
+base weights are the engine's own serving copy of the model
+(``serving.adapters.weight_quant.quantize_model``).
+
 Not ported: MoE (``moe_num_experts > 0``), ``fuse_qkv=False`` (ROADMAP
 module entry 2), growing-concat and dense per-slot caches (entry 4).
 """
@@ -73,6 +80,7 @@ from ..kernels.ln_matmul import ln_matmul_enabled
 from ..kernels.paged_attention import SPARE_PAGE, paged_decode_attention
 from ..nn import LayerNorm
 from ..nn import functional as F
+from ..serving.adapters.lora import active as _lora_active
 from ..serving.kv_quant import quantize_rows
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTSelfAttention",
@@ -188,6 +196,12 @@ class GPTSelfAttention(nn.Module):
                 self.qkv_proj.bias, eps=pre_norm._epsilon)
         else:
             qkv = self.qkv_proj(x)
+        scope = _lora_active() if cache is not None else None
+        if scope is not None:
+            # the serving engine's batched adapters: each row's low-rank
+            # delta, added after the base projection (bank row 0 adds
+            # exactly zero, so base rows keep the adapter-free qkv)
+            qkv = qkv + scope.delta_qkv(x)
         qkv = qkv.view(b, t, self.num_heads, 3, self.head_dim)
         if cache is None:
             return self.out_proj(F.fused_qkv_attention(
@@ -390,8 +404,11 @@ class GPTModel(nn.Module):
         x = self.embeddings(input_ids, position_ids)
         new_caches = [] if caches is not None else None
         recompute = self.config.use_recompute and self.training
+        scope = _lora_active() if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
+                if scope is not None:
+                    scope.layer = i        # each layer gathers its bank slice
                 x, c = layer(x, cache=caches[i])
                 new_caches.append(c)
             elif recompute:

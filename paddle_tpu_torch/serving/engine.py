@@ -2,7 +2,8 @@
 
 The port of ``paddle_tpu/serving/engine.py`` for its main serving path,
 ``Engine(paged_kv=True, decode_kernel="pallas")``, with the decode fast
-path's flags:
+path's flags, multi-LoRA adapters, int8 base weights, the supervision
+surface and the host prefix tier:
 
 * a **slot pool** of ``max_slots`` decode lanes plus one scratch lane, and
   a **paged KV pool** per layer: ``[num_pages + 1, page_size, heads,
@@ -21,24 +22,50 @@ path's flags:
   queue waiting), prefills them as one batch padded to a power-of-two
   bucket, then runs one batched decode step over all ``max_slots + 1``
   lanes.  Idle lanes are parked at the pool's virtual end with
-  all-sentinel tables, so their writes land on the spare page.
+  all-sentinel tables, so their writes land on the spare page.  On the
+  card all of the thread's device work runs on the engine's own CUDA
+  stream (non-blocking, so another engine's capture in the same process
+  is never invalidated by it).
 * **one decode graph**: the decode step's inputs are static device
-  buffers (``ids [n_rows, W]``, ``lengths``, ``page_tables``) filled from
-  pinned host arrays; on the card the forward, the LM head and the argmax
-  are captured once as a ``torch.cuda.CUDAGraph`` per engine config (W,
-  the pool dtype, the LayerNorm routing) and replayed every step, and the
+  buffers (``ids [n_rows, W]``, ``lengths``, ``page_tables`` and, with
+  adapters, the per-row bank ids ``[n_rows]``) filled from pinned host
+  arrays; on the card the forward, the LM head and the argmax are
+  captured once as a ``torch.cuda.CUDAGraph`` per engine config (W, the
+  pool dtype, the LayerNorm routing) and replayed every step, and the
   token ids are the step's one device-to-host copy.  A failed capture or
   replay kills the engine; the step never runs eagerly on the card.
   :meth:`Engine.compile_stats` counts the signatures (``decode_compiles``:
   graph captures on the card, distinct decode input signatures on the
   CPU), as the JAX engine's retrace sentinel does.
 * ``prefix_cache=True``: completed requests' pages are retained behind a
-  content-addressed :class:`PrefixIndex`; a hit shares the cached full
-  pages by reference (one copy-on-write page where the match ends inside
-  a page) and prefills only the prompt's tail through the paged read.
+  content-addressed :class:`PrefixIndex`, keyed by the namespace
+  ``(adapter, conversation)``; a hit shares the cached full pages by
+  reference (one copy-on-write page where the match ends inside a page)
+  and prefills only the prompt's tail through the paged read.  With a
+  host tier (``host_prefix_mb=`` / ``host_prefix=``) an evicted entry's
+  pages are gathered on the engine's stream and copied to pinned host
+  memory by the tier (:class:`HostPrefixTier`); an admission that misses
+  the device index but hits the tier uploads the pages into fresh pages
+  and proceeds as a hit.
 * ``speculative_k=k``: ``k - 1`` drafted tokens a step (:class:`NgramDrafter`
   by default, ``drafter=`` for another) verified in the one ``[n_rows,
   k]`` decode step; greedy rows accept the matched draft prefix.
+* ``adapters=AdapterRegistry``: ``submit(adapter=name)`` rows add their
+  adapter's LoRA delta to the fused qkv, gathered from stacked device
+  banks allocated once before the capture (row 0, the zero adapter, for
+  base rows); a cold adapter is copied into its bank row at admission.
+  ``weight_dtype="int8"``: the engine serves a copy of the model whose
+  2-D weights are int8, dequantized where they are used
+  (``adapters/weight_quant.py``).
+* **supervision**: ``health()``, ``load()``, ``drain()``, ``abandon()``
+  and ``resubmit()``, the ``admission_hook`` and ``redispatch_hook``
+  seams and the fault points ``serving.scheduler``, ``serving.prefill``,
+  ``serving.decode`` and ``serving.stream`` (``testing/faults.py``).  On
+  death, requests that streamed no token are offered to the redispatch
+  hook (an :class:`EngineSupervisor` re-enqueues the same handles in a
+  rebuilt engine); those that streamed fail with
+  :class:`RequestInterruptedError`.  A dead or abandoned engine's thread
+  checks that it is dead before every launch and exits without one.
 * on the card, prefill attention runs the flash kernel and every decode
   step's and tail prefill's attention read runs the paged decode kernel
   (``paddle_tpu_torch/kernels``); on the CPU the same code runs their
@@ -53,8 +80,8 @@ to the JAX engine, which draws with threefry ``fold_in`` keys that this
 port does not reimplement.  Sampled rows take no drafts and emit one
 token a step.
 
-Flags of the JAX engine this slice does not port raise
-``NotImplementedError`` naming their ROADMAP item.
+Flags of the JAX engine this port does not have raise
+``NotImplementedError`` naming their ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -73,14 +100,20 @@ from ..device import resolve_device
 from ..kernels import layer_norm as _ln
 from ..kernels import paged_attention as _pa
 from ..kernels.paged_attention import SPARE_PAGE
+from ..testing import faults
+from .adapters.lora import adapter_scope
+from .adapters.registry import AdapterRankError
+from .adapters.weight_quant import quantize_model
 from .kv_quant import quantize_rows
+from .kv_tier import HostPrefixTier
 from .paged_kv import PageAllocator
-from .prefix_cache import PrefixIndex
+from .prefix_cache import PrefixEntry, PrefixIndex
 from .slot_pool import SlotPool
 from .speculative import NgramDrafter
 
 __all__ = ["Engine", "RequestHandle", "QueueFullError", "EngineClosedError",
-           "EngineDeadError", "DeadlineExceededError", "_bucket"]
+           "EngineDrainingError", "EngineDeadError", "EngineStalledError",
+           "RequestInterruptedError", "DeadlineExceededError", "_bucket"]
 
 
 class QueueFullError(RuntimeError):
@@ -95,13 +128,46 @@ class EngineClosedError(RuntimeError):
     """The engine was shut down with this request still in flight."""
 
 
+class EngineDrainingError(EngineClosedError):
+    """The engine is draining: no new admissions, in-flight work finishes
+    (retry elsewhere)."""
+
+
 class EngineDeadError(RuntimeError):
-    """The scheduler thread crashed; the engine rejects new work."""
+    """The scheduler thread crashed; the engine rejects new work.  A
+    request that had streamed no token when the engine died also fails
+    with this type (unless a supervisor re-dispatches it): nothing reached
+    a consumer, so a retry is duplication-safe."""
 
     def __init__(self, cause: BaseException):
         super().__init__(
             f"serving scheduler died: {type(cause).__name__}: {cause}")
         self.cause = cause
+
+
+class EngineStalledError(RuntimeError):
+    """The scheduler stopped making progress with work pending: a
+    supervisor declared the engine dead through :meth:`Engine.abandon`."""
+
+
+class RequestInterruptedError(RuntimeError):
+    """The engine died after this request streamed token(s): a replay
+    would duplicate what was delivered, so the caller gets this error
+    naming how far the stream got and the engine's failure."""
+
+    def __init__(self, request_id: int, tokens_streamed: int,
+                 cause: BaseException):
+        super().__init__(
+            f"request {request_id} interrupted after {tokens_streamed} "
+            f"streamed token(s): {type(cause).__name__}: {cause}")
+        self.request_id = request_id
+        self.tokens_streamed = tokens_streamed
+        self.cause = cause
+
+
+class _Retired(Exception):
+    """The engine died or shut down under its own scheduler thread: the
+    thread exits without another launch."""
 
 
 _ids = itertools.count(1)
@@ -114,8 +180,14 @@ class RequestHandle:
     latency telemetry."""
 
     def __init__(self, engine, prompt, max_new_tokens, eos_token_id,
-                 temperature, top_k, seed, deadline_s, stream):
+                 temperature, top_k, seed, deadline_s, stream,
+                 adapter=None, conversation=None):
         self.request_id = next(_ids)
+        self.redispatches = 0        # times re-enqueued after an engine death
+        self.adapter = adapter       # LoRA adapter name (None: base model)
+        self.conversation = conversation  # prefix-index namespace qualifier
+        self._adapter_slot = 0       # bank row while active (0: zero adapter)
+        self._adapter_pinned = False
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
@@ -126,6 +198,7 @@ class RequestHandle:
         self._stream = stream
         self._engine = engine
         self._state = "queued"            # queued|active|done
+        self._torn = False                # torn off a dead/abandoned engine
         self._cancel_requested = False
         self._done = threading.Event()
         self._error: Optional[BaseException] = None
@@ -135,7 +208,9 @@ class RequestHandle:
         self._prefix_src = None           # PrefixEntry this request shares
         self._prefix_match = 0            # tokens covered by that entry
         self._cow = None                  # pending (src, dst) page COW copy
+        self._promote = None              # pending (host entry, match) upload
         self.prefix_hit = False           # admitted through a prefix hit
+        self.promote_s: Optional[float] = None   # host-tier promote wall s
         now = time.perf_counter()
         self.t_submit = now
         self.t_admit: Optional[float] = None
@@ -177,7 +252,9 @@ class RequestHandle:
         self._done.set()
 
     def _emit(self, token: int):
-        if self._done.is_set():
+        if self._done.is_set() or self._torn:
+            # torn off a dead engine while a dispatch was in flight: a
+            # zero-token handle must stay zero-token for its re-dispatch
             return
         self._tokens.append(int(token))
         if self._stream is not None:
@@ -212,10 +289,14 @@ def _sample_row(logits_row, temperature: float, top_k: int,
     return int(torch.multinomial(probs, 1, generator=gen))
 
 
-def _unported(flag: str):
+_ENTRIES = {4: "the rest of the serving engine",
+            9: "gateway, fleet control and observability"}
+
+
+def _unported(flag: str, entry: int = 4):
     return NotImplementedError(
-        f"{flag} is not ported yet: ROADMAP section 1, module entry 4 (the "
-        f"rest of the serving engine)")
+        f"{flag} is not ported yet: ROADMAP section 1, module entry {entry} "
+        f"({_ENTRIES[entry]})")
 
 
 class _DecodeGraph(NamedTuple):
@@ -227,6 +308,27 @@ class _DecodeGraph(NamedTuple):
     logits: torch.Tensor
     toks: torch.Tensor
     launches: dict
+
+
+# The streams of engines that were shut down, by device.  PyTorch keeps a
+# cuBLAS workspace (32 MiB on sm_90) for every stream that ran a product,
+# for the life of the process, so a new engine (a supervisor's rebuild)
+# takes a former engine's stream before it makes one.
+_spare_streams: dict = {}
+_spare_lock = threading.Lock()
+
+
+def _take_stream(dev) -> "torch.cuda.Stream":
+    with _spare_lock:
+        spare = _spare_streams.get(dev)
+        if spare:
+            return spare.pop()
+    return torch.cuda.Stream(dev)
+
+
+def _give_stream(dev, stream):
+    with _spare_lock:
+        _spare_streams.setdefault(dev, []).append(stream)
 
 
 def _kernel_launches() -> dict:
@@ -272,6 +374,30 @@ class Engine:
         device: ``"cuda"`` by default; raises without a card.
         auto_start: start the scheduler on the first submit (tests pass
             False to stage a queue, then call :meth:`start`).
+        admission_hook: ``hook(request, load)`` called by ``submit`` after
+            validation, before the request is queued; raising rejects the
+            request (counted as ``rejected``) and reaches the caller.
+        redispatch_hook: ``hook(requests, cause) -> taken``, called from
+            the dying scheduler thread with the requests that streamed no
+            token; it returns those it takes (an
+            :class:`EngineSupervisor` re-enqueues them in a rebuilt
+            engine).  Requests not taken fail with
+            :class:`EngineDeadError`; requests that streamed tokens fail
+            with :class:`RequestInterruptedError`.
+        adapters: an ``AdapterRegistry``: ``submit(adapter=name)`` rows
+            add that adapter's LoRA delta, gathered from stacked device
+            banks in the same decode step (bank row 0 is the base model).
+            The registry persists across rebuilds; bank residency
+            (refcount + LRU, cold loads at admission, backpressure when
+            every row is pinned) is this build's.
+        weight_dtype: None (the model's weights) or ``"int8"``: serve a
+            copy of the model with int8 2-D weights and per-channel
+            scales, dequantized where they are used.
+        host_prefix_mb: give this engine its own host prefix tier of this
+            many MiB (closed by :meth:`shutdown`).
+        host_prefix: a shared :class:`HostPrefixTier` (outlives this
+            engine: a supervisor's factory hands the same tier to every
+            build).  Either tier needs ``prefix_cache=True``.
         decode_kernel: ``"pallas"``, the JAX flag value for the fused
             paged read; here it is the CUDA paged decode kernel.
     """
@@ -288,6 +414,10 @@ class Engine:
                  drafter: Optional[Callable] = None, adapters=None,
                  weight_dtype: Optional[str] = None,
                  host_prefix_mb: Optional[float] = None, host_prefix=None,
+                 admission_hook: Optional[Callable] = None,
+                 redispatch_hook: Optional[Callable] = None,
+                 decode_timeout_s: Optional[float] = None,
+                 sample_on_device: bool = False,
                  decode_kernel: str = "pallas"):
         self.device = resolve_device(device)
         if decode_kernel not in ("xla", "pallas"):
@@ -296,6 +426,9 @@ class Engine:
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', "
                              f"got {kv_dtype!r}")
+        if weight_dtype not in (None, "int8"):
+            raise ValueError(f"weight_dtype must be None or 'int8', "
+                             f"got {weight_dtype!r}")
         k = int(speculative_k)
         if k < 0:
             raise ValueError(f"speculative_k must be >= 0, got {k}")
@@ -303,12 +436,14 @@ class Engine:
             raise _unported("the dense slot pool (paged_kv=False)")
         if decode_kernel == "xla":
             raise _unported("decode_kernel='xla' (the gather read)")
-        if adapters is not None:
-            raise _unported("adapters (multi-LoRA)")
-        if weight_dtype is not None:
-            raise _unported("weight_dtype (int8 weights)")
-        if host_prefix_mb is not None or host_prefix is not None:
-            raise _unported("the host prefix tier (host_prefix*)")
+        if sample_on_device:
+            raise _unported("sample_on_device (device-fused sampling)")
+        if decode_timeout_s is not None:
+            raise _unported("decode_timeout_s (the crash-dump watchdog)", 9)
+        if host_prefix is not None and host_prefix_mb is not None:
+            raise ValueError(
+                "pass host_prefix_mb= (engine-owned tier) OR host_prefix= "
+                "(shared tier), not both")
         self.model = model
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -334,12 +469,40 @@ class Engine:
         self.kv_dtype = kv_dtype
         self._quant = kv_dtype == "int8"
         self._auto_start = bool(auto_start)
+        self.admission_hook = admission_hook
+        self.redispatch_hook = redispatch_hook
         self.speculative_k = k
         self._W = max(1, k)                     # decode width
         self._drafter = (drafter if drafter is not None
                          else NgramDrafter() if self._W > 1 else None)
         self._prefix = (PrefixIndex(block=prefix_block) if prefix_cache
                         else None)
+        # the host tier: engine-owned (host_prefix_mb=, closed by
+        # shutdown) or shared (host_prefix=, outlives every build)
+        self._host_tier = None
+        self._own_host_tier = False
+        if host_prefix is not None or host_prefix_mb is not None:
+            if self._prefix is None:
+                raise ValueError("the host prefix tier requires "
+                                 "paged_kv=True and prefix_cache=True")
+            if host_prefix is not None:
+                if host_prefix.block != self._prefix.block:
+                    raise ValueError(
+                        f"host tier block={host_prefix.block} does not "
+                        f"match prefix_block={self._prefix.block}")
+                self._host_tier = host_prefix
+            else:
+                self._host_tier = HostPrefixTier(
+                    capacity_mb=float(host_prefix_mb),
+                    block=self._prefix.block)
+                self._own_host_tier = True
+        # adapters: the registry persists across rebuilds; residency (bank
+        # rows, pins, LRU) is this build's
+        self.adapter_registry = adapters
+        self._adapters = adapters.residency() if adapters is not None \
+            else None
+        self._adapter_uploads: dict = {}     # name -> bank row, pending
+        self._adapter_stalled = False
 
         P = int(prefix_block if page_size is None else page_size)
         if P < 1:
@@ -361,7 +524,9 @@ class Engine:
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
+        self._draining = False
         self._dead: Optional[BaseException] = None
+        self._last_progress = time.perf_counter()
         self._thread: Optional[threading.Thread] = None
         self._ids = np.zeros((n_rows, self._W), np.int64)
         # idle lanes park at the pool's virtual end with all-sentinel
@@ -370,14 +535,27 @@ class Engine:
         self._park = n_pt * P
         self._lengths = np.full(n_rows, self._park, np.int32)
         self._page_tables = np.full((n_rows, n_pt), n_pages, np.int32)
+        self._aids = np.zeros(n_rows, np.int64)   # bank row per lane
         self._counts = {"submitted": 0, "completed": 0, "rejected": 0,
                         "cancelled": 0, "deadline_expired": 0, "failed": 0,
+                        "resubmitted": 0, "redispatched": 0,
+                        "interrupted": 0,
                         "decode_steps": 0, "prefill_batches": 0,
                         "tokens": 0, "page_alloc_stalls": 0,
                         "prefix_hits": 0, "prefix_misses": 0,
                         "prefix_inserts": 0, "prefix_evictions": 0,
                         "page_cow_copies": 0, "spec_drafted": 0,
                         "spec_accepted": 0,
+                        "adapter_hits": 0, "adapter_loads": 0,
+                        "adapter_evictions": 0, "adapter_load_stalls": 0,
+                        # host wall of the cold loads (the bank rows'
+                        # copies are enqueued, not waited for)
+                        "adapter_load_seconds": 0.0,
+                        "host_prefix_hits": 0, "host_prefix_promotes": 0,
+                        "host_prefix_promoted_pages": 0,
+                        # device seconds of the promotes' uploads (CUDA
+                        # events; host wall on the CPU)
+                        "host_prefix_promote_seconds": 0.0,
                         # column groups of the tail prefills' paged reads
                         # (one kernel launch each a layer on the card)
                         "tail_prefill_read_groups": 0,
@@ -392,10 +570,13 @@ class Engine:
                         # device-to-host copy of the sampled tokens)
                         "prefill_seconds": 0.0, "decode_seconds": 0.0,
                         # device seconds of the replays (CUDA events)
-                        "decode_device_seconds": 0.0}
+                        "decode_device_seconds": 0.0,
+                        # device memory the decode-graph captures reserved
+                        "decode_graph_reserved_bytes": 0}
         self._active_pages = 0     # pages referenced by in-flight requests
         self._cached_pages = 0     # pages referenced by prefix entries
         self._page_stalled = False
+        self._promote_events: list = []   # (start, end, pages) to resolve
         # input signatures seen per entry point (compile_stats)
         self._sigs = {"prefill": set(), "decode": set(), "tail": set(),
                       "copy": set()}
@@ -407,6 +588,16 @@ class Engine:
         shape = (n_pages + 1, P, H, D)          # + the spare page
         L = cfg.num_layers
         dev = self.device
+        on_card = dev.type == "cuda"
+        # the thread's own stream (the caller's stream waits for the
+        # allocations below, the engine's for the model's weights)
+        self._stream = _take_stream(dev) if on_card else None
+        if weight_dtype == "int8":
+            self._net, self._weight_bytes = quantize_model(model)
+        else:
+            self._net = model
+            self._weight_bytes = sum(t.numel() * t.element_size()
+                                     for t in model.state_dict().values())
         self._kpools = [torch.zeros(shape, dtype=pool_dtype, device=dev)
                         for _ in range(L)]
         self._vpools = [torch.zeros(shape, dtype=pool_dtype, device=dev)
@@ -418,23 +609,39 @@ class Engine:
                              for _ in range(L)]
         self._pool_bytes = sum(t.numel() * t.element_size()
                                for g in self._pool_groups() for t in g)
+        if adapters is not None:
+            # allocated once, before any capture, and never reallocated:
+            # the decode graph reads them by address
+            R, r, h = (self._adapters.capacity, adapters.max_rank,
+                       cfg.hidden_size)
+            self._abank = torch.zeros((R + 1, L, h, r), device=dev)
+            self._bbank = torch.zeros((R + 1, L, r, 3 * h), device=dev)
+            self._ascale = torch.zeros(R + 1, device=dev)
+            # host staging rows for the cold loads, pinned here: pinning
+            # while serving would stall every thread's CUDA calls
+            self._astage = torch.zeros(self._abank.shape,
+                                       pin_memory=on_card)
+            self._bstage = torch.zeros(self._bbank.shape,
+                                       pin_memory=on_card)
         # the decode step's static inputs (what the graph reads), their
         # host staging arrays (pinned on the card) and the ids' way back
-        pin = dev.type == "cuda"
-        self._dec_in = (torch.zeros((n_rows, self._W), dtype=torch.int64,
-                                    device=dev),
-                        torch.zeros(n_rows, dtype=torch.int32, device=dev),
-                        torch.zeros((n_rows, n_pt), dtype=torch.int32,
-                                    device=dev))
+        dec = [torch.zeros((n_rows, self._W), dtype=torch.int64, device=dev),
+               torch.zeros(n_rows, dtype=torch.int32, device=dev),
+               torch.zeros((n_rows, n_pt), dtype=torch.int32, device=dev)]
+        if adapters is not None:
+            dec.append(torch.zeros(n_rows, dtype=torch.int64, device=dev))
+        self._dec_in = tuple(dec)
         self._dec_host = tuple(torch.zeros(t.shape, dtype=t.dtype,
-                                           pin_memory=pin)
+                                           pin_memory=on_card)
                                for t in self._dec_in)
         self._toks_host = torch.zeros((n_rows, self._W), dtype=torch.int64,
-                                      pin_memory=pin)
+                                      pin_memory=on_card)
         self._graphs: dict = {}                 # signature -> _DecodeGraph
-        if pin:
+        if on_card:
             self._events = [torch.cuda.Event(enable_timing=True)
                             for _ in range(3)]
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
         self._was_training = model.training
         model.eval()
 
@@ -442,19 +649,48 @@ class Engine:
         return [self._kpools, self._vpools] + (
             [self._kscales, self._vscales] if self._quant else [])
 
+    def _on_stream(self):
+        """The engine's stream for the block (the CPU has none)."""
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else nullcontext())
+
+    def _scope(self, aids):
+        """The adapter scope of one forward over rows with bank ids
+        ``aids`` (a device tensor), or nothing without adapters."""
+        if self._adapters is None:
+            return nullcontext()
+        return adapter_scope(aids, self._abank, self._bbank, self._ascale)
+
+    def _check_live(self):
+        """Before every launch: a dead or shut-down engine's thread exits
+        without one."""
+        if self._dead is not None or self._stop:
+            raise _Retired()
+
     # -- request API ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16, eos_token_id=...,
                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                deadline_s: Optional[float] = None,
-               stream: Optional[Callable[[int], None]] = None
-               ) -> RequestHandle:
+               stream: Optional[Callable[[int], None]] = None,
+               adapter: Optional[str] = None,
+               conversation: Optional[str] = None,
+               journey=None) -> RequestHandle:
         """Queue one request; returns its handle.  Raises
         :class:`QueueFullError` when the queue is full and ``ValueError``
-        when the request cannot fit a slot."""
+        when the request cannot fit a slot.  ``adapter`` names a
+        registered LoRA adapter (an unknown name or a rank that can never
+        fit the bank raises the registry's typed error here);
+        ``conversation`` qualifies the prefix namespace to ``(adapter,
+        conversation)``."""
+        if journey is not None:
+            raise _unported("journey= (request journeys)", 9)
         if self._dead is not None:
             raise EngineDeadError(self._dead) from self._dead
         if self._stop:
             raise EngineClosedError("engine is shut down")
+        if self._draining:
+            raise EngineDrainingError(
+                "engine is draining; no new admissions")
         ids = np.asarray(prompt).astype(np.int64).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty prompt")
@@ -469,9 +705,30 @@ class Engine:
         if need > self._page_alloc.num_pages:
             raise ValueError(f"request needs {need} pages but the pool has "
                              f"only {self._page_alloc.num_pages}")
+        if adapter is not None:
+            if self._adapters is None:
+                raise ValueError(
+                    "this engine has no adapter registry "
+                    "(Engine(adapters=AdapterRegistry(...)))")
+            entry = self.adapter_registry.get(adapter)   # typed: unknown
+            if entry.rank > self.adapter_registry.max_rank:
+                raise AdapterRankError(
+                    f"adapter {adapter!r} rank {entry.rank} exceeds the "
+                    f"bank width max_rank="
+                    f"{self.adapter_registry.max_rank}: it can never "
+                    f"become resident")
         eos = self.eos_token_id if eos_token_id is ... else eos_token_id
         req = RequestHandle(self, ids, max_new_tokens, eos, temperature,
-                            top_k, seed, deadline_s, stream)
+                            top_k, seed, deadline_s, stream,
+                            adapter=adapter, conversation=conversation)
+        hook = self.admission_hook
+        if hook is not None:
+            try:
+                hook(req, self.load())
+            except Exception:
+                with self._lock:
+                    self._counts["rejected"] += 1
+                raise
         with self._lock:
             if len(self._queue) >= self.max_queue:
                 self._counts["rejected"] += 1
@@ -479,6 +736,46 @@ class Engine:
                     f"admission queue full ({self.max_queue}); retry later")
             self._queue.append(req)
             self._counts["submitted"] += 1
+        if self._auto_start:
+            self.start()
+        self._wake.set()
+        return req
+
+    def resubmit(self, req: RequestHandle) -> RequestHandle:
+        """Re-enqueue a handle taken off a dead engine (the supervisor's
+        re-dispatch): the same handle enters this engine's queue, so a
+        caller blocked on ``result()`` never notices.  Only zero-token
+        handles are accepted.  Bypasses the admission hook and the queue
+        bound (the request was admitted once already)."""
+        if req._tokens:
+            raise ValueError(
+                f"request {req.request_id} already streamed "
+                f"{len(req._tokens)} token(s); re-dispatch would "
+                f"duplicate them")
+        if req.adapter is not None and self._adapters is None:
+            raise ValueError(
+                f"request {req.request_id} needs adapter {req.adapter!r} "
+                f"but this engine has no adapter registry")
+        if self._dead is not None:
+            raise EngineDeadError(self._dead) from self._dead
+        if self._stop:
+            raise EngineClosedError("engine is shut down")
+        req._engine = self
+        req._state = "queued"
+        req._torn = False
+        req.slot = None
+        req._prefix_src = None  # the dead engine's pool (and index) is gone
+        req._prefix_match = 0
+        req._pages = None
+        req._cow = None
+        req._promote = None
+        req.prefix_hit = False
+        req._adapter_slot = 0   # the dead engine's banks (and pins) died
+        req._adapter_pinned = False
+        req.redispatches += 1
+        with self._lock:
+            self._queue.append(req)
+            self._counts["resubmitted"] += 1
         if self._auto_start:
             self.start()
         self._wake.set()
@@ -510,27 +807,88 @@ class Engine:
                 return False
             time.sleep(0.005)
 
+    def drain(self, deadline_s: float = 30.0) -> bool:
+        """Stop admission (submits raise :class:`EngineDrainingError`,
+        ``load()`` advertises not-alive) while every queued and in-flight
+        request finishes; True when all did before the deadline."""
+        with self._lock:
+            self._draining = True
+            pending = bool(self._queue) or self._pool.n_active > 0
+        if pending and self._dead is None and not self._stop:
+            self.start()
+        return self.join(timeout=deadline_s) and self._dead is None
+
+    def undrain(self):
+        """Reverse :meth:`drain` on an engine still alive; raises on a dead
+        or shut-down one."""
+        if self._dead is not None:
+            raise EngineDeadError(self._dead) from self._dead
+        if self._stop:
+            raise EngineClosedError("engine is shut down")
+        with self._lock:
+            self._draining = False
+
+    def abandon(self, cause: Optional[BaseException] = None):
+        """Declare the engine dead from outside its scheduler thread (a
+        stall): it stops taking work and its requests are classified as
+        for a crash.  Idempotent; a no-op on a dead or shut-down
+        engine."""
+        if self._dead is not None or self._stop:
+            return
+        self._fail_as_dead(cause or EngineStalledError(
+            "engine abandoned by its supervisor"))
+        self._wake.set()
+
     def shutdown(self):
         """Stop the scheduler; queued and in-flight requests fail with
-        :class:`EngineClosedError`.  The prefix index is dropped and every
-        page returns to the free list."""
+        :class:`EngineClosedError`.  The prefix index is dropped, every
+        page returns to the free list, and once the scheduler thread has
+        exited the engine's device memory (graphs, pools, banks) is
+        released.  An engine-owned host tier is closed; a shared one is
+        not."""
         if self._stop:
             return
         self._stop = True
         self._wake.set()
         if self._thread is not None:
-            self._thread.join(timeout=60)
+            # a dead engine's thread is exiting, or stuck in a stalled
+            # dispatch after abandon(): do not wait long for it
+            self._thread.join(timeout=30 if self._dead is None else 5)
         with self._lock:
-            pending = self._drop_all_locked()
+            queued, active = self._drop_all_locked()
             self._page_alloc.check()     # zero leaked pages at teardown
-            self._graphs.clear()
+            if self._adapters is not None:
+                self._adapters.check()   # zero leaked adapter pins
+        if self._thread is None or not self._thread.is_alive():
+            self._release_device()
+        if self._own_host_tier:
+            self._host_tier.close()
         err = EngineClosedError("engine shut down")
-        for req in pending:
+        for req in queued + active:
             req._finish(err)
         if self._was_training:
             self.model.train()
 
     close = shutdown
+
+    def _release_device(self):
+        """Free this build's device memory: the decode graphs (and their
+        private pools), the KV pools, the adapter banks, the static inputs
+        and the int8 serving copy."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        for entry in self._graphs.values():
+            entry.graph.reset()
+        self._graphs.clear()
+        if self._stream is not None:
+            _give_stream(self.device, self._stream)
+            self._stream = None
+        self._kpools, self._vpools = [], []
+        self._kscales = self._vscales = []
+        self._abank = self._bbank = self._ascale = None
+        self._astage = self._bstage = None
+        self._dec_in = ()
+        self._net = None
 
     def __enter__(self):
         return self
@@ -539,8 +897,68 @@ class Engine:
         self.shutdown()
         return False
 
+    # -- introspection -------------------------------------------------------
+    def queue_depth(self) -> int:
+        """Queued, unadmitted requests."""
+        with self._lock:
+            return len(self._queue)
+
+    def slots_in_use(self) -> int:
+        """Lanes owned by in-flight requests."""
+        with self._lock:
+            return self._pool.n_active
+
+    def adapter_resident(self, name: str) -> bool:
+        """True when the adapter occupies a bank row of this build (loaded
+        or about to be)."""
+        with self._lock:
+            return (self._adapters is not None and
+                    self._adapters.slot_of(name) is not None)
+
+    def weight_bytes(self) -> int:
+        """Device bytes of the serving weights as stored (int8 values and
+        f32 scales under ``weight_dtype="int8"``)."""
+        return self._weight_bytes
+
+    def load(self) -> dict:
+        """One-lock load snapshot for admission and routing."""
+        with self._lock:
+            return {"queue_depth": len(self._queue),
+                    "slots_in_use": self._pool.n_active,
+                    "max_slots": self.max_slots,
+                    "max_queue": self.max_queue,
+                    "max_len": self.max_len,
+                    "alive": (self._dead is None and not self._stop and
+                              not self._draining),
+                    "draining": self._draining,
+                    "kv_pages_free": self._page_alloc.n_free,
+                    "kv_num_pages": self._page_alloc.num_pages}
+
+    def health(self) -> dict:
+        """Liveness: ``alive`` while the engine can take and make progress
+        on requests; ``progress_age_s`` is the time since the scheduler
+        last finished an iteration (growing with work pending: a stall);
+        ``warm`` once the decode step is captured (a frozen age then means
+        a stall, not a capture)."""
+        with self._lock:
+            active, depth = self._pool.n_active, len(self._queue)
+            progress_age = time.perf_counter() - self._last_progress
+            warm = len(self._sigs["decode"]) >= 1
+        return {"alive": (self._dead is None and not self._stop and
+                          not self._draining),
+                "dead": self._dead is not None,
+                "draining": self._draining,
+                "error": (None if self._dead is None
+                          else f"{type(self._dead).__name__}: {self._dead}"),
+                "stopped": self._stop,
+                "scheduler_running": (self._thread is not None and
+                                      self._thread.is_alive()),
+                "active_slots": active, "queue_depth": depth,
+                "progress_age_s": progress_age, "warm": warm}
+
     def stats(self) -> dict:
         with self._lock:
+            self._resolve_promotes_locked()
             out = dict(self._counts)
             out["active_slots"] = self._pool.n_active
             out["queue_depth"] = len(self._queue)
@@ -549,6 +967,11 @@ class Engine:
             out["prefix_entries"] = (0 if self._prefix is None
                                      else len(self._prefix))
             out["kv_pool_bytes"] = self._pool_bytes
+            out["weight_bytes"] = self._weight_bytes
+            if self._adapters is not None:
+                out["adapters_resident"] = self._adapters.n_resident
+                out["adapters_pinned"] = self._adapters.n_pinned
+                out["adapter_bank_capacity"] = self._adapters.capacity
             out["kv_num_pages"] = self._page_alloc.num_pages
             out["kv_page_size"] = self._page_alloc.page_size
             out["kv_pages_free"] = self._page_alloc.n_free
@@ -556,6 +979,8 @@ class Engine:
             out["kv_pages_active"] = self._active_pages
             out["kv_pages_cached"] = self._cached_pages
             out.update(self._compile_stats_locked())
+        if self._host_tier is not None:
+            out["host_prefix"] = self._host_tier.stats()
         return out
 
     def compile_stats(self) -> dict:
@@ -578,13 +1003,19 @@ class Engine:
     def _loop(self):
         ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
                else nullcontext())
-        with ctx:
+        with ctx, self._on_stream():
             while not self._stop and self._dead is None:
                 try:
                     did = self._step_once()
+                except _Retired:
+                    return
                 except Exception as e:  # noqa: BLE001 — fail loudly
                     self._fail_as_dead(e)
                     raise
+                with self._lock:
+                    # the progress heartbeat (health()): it freezes while a
+                    # dispatch is stuck
+                    self._last_progress = time.perf_counter()
                 if not did:
                     self._wake.wait(0.02)
                     self._wake.clear()
@@ -592,14 +1023,16 @@ class Engine:
     def _step_once(self) -> bool:
         """One iteration: sweep, admit (batched prefill), one batched
         decode step.  Returns whether any work happened."""
+        faults.fault_point("serving.scheduler")
         self._sweep()
         did = self._admit()
         return self._decode_step() or did
 
-    def _drop_all_locked(self) -> list:
-        """Free every lane and page: the queued and in-flight requests
-        (returned, to be failed), then the prefix index's entries."""
-        pending = list(self._queue) + list(self._pool.active().values())
+    def _drop_all_locked(self):
+        """Free every lane, page, adapter pin and prefix entry; returns
+        the (queued, active) requests, to be finished by the caller."""
+        queued = list(self._queue)
+        active = list(self._pool.active().values())
         self._queue.clear()
         for slot in list(self._pool.active()):
             req = self._pool.free(slot)
@@ -607,20 +1040,51 @@ class Engine:
                 self._prefix.release(req._prefix_src)
                 req._prefix_src = None
             self._release_pages_locked(req)
+            if self._adapters is not None:
+                self._unpin_adapter_locked(req)
         if self._prefix is not None:
             for e in self._prefix.drop_all():
-                for p in e.pages:
-                    self._page_alloc.deref(p)
-                self._cached_pages -= len(e.pages)
-        return pending
+                if e.pages:
+                    for p in e.pages:
+                        self._page_alloc.deref(p)
+                    self._cached_pages -= len(e.pages)
+        return queued, active
 
     def _fail_as_dead(self, cause: BaseException):
+        """Death, from the dying scheduler thread or :meth:`abandon`: mark
+        the engine dead, free its lanes and pages, and classify its
+        requests by what reached a consumer.  Zero-token requests go to
+        the redispatch hook (those it does not take fail with
+        :class:`EngineDeadError`); streamed ones fail with
+        :class:`RequestInterruptedError`."""
         with self._lock:
+            if self._dead is not None:
+                return
             self._dead = cause
-            pending = self._drop_all_locked()
-            self._counts["failed"] += len(pending)
-        for req in pending:
-            req._finish(EngineDeadError(cause))
+            queued, active = self._drop_all_locked()
+            for r in queued + active:
+                # freeze the streams first: a stuck dispatch may still
+                # come back and try to emit
+                r._torn = True
+        fresh = [r for r in queued + active if not r._tokens]
+        streamed = [r for r in active if r._tokens]
+        taken: set = set()
+        hook = self.redispatch_hook
+        if hook is not None and fresh:
+            try:
+                taken = {id(r) for r in hook(list(fresh), cause)}
+            except Exception:  # noqa: BLE001 — a broken hook must not
+                taken = set()  # mask the death
+        lost = [r for r in fresh if id(r) not in taken]
+        with self._lock:
+            self._counts["failed"] += len(lost) + len(streamed)
+            self._counts["redispatched"] += len(taken)
+            self._counts["interrupted"] += len(streamed)
+        for r in lost:
+            r._finish(EngineDeadError(cause))
+        for r in streamed:
+            r._finish(RequestInterruptedError(r.request_id, len(r._tokens),
+                                              cause))
 
     def _sweep(self):
         """Evict cancelled / past-deadline requests (queued and active)."""
@@ -664,43 +1128,113 @@ class Engine:
     def _pages_for(self, n_tokens: int) -> int:
         return -(-int(n_tokens) // self._page_alloc.page_size)
 
+    @staticmethod
+    def _req_ns(req: RequestHandle):
+        """Prefix namespace of a request: its adapter, or ``(adapter,
+        conversation)`` when it carries a conversation id."""
+        return (req.adapter if req.conversation is None
+                else (req.adapter, req.conversation))
+
+    def _pin_adapter_locked(self, req: RequestHandle) -> bool:
+        """Make the request's adapter resident and pinned before its lane
+        is taken, scheduling a cold bank load when needed.  False when
+        every bank row is pinned by other in-flight work: the request
+        stays queued (head-of-line backpressure, as page exhaustion)."""
+        if req.adapter is None or req._adapter_pinned:
+            return True
+        res = self._adapters
+        ev0 = res.evictions
+        got = res.acquire(req.adapter)
+        if got is None:
+            if not self._adapter_stalled:
+                self._adapter_stalled = True
+                self._counts["adapter_load_stalls"] += 1
+            return False
+        slot, cold = got
+        self._adapter_stalled = False
+        req._adapter_slot = slot
+        req._adapter_pinned = True
+        self._counts["adapter_evictions"] += res.evictions - ev0
+        if cold:
+            if req.adapter not in self._adapter_uploads:
+                self._counts["adapter_loads"] += 1
+                self._adapter_uploads[req.adapter] = slot
+        else:
+            self._counts["adapter_hits"] += 1
+        return True
+
+    def _unpin_adapter_locked(self, req: RequestHandle):
+        """Drop the request's pin (the row stays resident at refs 0 for
+        the next hit; only LRU pressure reclaims it)."""
+        if req._adapter_pinned:
+            self._adapters.release(req.adapter)
+            req._adapter_pinned = False
+        req._adapter_slot = 0
+
+    def _demote_locked(self, e):
+        """Hand an evicted prefix entry's pages to the host tier: gather
+        them into fresh device tensors on the engine's stream now, before
+        the pages are dereferenced (a later write to a reused page is
+        ordered after the gather on the same stream); the tier copies
+        them to pinned host memory on a side stream off this thread."""
+        idx = torch.tensor(e.pages, dtype=torch.int64, device=self.device)
+        gathered = [[pool.index_select(0, idx) for pool in grp]
+                    for grp in self._pool_groups()]
+        self._host_tier.demote_async(e.ns, e.tokens, gathered)
+
     def _admit_locked(self) -> list:
-        """Head-of-queue requests admit while a lane AND their page
-        reservation fit.  A request reserves every page it can ever write
-        less the full pages a prefix hit shares (a match ending inside a
-        page takes one copy-on-write page); when the free list is short,
-        unreferenced prefix entries are evicted LRU-first, sparing those
-        this wave is about to hit.  Page exhaustion keeps the head queued
-        (FIFO backpressure; admitted work never waits on pages)."""
+        """Head-of-queue requests admit while a lane, their adapter's bank
+        row and their page reservation fit.  A request reserves every
+        page it can ever write less the full pages a prefix hit shares (a
+        match ending inside a page takes one copy-on-write page); when the
+        free list is short, unreferenced prefix entries are evicted
+        LRU-first (demoted to the host tier when there is one), sparing
+        those this wave is about to hit.  Exhaustion keeps the head queued
+        (FIFO backpressure; admitted work never waits)."""
         alloc = self._page_alloc
         P = alloc.page_size
         want = min(self.prefill_batch, len(self._queue))
-        if want == 0:
+        if want == 0 or self._dead is not None or self._stop:
             self._page_stalled = False
+            self._adapter_stalled = False
             return []
         protect = set()
         if self._prefix is not None:
             for req in itertools.islice(self._queue, want):
-                hit = self._prefix.lookup(req.prompt, peek=True)
+                hit = self._prefix.lookup(req.prompt, peek=True,
+                                          ns=self._req_ns(req))
                 if hit is not None:
                     protect.add(id(hit[0]))
         batch = []
         while self._queue and len(batch) < want and self._pool.n_free > 0:
             req = self._queue[0]
+            if not self._pin_adapter_locked(req):
+                break
+            ns = self._req_ns(req)
             total = self._pages_for(req.prompt.size + req.max_new_tokens)
-            hit = (self._prefix.lookup(req.prompt, peek=True)
+            hit = (self._prefix.lookup(req.prompt, peek=True, ns=ns)
                    if self._prefix is not None else None)
+            # a device miss probes the host tier: a host hit still takes
+            # the whole reservation, the prefix uploads into its own pages
+            promote = (self._host_tier.lookup(req.prompt, peek=True, ns=ns)
+                       if hit is None and self._host_tier is not None
+                       else None)
             need = total - (hit[1] // P if hit is not None else 0)
             while need > alloc.n_free and self._prefix is not None:
                 victims = self._prefix.evict_lru(1, protect=protect)
                 if not victims:
                     break
-                for p in victims[0].pages:
+                e = victims[0]
+                if self._host_tier is not None and e.pages:
+                    self._demote_locked(e)
+                for p in e.pages:
                     alloc.deref(p)
-                self._cached_pages -= len(victims[0].pages)
+                self._cached_pages -= len(e.pages)
                 self._counts["prefix_evictions"] += 1
             pages = alloc.alloc(need)
             if pages is None:
+                # the pin is dropped so a parked request holds no bank row
+                self._unpin_adapter_locked(req)
                 if not self._page_stalled:
                     self._page_stalled = True
                     self._counts["page_alloc_stalls"] += 1
@@ -718,10 +1252,21 @@ class Engine:
                 req._prefix_match = matched
                 req.prefix_hit = True
                 self._counts["prefix_hits"] += 1
+            elif promote is not None:
+                hentry, matched = promote
+                self._host_tier.touch(hentry)
+                self._host_tier.acquire(hentry)   # not droppable meanwhile
+                req._promote = (hentry, matched)
+                self._counts["host_prefix_hits"] += 1
+                self._prefix.miss()
+                self._counts["prefix_misses"] += 1
             elif self._prefix is not None:
                 self._prefix.miss()
                 self._counts["prefix_misses"] += 1
+                if self._host_tier is not None:
+                    self._host_tier.miss()
             self._map_pages_locked(req, pages)
+            self._aids[req.slot] = req._adapter_slot
             batch.append(req)
         return batch
 
@@ -759,6 +1304,8 @@ class Engine:
             if req.temperature > 0:
                 req._gen = torch.Generator(device=self.device)
                 req._gen.manual_seed(req.seed)
+        self._flush_adapter_uploads()
+        self._flush_promotes(batch)
         cold = [r for r in batch if r._prefix_src is None]
         hits = [r for r in batch if r._prefix_src is not None]
         if cold:
@@ -766,6 +1313,122 @@ class Engine:
         if hits:
             self._prefill_hits(hits)
         return True
+
+    def _flush_adapter_uploads(self):
+        """Cold loads: write each scheduled adapter's zero-padded factors
+        into its row of the pinned staging banks and copy the row into the
+        device banks on the engine's stream, ahead of every forward that
+        reads it (the admission's prefill then waits for the stream, so a
+        staging row is never rewritten under its copy).  The mapping is
+        checked again in case a stalled request's row was reused first."""
+        if self._adapters is None:
+            return
+        with self._lock:
+            ups = [(name, slot) for name, slot in self._adapter_uploads.items()
+                   if self._adapters.slot_of(name) == slot]
+            self._adapter_uploads.clear()
+        for name, slot in ups:
+            self._check_live()
+            t0 = time.perf_counter()
+            ad = self.adapter_registry.get(name)
+            a, b = self._astage[slot].numpy(), self._bstage[slot].numpy()
+            a[...] = 0.0
+            b[...] = 0.0
+            for i in range(ad.num_layers):
+                a[i, :, :ad.rank] = ad.a[i]
+                b[i, :ad.rank, :] = ad.b[i]
+            self._abank[slot].copy_(self._astage[slot], non_blocking=True)
+            self._bbank[slot].copy_(self._bstage[slot], non_blocking=True)
+            self._ascale[slot].fill_(ad.scale)
+            with self._lock:
+                if self._adapters.slot_of(name) == slot:
+                    self._adapters.mark_loaded(name)
+                self._counts["adapter_load_seconds"] += \
+                    time.perf_counter() - t0
+
+    def _flush_promotes(self, batch):
+        """Host-tier promotion: upload each promoted request's cached
+        prefix into the fresh pages admission reserved for it (one
+        ``index_copy_`` a pool, from pinned host memory, on the engine's
+        stream), then insert the prefix into the device index, so the
+        request proceeds as a zero-copy hit (tail prefill only) and the
+        next turn hits on the device.  The bytes land as they were
+        demoted (int8 payloads and f32 scales alike)."""
+        if self._host_tier is None:
+            return
+        tier = self._host_tier
+        with self._lock:
+            todo = [(req,) + req._promote for req in batch
+                    if req._promote is not None]
+        P = self._page_alloc.page_size
+        for req, hentry, m in todo:
+            self._check_live()
+            q = -(-m // P)                       # pages holding m tokens
+            pids = req._pages[:q]
+            t0 = time.perf_counter()
+            try:
+                payload = tier.payload(hentry, q)
+            except KeyError:
+                # the entry went (tier closed elsewhere): the request keeps
+                # its whole reservation and prefills cold
+                with self._lock:
+                    req._promote = None
+                    tier.release(hentry)
+                continue
+            idx = torch.tensor(pids, dtype=torch.int64, device=self.device)
+            timed = self._stream is not None
+            if timed:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            for grp, host_grp in zip(self._pool_groups(), payload):
+                for pool, arr in zip(grp, host_grp):
+                    pool.index_copy_(0, idx, arr.to(self.device,
+                                                    non_blocking=True))
+            if timed:
+                ev[1].record()
+            with self._lock:
+                if timed:
+                    self._promote_events.append(ev + (q,))
+                else:
+                    self._counts["host_prefix_promote_seconds"] += \
+                        time.perf_counter() - t0
+                    self._counts["host_prefix_promoted_pages"] += q
+                req._promote = None
+                entry = self._prefix.insert(None, hentry.tokens[:m],
+                                            pages=list(pids), ns=hentry.ns)
+                if entry is not None:
+                    # the index and this request each hold a page ref
+                    for p in pids:
+                        self._page_alloc.share(p)
+                    self._cached_pages += q
+                else:
+                    # a duplicate already owns (ns, tokens[:m]): ride the
+                    # hit path on a detached entry (no page sharing)
+                    entry = PrefixEntry(None, hentry.tokens[:m], 0,
+                                        pages=None, ns=hentry.ns)
+                self._prefix.acquire(entry)
+                req._prefix_src = entry
+                req._prefix_match = m
+                req._cow = None                  # page-aligned by block
+                req.prefix_hit = True
+                req.promote_s = time.perf_counter() - t0
+                self._counts["host_prefix_promotes"] += 1
+                # the upload may still read the slab: the tier rewrites the
+                # entry's range only after it
+                tier.release(hentry, ev[1] if timed else None)
+
+    def _resolve_promotes_locked(self):
+        """Fold the finished promotes' CUDA-event times into the counts."""
+        left = []
+        for start, end, pages in self._promote_events:
+            if end.query():
+                self._counts["host_prefix_promote_seconds"] += \
+                    1e-3 * start.elapsed_time(end)
+                self._counts["host_prefix_promoted_pages"] += pages
+            else:
+                left.append((start, end, pages))
+        self._promote_events = left
 
     def _prefill(self, batch) -> None:
         """Cold prefill of one admission wave: prompts padded to a pow2
@@ -781,11 +1444,13 @@ class Engine:
         ids = np.zeros((n, bucket), np.int64)
         plens = np.ones(n, np.int64)
         tables = np.full((n, n_pt), NP, np.int32)
+        aids = np.zeros(n, np.int64)
         with self._lock:
             for i, req in enumerate(batch):
                 ids[i, :req.prompt.size] = req.prompt
                 plens[i] = req.prompt.size
                 tables[i] = self._page_tables[req.slot]
+                aids[i] = req._adapter_slot
         # host-side scatter plan: prompt positions map through the lane's
         # table; padding positions and padding lanes are not written
         pos = np.arange(bucket)
@@ -794,16 +1459,19 @@ class Engine:
         lane, col = np.nonzero(pid < NP)
         dev = self.device
         H, D = self._heads, self._head_dim
+        faults.fault_point("serving.prefill", n=len(batch))
+        self._check_live()
         t0 = time.perf_counter()
         with torch.no_grad():
             caches = [(torch.zeros((n, bucket, H, D), device=dev),
                        torch.zeros((n, bucket, H, D), device=dev), 0)
                       for _ in self._kpools]
-            x, new_caches = self.model.gpt(torch.from_numpy(ids).to(dev),
-                                           caches=caches)
+            with self._scope(torch.from_numpy(aids).to(dev)):
+                x, new_caches = self._net.gpt(torch.from_numpy(ids).to(dev),
+                                              caches=caches)
             h_last = x[torch.arange(n, device=dev),
                        torch.from_numpy(plens - 1).to(dev)]
-            logits = self.model.lm_head(h_last)
+            logits = self._net.lm_head(h_last)
             idx = (torch.from_numpy(pid[lane, col]).long().to(dev),
                    torch.from_numpy(col % P).long().to(dev))
             src = (torch.from_numpy(lane).to(dev), torch.from_numpy(col).to(dev))
@@ -849,7 +1517,10 @@ class Engine:
                 lens[req.slot] = m
                 gidx[req.slot] = tail.size - 1
             tables = np.array(self._page_tables)
+            aids = np.array(self._aids)
         dev = self.device
+        faults.fault_point("serving.prefill", n=len(hits))
+        self._check_live()
         t0 = time.perf_counter()
         with torch.no_grad():
             if n_copy:
@@ -857,14 +1528,15 @@ class Engine:
                                  torch.from_numpy(dst).to(dev))
             caches = self._caches(torch.from_numpy(lens).to(dev),
                                   torch.from_numpy(tables).to(dev))
-            x, _ = self.model.gpt(torch.from_numpy(ids).to(dev),
-                                  caches=caches)
+            with self._scope(torch.from_numpy(aids).to(dev)):
+                x, _ = self._net.gpt(torch.from_numpy(ids).to(dev),
+                                     caches=caches)
             h_last = x[torch.arange(n_rows, device=dev),
                        torch.from_numpy(gidx).to(dev)]
             rows = [None] * n_rows
             for req in hits:
                 rows[req.slot] = req
-            toks = self._sample(self.model.lm_head(h_last), rows)
+            toks = self._sample(self._net.lm_head(h_last), rows)
         with self._lock:
             self._counts["prefill_batches"] += 1
             self._counts["prefill_seconds"] += time.perf_counter() - t0
@@ -927,7 +1599,7 @@ class Engine:
         for i, req in enumerate(batch):
             req.ttft_s = now - req.t_submit
             req._t_last_token = now
-            if req.done():
+            if req.done() or req._torn or req._engine is not self:
                 continue
             token = int(toks[req.slot] if by_slot else toks[i])
             finished = self._emit_one(req, token)
@@ -946,36 +1618,40 @@ class Engine:
     # -- decode --------------------------------------------------------------
     def _decode_forward(self):
         """The decode step over the static inputs: the forward through
-        the paged cache, the LM head at every position and the argmax.
-        What the graph captures; on the CPU it runs as it is."""
-        ids, lengths, tables = self._dec_in
-        x, _ = self.model.gpt(ids, caches=self._caches(lengths, tables))
-        logits = self.model.lm_head(x)                # [n_rows, W, V]
+        the paged cache (with each row's adapter), the LM head at every
+        position and the argmax.  What the graph captures; on the CPU it
+        runs as it is."""
+        ids, lengths, tables = self._dec_in[:3]
+        with self._scope(self._dec_in[3] if self._adapters is not None
+                         else None):
+            x, _ = self._net.gpt(ids, caches=self._caches(lengths, tables))
+        logits = self._net.lm_head(x)                 # [n_rows, W, V]
         return logits, logits.argmax(dim=-1)
 
     def _decode_signature(self) -> tuple:
         return (tuple((tuple(t.shape), t.dtype) for t in self._dec_in),
                 self._kpools[0].dtype, _ln.fused_layernorm_mode())
 
-    def _stage(self, ids, lengths, tables):
-        """Copy one step's inputs into the static buffers (through the
+    def _stage(self, *arrays):
+        """Copy one step's inputs (ids, lengths, tables and, with
+        adapters, the bank ids) into the static buffers (through the
         pinned staging arrays on the card)."""
-        for dev_t, host_t, arr in zip(self._dec_in, self._dec_host,
-                                      (ids, lengths, tables)):
+        for dev_t, host_t, arr in zip(self._dec_in, self._dec_host, arrays):
             host_t.numpy()[...] = arr
             dev_t.copy_(host_t, non_blocking=True)
 
     def _capture(self, sig) -> _DecodeGraph:
-        """Warm up on a side stream with every lane parked (the writes
-        land on the spare page), then capture the step.  The pools are
-        never reallocated while the graph lives: the kernels' tensor maps
-        hold their addresses."""
+        """Warm up on the engine's stream with every lane parked (the
+        writes land on the spare page), then capture the step there.  The
+        pools and banks are never reallocated while the graph lives: the
+        kernels' tensor maps hold their addresses."""
         NP = self._page_alloc.num_pages
         park = (np.zeros(self._ids.shape, np.int64),
                 np.full(self._lengths.shape, self._park, np.int32),
-                np.full(self._page_tables.shape, NP, np.int32))
+                np.full(self._page_tables.shape, NP, np.int32),
+                np.zeros(self._aids.shape, np.int64))
         self._stage(*park)
-        side = torch.cuda.Stream(self.device)
+        side = self._stream
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(2):
@@ -983,21 +1659,31 @@ class Engine:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = _kernel_launches()
+        # the graph's private pool: the device memory the capture reserves
+        # (the capture empties the cache first; so does this, so the
+        # warm-up's freed blocks are not counted)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             logits, toks = self._decode_forward()
+        reserved = torch.cuda.memory_reserved(self.device) - reserved
         launches = {k: v - before[k] for k, v in _kernel_launches().items()}
         entry = _DecodeGraph(graph, logits, toks, launches)
         self._graphs[sig] = entry
+        with self._lock:
+            self._counts["decode_graph_reserved_bytes"] += reserved
         return entry
 
-    def _run_decode(self, ids, lengths, tables):
-        """One decode step: ``(logits [n_rows, W, V] on the device, argmax
-        ids [n_rows, W] numpy)``.  On the card: replay the step's graph
-        (captured at the first step of a new signature)."""
+    def _run_decode(self, *inputs):
+        """One decode step over ``inputs`` (see :meth:`_stage`): ``(logits
+        [n_rows, W, V] on the device, argmax ids [n_rows, W] numpy)``.  On
+        the card: replay the step's graph (captured at the first step of a
+        new signature)."""
+        self._check_live()
         sig = self._decode_signature()
         if self.device.type != "cuda":
-            self._stage(ids, lengths, tables)
+            self._stage(*inputs)
             logits, toks = self._decode_forward()
             with self._lock:
                 self._sigs["decode"].add(sig)
@@ -1007,7 +1693,7 @@ class Engine:
             entry = self._capture(sig)
             with self._lock:
                 self._sigs["decode"].add(sig)
-        self._stage(ids, lengths, tables)
+        self._stage(*inputs)
         t0, t1, t2 = self._events
         t0.record()
         entry.graph.replay()
@@ -1045,12 +1731,13 @@ class Engine:
                     d = drafts.get(slot)
                     self._ids[slot, 1:] = (d if d is not None
                                            else self._ids[slot, 0])
-            ids = np.array(self._ids)
-            lengths = np.array(self._lengths)
-            tables = np.array(self._page_tables)
+            inputs = (np.array(self._ids), np.array(self._lengths),
+                      np.array(self._page_tables), np.array(self._aids))
+        lengths = inputs[1]
+        faults.fault_point("serving.decode", active=len(active))
         t0 = time.perf_counter()
         with torch.no_grad():
-            logits, toks = self._run_decode(ids, lengths, tables)
+            logits, toks = self._run_decode(*inputs)
             toks = np.array(toks)
             for slot, req in active.items():
                 if req.temperature > 0 and not req.done():
@@ -1064,7 +1751,7 @@ class Engine:
         drafted = accepted = 0
         finishers = []
         for slot, req in active.items():
-            if req.done():
+            if req.done() or req._torn or req._engine is not self:
                 continue
             # the draft at position j is kept iff it equals the model's
             # choice at position j - 1; the run emits up to W tokens
@@ -1108,6 +1795,7 @@ class Engine:
 
     def _emit_one(self, req: RequestHandle, token: int) -> bool:
         """Stream one token; returns whether the request is finished."""
+        faults.fault_point("serving.stream", request=req.request_id)
         req._emit(token)
         return (len(req._tokens) >= req.max_new_tokens or
                 (req.eos_token_id is not None and
@@ -1115,6 +1803,10 @@ class Engine:
 
     # -- eviction / retention ------------------------------------------------
     def _release_pages_locked(self, req: RequestHandle):
+        if req._promote is not None:
+            # a promote that never ran: unpin the tier entry
+            self._host_tier.release(req._promote[0])
+            req._promote = None
         if req._pages is not None:
             for p in req._pages:
                 self._page_alloc.deref(p)
@@ -1139,7 +1831,8 @@ class Engine:
                 [req.prompt, np.asarray(req._tokens, np.int64)])[:n]
             keep = self._pages_for(n)
             entry = (self._prefix.insert(None, cached,
-                                         pages=req._pages[:keep])
+                                         pages=req._pages[:keep],
+                                         ns=self._req_ns(req))
                      if keep > 0 else None)
             if entry is not None:
                 for p in req._pages[keep:]:
@@ -1150,4 +1843,7 @@ class Engine:
                 self._counts["prefix_inserts"] += 1
         self._release_pages_locked(req)
         self._pool.free(req.slot)
+        if self._adapters is not None:
+            self._unpin_adapter_locked(req)
+            self._aids[req.slot] = 0
         self._counts[outcome] += 1

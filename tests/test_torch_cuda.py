@@ -1280,3 +1280,265 @@ def test_global_norm_clip_on_card_matches_cpu(cuda):
         tol = 1e-6 if w.dtype == torch.float32 else 1e-2
         torch.testing.assert_close(g.cpu().float(), w.float(), rtol=tol,
                                    atol=tol)
+
+
+# -- the rest of the serving engine on the card (smoke phases 28-31) ----------
+# gpt-tiny engines (2 layers): teacher forcing at 1e-3 on the CPU forward of
+# the same weights (f32); base rows, re-dispatched and promoted requests
+# must give the reference engine's tokens bit for bit (prompts of 9-16
+# tokens: every cold prefill pads to one bucket, so a row's products have
+# the same shapes in any wave).
+
+def _tiny_models(dev):
+    from paddle_tpu_torch.models import build_gpt, load_jax_state, \
+        to_jax_state
+
+    state = to_jax_state(build_gpt("gpt-tiny", device="cpu", seed=5,
+                                   max_position_embeddings=128))
+    models = []
+    for d in ("cpu", dev):
+        m = build_gpt("gpt-tiny", device=d, max_position_embeddings=128)
+        load_jax_state(m, state)
+        models.append(m)
+    return models
+
+
+def _served_tokens(engine, prompts, new=8, names=None, shutdown=True):
+    try:
+        hs = [engine.submit(p, max_new_tokens=new,
+                            adapter=None if names is None else names[i])
+              for i, p in enumerate(prompts)]
+        return [h.result(timeout=300) for h in hs], engine.stats()
+    finally:
+        if shutdown:
+            engine.shutdown()
+
+
+def _forced_gap(cpu_model, prompts, outs):
+    worst = 0.0
+    with torch.no_grad():
+        for p, g in zip(prompts, outs):
+            seq = np.concatenate([p, g[:-1]]).astype(np.int64)
+            lg = cpu_model(torch.from_numpy(seq[None]))[0][len(p) - 1:]
+            gap = lg.max(-1).values - lg[torch.arange(len(g)),
+                                         torch.from_numpy(g)]
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+def _tiny_prompts(n, seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, 1024, rs.randint(9, 17)) for _ in range(n)]
+
+
+def _lora_reg(model):
+    from paddle_tpu_torch.serving import AdapterRegistry, make_lora
+
+    reg = AdapterRegistry(model, max_resident=2, max_rank=8)
+    for i, rank in enumerate((2, 4, 8)):
+        reg.register(make_lora(model.config, rank=rank, seed=30 + i,
+                               name=f"t{i}", std=0.5))
+    return reg
+
+
+@pytest.mark.cuda
+def test_lora_engine_on_card(cuda):
+    """Phase 28 at gpt-tiny: three adapters over two bank rows inside the
+    captured decode step: one capture, a replay a step (2 paged launches
+    each), no eager paged read; adapter rows teacher-forced on a merged
+    CPU copy, base rows equal to an adapter-free engine's."""
+    import copy
+
+    from paddle_tpu_torch.serving import Engine, merge_into_qkv
+
+    cpu_model, model = _tiny_models(cuda)
+    reg = _lora_reg(model)
+    prompts = _tiny_prompts(12, 3)
+    names = [None, "t0", "t1", None, "t2", "t0", None, "t1", "t2", None,
+             "t0", "t2"]
+    kw = dict(max_slots=4, max_len=64, page_size=8, max_queue=32,
+              device=cuda)
+    eng = Engine(model, adapters=reg, **kw)
+    eng.submit(prompts[0], max_new_tokens=2).result(timeout=300)
+    base = pa.paged_decode_attention.launches
+    outs, st = _served_tokens(eng, prompts, names=names)
+    eager = pa.paged_decode_attention.launches - base
+    plain, _ = _served_tokens(Engine(model, **kw), prompts)
+    assert st["decode_compiles"] == 1 and eager == 0
+    assert st["decode_graph_replays"] == st["decode_steps"] > 0
+    assert st["replayed_paged_launches"] == 2 * st["decode_steps"]
+    assert st["adapter_loads"] >= 3 and st["adapter_evictions"] >= 1
+    for i, nm in enumerate(names):
+        if nm is None:
+            np.testing.assert_array_equal(outs[i], plain[i])
+    for nm in {n for n in names if n is not None}:
+        rows = [i for i, n in enumerate(names) if n == nm]
+        merged = copy.deepcopy(cpu_model)
+        merge_into_qkv(merged, reg.get(nm))
+        assert _forced_gap(merged, [prompts[i] for i in rows],
+                           [outs[i] for i in rows]) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_int8_weights_engine_on_card(cuda):
+    """Phase 29 at gpt-tiny: the int8 serving copy stores at most 0.26x
+    the f32 bytes, captures once, and every token is teacher-forced on
+    the CPU forward of the dequantized weights."""
+    import copy
+
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.adapters import weight_quant as wq
+
+    cpu_model, model = _tiny_models(cuda)
+    prompts = _tiny_prompts(6, 4)
+    kw = dict(max_slots=4, max_len=64, page_size=8, device=cuda)
+    f32 = Engine(model, **kw)
+    eng = Engine(model, weight_dtype="int8", **kw)
+    assert eng.weight_bytes() <= 0.26 * f32.weight_bytes()
+    f32.shutdown()
+    outs, st = _served_tokens(eng, prompts)
+    assert st["decode_compiles"] == 1
+    assert st["decode_graph_replays"] == st["decode_steps"] > 0
+    deq = copy.deepcopy(cpu_model)
+    linear = {f"{n}.weight" for n, m in deq.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    with torch.no_grad():
+        deq.load_state_dict(wq.dequantize_state(
+            wq.quantize_state(deq.state_dict(), transposed=linear)))
+    assert _forced_gap(deq, prompts, outs) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_supervisor_rebuilds_on_card(cuda):
+    """Phase 30 at gpt-tiny: three deaths at the 3rd decode step: the
+    streamed requests are interrupted, the queued ones finish on the
+    rebuilt engine with an unfaulted engine's tokens, every build captures
+    once, and the allocated memory after the third rebuild is within 64
+    MB of the first's."""
+    import gc
+
+    from paddle_tpu_torch.serving import (Engine, EngineSupervisor,
+                                          RequestInterruptedError)
+    from paddle_tpu_torch.testing import faults
+
+    _, model = _tiny_models(cuda)
+    reg = _lora_reg(model)
+    kw = dict(max_slots=4, max_len=64, page_size=8, max_queue=32,
+              device=cuda, adapters=reg)
+    builds = []
+
+    def factory():
+        builds.append(Engine(model, **kw))
+        return builds[-1]
+
+    sup = EngineSupervisor(factory, poll_interval_s=0.005)
+    redispatched, allocated = [], []
+    try:
+        sup.submit([1, 2, 3], max_new_tokens=2).result(timeout=300)
+        for r in range(3):
+            prompts = _tiny_prompts(8, 10 + r)
+            names = [None, "t0", "t1", "t2"] * 2
+            dying = builds[-1]
+            faults.arm("serving.decode", times=1, after=2)
+            hs = [sup.submit(p, max_new_tokens=8, adapter=nm)
+                  for p, nm in zip(prompts, names)]
+            errs = [h.exception(timeout=300) for h in hs]
+            faults.reset()
+            assert dying.health()["dead"]
+            assert any(isinstance(e, RequestInterruptedError) for e in errs)
+            assert all(e is None or isinstance(e, RequestInterruptedError)
+                       for e in errs)
+            redispatched += [(h.result(), p, nm) for h, e, p, nm in
+                             zip(hs, errs, prompts, names) if e is None]
+            assert any(e is None for e in errs)
+            del hs, errs, dying
+            gc.collect()
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated(cuda))
+        builds_stats = sup.builds()
+    finally:
+        faults.reset()
+        sup.shutdown()
+    assert len(builds_stats) == 4
+    assert all(b["decode_compiles"] == 1 for b in builds_stats)
+    assert abs(allocated[-1] - allocated[0]) <= 64 * 2 ** 20
+    want, _ = _served_tokens(Engine(model, **kw), [p for _, p, _ in
+                                                   redispatched],
+                             names=[nm for *_, nm in redispatched])
+    for (got, _, _), w in zip(redispatched, want):
+        np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32", "int8"])
+def test_host_tier_on_card(cuda, kv_dtype):
+    """Phase 31 at gpt-tiny: conversations over a pool that must evict;
+    the returning turns promote from pinned host memory and give the
+    never-evicting engine's tokens; the decode steps that run while a
+    demote is held in flight make no host sync.  The int8 case takes a
+    shared tier (``host_prefix=``), which outlives the engine."""
+    import threading
+
+    from paddle_tpu_torch.serving import Engine, HostPrefixTier
+
+    _, model = _tiny_models(cuda)
+    rs = np.random.RandomState(5)
+    system = rs.randint(0, 1024, 32)
+    turn1 = [np.concatenate([system, rs.randint(0, 1024, 8)])
+             for _ in range(6)]
+    kw = dict(max_slots=4, max_len=128, prefix_cache=True, prefix_block=8,
+              kv_dtype=kv_dtype, device=cuda)
+
+    def two_rounds(eng):
+        eng.submit(turn1[0][:12], max_new_tokens=2).result(timeout=300)
+        out1 = [eng.submit(p, max_new_tokens=8, conversation=f"c{i}")
+                .result(timeout=300) for i, p in enumerate(turn1)]
+        if eng._host_tier is not None:
+            release()
+        hs = [eng.submit(np.concatenate([p, out1[i], [7, 8, 9]]),
+                         max_new_tokens=8, conversation=f"c{i}")
+              for i, p in enumerate(turn1)]
+        return out1, [h.result(timeout=300) for h in hs], hs
+
+    hold = threading.Event()
+
+    def release():
+        eng._decode_step = step
+        hold.set()
+        assert tier.flush(60)
+
+    want1, want2, _ = two_rounds(Engine(model, num_pages=200, **kw))
+    shared = HostPrefixTier(64, block=8) if kv_dtype else None
+    eng = Engine(model, num_pages=20, **kw, **(
+        dict(host_prefix=shared) if shared is not None
+        else dict(host_prefix_mb=64)))
+    tier = eng._host_tier
+    copy_to_host, step, checked = tier._copy_to_host, eng._decode_step, [0]
+    tier._copy_to_host = lambda *a: (hold.wait(60), copy_to_host(*a))[1]
+
+    def checked_step():
+        if tier.stats()["pending"] == 0:
+            return step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            checked[0] += 1
+
+    eng._decode_step = checked_step
+    try:
+        got1, got2, hs = two_rounds(eng)
+        st = eng.stats()
+    finally:
+        hold.set()
+        eng.shutdown()
+    if shared is not None:
+        assert len(shared) > 0          # the shared tier outlived the engine
+        shared.check()
+        shared.close()
+    assert checked[0] > 0
+    assert st["host_prefix_promotes"] >= 2 and st["decode_compiles"] == 1
+    assert st["host_prefix"]["demote_errors"] == 0
+    for g, w in zip(got1 + got2, want1 + want2):
+        np.testing.assert_array_equal(g, w)

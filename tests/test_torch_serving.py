@@ -145,13 +145,22 @@ def test_sampling_is_reproducible_and_in_top_k(models):
 def test_unported_flags_raise(models):
     _, pm = models
     for kw, what in [(dict(paged_kv=False), "dense slot pool"),
-                     (dict(adapters=object()), "adapters"),
-                     (dict(weight_dtype="int8"), "weight_dtype"),
-                     (dict(host_prefix_mb=1.0), "host prefix"),
                      (dict(decode_kernel="xla"), "decode_kernel")]:
         with pytest.raises(NotImplementedError,
                            match=f"{what}.*module entry 4"):
             Engine(pm, max_slots=2, max_len=32, device="cpu", **kw)
+    # the ported flags refuse bad values as the JAX engine does
+    with pytest.raises(ValueError, match="weight_dtype"):
+        Engine(pm, max_slots=2, max_len=32, device="cpu",
+               weight_dtype="int4")
+    with pytest.raises(ValueError, match="not both"):
+        Engine(pm, max_slots=2, max_len=32, device="cpu", prefix_cache=True,
+               host_prefix_mb=1.0, host_prefix=object())
+    plain = Engine(pm, max_slots=2, max_len=32, device="cpu",
+                   auto_start=False)
+    with pytest.raises(ValueError, match="no adapter registry"):
+        plain.submit(np.arange(1, 5), adapter="tenant-a")
+    plain.shutdown()
     with pytest.raises(ValueError, match="kv_dtype"):
         Engine(pm, max_slots=2, max_len=32, device="cpu", kv_dtype="fp8")
     with pytest.raises(ValueError, match="speculative_k"):
