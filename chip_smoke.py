@@ -240,6 +240,43 @@ run with a non-zero exit, and nothing is caught):
    paged counters before their run and read them after (the kernels
    line's ``launches_by_phase``): each must launch both.
 
+32. (phases 32, 33 run after 31) BERT pretraining: rows 1 and 2 at
+   BERT-base's attention (B=64 T=512 H=12 D=64 bf16, not causal, q, k, v
+   the role views of one ``[B, T, 3, H, D]`` projection) against their
+   plain versions (bf16 tolerance), device ms, SDPA (forward;
+   forward+backward and its backward alone) and the bounds; then
+   ``bench_bert``'s recipe (``bench.py:523-578``) at full width:
+   bert-base-uncased (vocab 30522) built in bf16 on the card from a
+   seeded generator (bf16 parameters and AdamW slots), dropout 0, AdamW lr
+   1e-4, batch 64 x 512 with NSP labels from ``RandomState(seed)``, no
+   mask, ``make_train_step(..., num_labels=2)``: one warm-up and 5 timed
+   steps with the plain versions tripped, then one profiled step; step
+   ms, tokens/s, the flops share (the bench's 6 x 110e6 FLOP a token,
+   989 TFLOP/s; with attention's 12 L h T beside it), peak memory, busy
+   share and time by kernel; gated on finite, falling losses, one step
+   build and exactly 12 separate-operand flash forwards and 12 of each
+   backward kernel (delta, dk/dv, dq) a step, nothing else; then its f32
+   parity: 2 layers at bert-base's width, batch 4 x 128, three steps on
+   the card and on the CPU from the same weights, losses within 1e-4
+   relative;
+33. GPT-MoE training: gpt2-small-en with ``moe_num_experts=8`` and the
+   JAX defaults for the rest (every 2nd layer, GShard gate, capacity
+   1.2, aux weight 0.01), built on the card from a seeded generator,
+   phase 11's recipe (batch 16 x 1024, bf16 over f32 masters, AdamW):
+   one warm-up and 5 timed steps, one more under
+   ``torch.cuda.set_sync_debug_mode("error")``, one profiled step; step
+   ms, tokens/s, the flops share (the top-2 active count, and beside it
+   the E x C capacity slots executed), peak memory, the first choices
+   dropped for capacity, the aux loss and the top kernels; gated on
+   finite, falling losses, every expert of every MoE layer given tokens,
+   exactly 12 fused flash forwards and 12 of each fused backward kernel a
+   step, nothing else, and no sync; then its f32 parity: 2 layers (the
+   second MoE, naive gate), batch 2 x 1024, three steps on the card and
+   on the CPU, losses within 1e-4 relative.  Rows 1 and 2 (phase 32) and
+   5 and 6 (phase 33) carry their launches in the kernels line's
+   ``launches_by_phase``, and the BERT-shape cases are entries of their
+   own.
+
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
 
@@ -3575,6 +3612,479 @@ def phase_host_tier(dev, seed, kv_dtype=None, n_conv=TIER_CONV):
     return res
 
 
+# -- BERT / ERNIE pretraining and GPT-MoE training (phases 32, 33) ------------
+
+N_LAYERS_BERT = 12
+BERT_FLOPS_PER_TOKEN = 6 * 110e6     # bench_bert's count (bench.py:569)
+MOE_EXPERTS = 8
+
+
+def _bert_kernel_cases(dev, B=64, T=512, H=12, D=64):
+    """Rows 1 and 2 at BERT-base's attention (phase 32): the forward and
+    the single-tile backward on the role views of one ``[B, T, 3, H, D]``
+    bf16 projection, not causal, against their plain versions (bf16
+    tolerance); device ms, SDPA (forward; forward+backward and its
+    backward alone) and the bounds."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    qkv = torch.randn(B, T, 3, H, D, device=dev, generator=gen).to(
+        torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(B, T, H, D, device=dev, generator=gen).to(
+        torch.bfloat16)
+    out, lse = fa.flash_attention_bthd(q, k, v, causal=False,
+                                       return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=False,
+                                            return_lse=True)
+    fwd_err = max(_max_err([out], [ref], torch.bfloat16, "BERT forward"),
+                  _max_err([lse], [ref_lse], torch.float32,
+                           "BERT forward lse"))
+    del ref, ref_lse
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False)
+    bwd_err = _max_err(grads, want, torch.bfloat16, "BERT backward")
+    del want, grads
+    torch.cuda.empty_cache()
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def library_fwd():
+        return tF.scaled_dot_product_attention(qh, kh, vh)
+
+    def library():
+        return torch.autograd.grad(library_fwd(), (qh, kh, vh), doh)
+
+    rows = []
+    for part, kern, plain, lib, cost, err in (
+            ("fwd", lambda: fa.flash_attention_bthd(q, k, v, causal=False),
+             lambda: fa.flash_attention_plain(q, k, v, causal=False),
+             library_fwd, fa.flash_cost, fwd_err),
+            ("bwd", lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   causal=False),
+             lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                  causal=False),
+             library, fa.flash_bwd_cost, bwd_err)):
+        ms, eager_ms = _times(kern, 20)
+        plain_ms = _timed_ms(plain, 1, warmup=1)
+        lib_ms = _graph_ms(lib, 10)
+        flops, nbytes = cost(B, T, T, H, D, False, itemsize=2)
+        bound_ms, bound_by = _bound(flops, nbytes, BF16_PEAK)
+        row = dict(part=part, B=B, Tq=T, Tk=T, H=H, D=D, dtype="bfloat16",
+                   causal=False, operands="role views of [B, T, 3, H, D]",
+                   max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, tflops=flops / ms / 1e9)
+        if part == "bwd":
+            row["library_bwd_ms"] = lib_ms - rows[0]["library_ms"]
+        rows.append(row)
+        print(f"[bert-flash] {part} B={B} T={T} H={H} D={D} bf16 full, "
+              f"role views: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+              f"(eager {eager_ms:.4f}; {row['tflops']:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, sdpa {'fwd' if part == 'fwd' else 'fwd+bwd'}"
+              f" {lib_ms:.4f} ms"
+              + (f" (bwd alone {row['library_bwd_ms']:.4f})"
+                 if part == "bwd" else "")
+              + f", bound {bound_ms:.4f} ms ({bound_by})")
+    del qkv, q, k, v, do, out, lse, qh, kh, vh, doh
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _bert_step(model):
+    """``bench_bert``'s step: AdamW lr 1e-4 over the model's own
+    parameters (bf16 for a bf16 model), the MLM + NSP criterion,
+    ``num_labels=2``."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    crit = BertPretrainingCriterion()
+
+    def loss_fn(out, labels, nsp):
+        return crit(out[0], out[1], labels, nsp)
+
+    return make_train_step(model, AdamW(learning_rate=1e-4, parameters=model),
+                           loss_fn=loss_fn, num_labels=2)
+
+
+def _bert_batch(dev, seed, batch, seq, vocab):
+    """(ids, labels, nsp) from ``RandomState(seed)``, as the bench."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq))
+    labels = rng.randint(0, vocab, (batch, seq))
+    nsp = rng.randint(0, 2, (batch,))
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(dev)
+                 for a in (ids, labels, nsp))
+
+
+def _timed_steps(step, batch, steps):
+    """One warm-up and ``steps`` timed steps with the plain versions
+    tripped and every launch counter set to 0 just before: (losses, wall
+    s of the timed steps, launches, peak memory)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _attention_counters(zero=True)
+    _ln_counters(zero=True)
+    with _no_plain():
+        losses = [float(step(*batch))]                 # warm-up
+        t0 = time.perf_counter()
+        outs = [step(*batch) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = {**_attention_counters(), **_ln_counters()}
+    return (losses + [float(v) for v in outs], wall, n,
+            torch.cuda.max_memory_allocated())
+
+
+def _falling(tag, losses):
+    import numpy as np
+
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        _fail(f"{tag}: losses {losses} are not finite and falling")
+
+
+def phase_bert_train(dev, smi, seed, steps=5, batch=64, seq=512):
+    """Phase 32: ``bench_bert``'s recipe (``bench.py:523-578``) at full
+    width: bert-base-uncased (12 layers, h 768, 12 heads, vocab 30522),
+    dropout 0, built in bf16 on the card from a seeded generator (bf16
+    parameters and AdamW slots), AdamW lr 1e-4, batch 64 x 512 and NSP
+    labels from ``RandomState(seed)``, no mask: one warm-up and 5 timed
+    steps, then one profiled step.  Gates: losses finite and falling, one
+    step build, and exactly 12 separate-operand flash forwards and 12 of
+    each backward kernel (delta, dk/dv, dq) a step, nothing else."""
+    import torch
+
+    from paddle_tpu_torch.models import build_bert
+
+    t0 = time.perf_counter()
+    model = build_bert("bert-base-uncased", device=dev, seed=seed,
+                       dtype=torch.bfloat16, hidden_dropout_prob=0.0,
+                       attention_dropout_prob=0.0)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
+            cfg.vocab_size) != (768, N_LAYERS_BERT, 12, 30522):
+        _fail(f"bert-base-uncased is not at full width: {cfg}")
+    step = _bert_step(model)
+    data = _bert_batch(dev, seed, batch, seq, cfg.vocab_size)
+    build_s = time.perf_counter() - t0
+    losses, wall, n, peak = _timed_steps(step, data, steps)
+    _falling("bert-base", losses)
+    if step.compile_count != 1:
+        _fail(f"bert-base: {step.compile_count} step builds")
+    want = {k: 0 for k in n}
+    want.update({k: N_LAYERS_BERT * (steps + 1)
+                 for k in ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")})
+    if n != want:
+        _fail(f"bert-base: launches {n} != {want}")
+    with _no_plain():
+        prof = _device_profile(lambda: step(*data))
+    prof["attention_ms"] = sum(v for k, v in prof.pop(
+        "all_kernels_ms").items() if "flash_" in k)
+    tokens_per_s = steps * batch * seq / wall
+    attn_tok = 12.0 * cfg.num_layers * cfg.hidden_size * seq
+    res = dict(model="bert-base-uncased", batch=batch, seq=seq, steps=steps,
+               build_s=build_s, losses=losses, step_ms=1e3 * wall / steps,
+               tokens_per_s=tokens_per_s,
+               flops_per_token=BERT_FLOPS_PER_TOKEN,
+               flops_share=tokens_per_s * BERT_FLOPS_PER_TOKEN / BF16_PEAK,
+               flops_share_with_attention=tokens_per_s * (
+                   BERT_FLOPS_PER_TOKEN + attn_tok) / BF16_PEAK,
+               peak_memory_bytes=peak, launches=n,
+               launches_per_step={k: v // (steps + 1) for k, v in n.items()},
+               profile=prof)
+    print(f"[bert] bert-base-uncased B={batch} T={seq} bf16 params and "
+          f"slots, AdamW, no mask: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)} (built in "
+          f"{build_s:.1f} s)")
+    print(f"[bert] {res['step_ms']:.3f} ms a step, {tokens_per_s:.1f} "
+          f"tokens/s, flops share {100 * res['flops_share']:.2f}% of the "
+          f"989 TFLOP/s dense bf16 peak (H100 SXM data sheet; the bench's "
+          f"6 x 110e6 FLOP a token; "
+          f"{100 * res['flops_share_with_attention']:.2f}% with attention's "
+          f"12 L h T), peak memory {peak} bytes, launches a step "
+          f"{res['launches_per_step']} on {smi}")
+    _print_profile("bert-profile", "one step", prof)
+    print(f"[bert-profile] attention kernels (flash forward, delta, dk/dv, "
+          f"dq): {prof['attention_ms']:.3f} ms of the step")
+    del model, step, data
+    torch.cuda.empty_cache()
+    return res
+
+
+def _parity(tag, build, run, dev, tol):
+    """``run(model)`` -> losses on the card and on the CPU from one set of
+    weights (``build(device)``; the CPU model's state loaded into the
+    card's): the relative gap, gated at ``tol``; the card's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import load_jax_state, to_jax_state
+
+    t0 = time.perf_counter()
+    cpu_model = build("cpu")
+    card_model = build(dev)
+    load_jax_state(card_model, to_jax_state(cpu_model))
+    _attention_counters(zero=True)
+    _ln_counters(zero=True)
+    card = np.array(run(card_model))
+    n_card = {**_attention_counters(), **_ln_counters()}
+    cpu = np.array(run(cpu_model))
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    print(f"[{tag}] card {card.tolist()}, cpu {cpu.tolist()}, max rel diff "
+          f"{rel:.3e} (tol {tol}), launches on the card {n_card}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= tol:
+        _fail(f"{tag}: card and CPU losses differ by {rel} > {tol}")
+    return dict(card=card.tolist(), cpu=cpu.tolist(), max_rel_diff=rel,
+                tol=tol, launches=n_card)
+
+
+def phase_bert_parity(dev, seed, tol=1e-4, steps=3):
+    """Phase 32's parity: bert-base-uncased's width with 2 layers, f32,
+    batch 4 x 128, three steps on the card and on the CPU from the same
+    weights: losses within 1e-4 relative; 2 forwards and 2 of each
+    backward kernel a step on the card."""
+    import torch
+
+    from paddle_tpu_torch.models import build_bert
+
+    def build(where):
+        return build_bert("bert-base-uncased", device=where, seed=seed,
+                          num_layers=2, hidden_dropout_prob=0.0,
+                          attention_dropout_prob=0.0)
+
+    def run(model):
+        step = _bert_step(model)
+        where = next(model.parameters()).device
+        data = _bert_batch(where, seed + 1, 4, 128, model.config.vocab_size)
+        return [float(step(*data)) for _ in range(steps)]
+
+    res = _parity("bert-parity", build, run, dev, tol)
+    want = {k: 0 for k in res["launches"]}
+    want.update({k: 2 * steps for k in ("fwd", "bwd_delta", "bwd_dkv",
+                                         "bwd_dq")})
+    if res["launches"] != want:
+        _fail(f"bert parity: launches {res['launches']} != {want}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_model(where, seed, **overrides):
+    """gpt2-small-en with ``MOE_EXPERTS`` experts (the JAX defaults for
+    the rest), dropout 0, weights drawn on ``where`` from ``seed``."""
+    from paddle_tpu_torch.models import build_gpt
+
+    return build_gpt("gpt2-small-en", device=where, seed=seed,
+                     moe_num_experts=MOE_EXPERTS, hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0, **overrides)
+
+
+def _moe_step(model, compute_dtype=None):
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import GPTMoEPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=1e-4, parameters=model, weight_decay=0.01)
+    return make_train_step(model, opt,
+                           loss_fn=GPTMoEPretrainingCriterion(model),
+                           compute_dtype=compute_dtype)
+
+
+def _moe_routing_hooks(model):
+    """Forward hooks on every MoE layer's gate keeping each call's indices
+    ``[N, k]`` (device tensors only: no sync) and the layer's capacity."""
+    from paddle_tpu_torch.models import GPTMoEMLP
+
+    seen, handles = {}, []
+    for i, layer in enumerate(model.gpt.layers):
+        if isinstance(layer.mlp, GPTMoEMLP):
+            moe = layer.mlp.moe
+
+            def hook(mod, inp, out, i=i, moe=moe):
+                seen.setdefault(i, ([], moe._capacity(inp[0].shape[0])))
+                seen[i][0].append(out[1])
+            handles.append(moe.gate.register_forward_hook(hook))
+    return seen, handles
+
+
+def _routing(idx, cap, n_tok):
+    """First choices past the capacity (their share of the tokens), the
+    second choices GShard kept, and the tokens each expert kept."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        _number_count)
+
+    first = _number_count(idx[:, 0], MOE_EXPERTS)
+    return dict(
+        dropped_first_share=float((first - cap).clamp(min=0).sum()) / n_tok,
+        second_kept_share=float((idx[:, 1] >= 0).float().mean()),
+        kept_per_expert=_number_count(idx, MOE_EXPERTS).clamp(
+            max=cap).tolist())
+
+
+def phase_moe_train(dev, smi, seed, steps=5, batch=16, seq=1024):
+    """Phase 33: GPT-MoE at gpt2-small width: gpt2-small-en with
+    ``moe_num_experts=8`` and the JAX defaults for the rest (every 2nd
+    layer, GShard gate, capacity 1.2 / 2.4, aux weight 0.01), built on
+    the card from a seeded generator, phase 11's recipe (batch 16 x 1024,
+    bf16 over f32 masters, AdamW lr 1e-4, weight decay 0.01, dropout 0):
+    one warm-up and 5 timed steps, one more under
+    ``set_sync_debug_mode("error")``, then one profiled step.  Gates:
+    losses finite and falling, one step build, every expert of every MoE
+    layer given tokens in the run (at random init the router is skewed:
+    the hidden states of all tokens share a component, so one expert of a
+    layer can go without tokens for a step), exactly 12 fused forwards and
+    12 of each fused backward kernel a step, nothing else, and no sync.
+    The routing of the first and the last step is printed."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt_train_flops_per_token
+
+    t0 = time.perf_counter()
+    model = _moe_model(dev, seed)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.vocab_size, cfg.moe_gate,
+            cfg.moe_every_n_layers) != (768, N_LAYERS, 50304, "gshard", 2):
+        _fail(f"gpt2-small-en MoE is not the JAX default: {cfg}")
+    step = _moe_step(model, torch.bfloat16)
+    x, y = _train_batch(dev, seed, batch, seq, cfg.vocab_size)
+    # GShard's second-expert draws come from torch's default generator:
+    # seeded, so that two calls route alike
+    torch.manual_seed(seed)
+    seen, handles = _moe_routing_hooks(model)
+    build_s = time.perf_counter() - t0
+    losses, wall, n, peak = _timed_steps(step, (x, y), steps)
+    _falling("gpt-moe", losses)
+    if step.compile_count != 1:
+        _fail(f"gpt-moe: {step.compile_count} step builds")
+    if n != _want_launches(steps + 1):
+        _fail(f"gpt-moe: launches {n} != {_want_launches(steps + 1)}")
+    # routing of the first and the last step, and of the run
+    n_tok = batch * seq
+    for h in handles:
+        h.remove()
+    routing = {}
+    for i, (calls, cap) in seen.items():
+        routing[i] = dict(capacity=cap,
+                          first_step=_routing(calls[0], cap, n_tok),
+                          last_step=_routing(calls[-1], cap, n_tok),
+                          run_kept_per_expert=[
+                              sum(c) for c in zip(*(
+                                  _routing(x, cap, n_tok)["kept_per_expert"]
+                                  for x in calls))])
+        if not min(routing[i]["run_kept_per_expert"]) > 0:
+            _fail(f"gpt-moe: layer {i}'s experts kept "
+                  f"{routing[i]['run_kept_per_expert']} tokens in the run")
+    del seen
+    aux = float(model.gpt.moe_aux_loss().detach())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sync_loss = step(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync_loss = float(sync_loss)
+    if sync_loss != sync_loss:
+        _fail(f"gpt-moe: the step under the sync check gave {sync_loss}")
+    with _no_plain():
+        prof = _device_profile(lambda: step(x, y))
+    prof["attention_ms"] = sum(v for k, v in prof.pop(
+        "all_kernels_ms").items() if "flash_" in k)
+    # flops a token: the dense count has one MLP a layer; a MoE layer
+    # runs the top-2 (active) or all E x C capacity slots (executed)
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    expert = 6.0 * (2 * h * ffn + ffn + h)
+    dense = gpt_train_flops_per_token(cfg, seq)
+    caps = [r["capacity"] for r in routing.values()]
+    active = dense + len(caps) * expert * (2 - 1)
+    executed = dense + sum(expert * (MOE_EXPERTS * c / n_tok - 1)
+                           for c in caps)
+    tokens_per_s = steps * n_tok / wall
+    res = dict(model="gpt2-small-en", moe_num_experts=MOE_EXPERTS,
+               batch=batch, seq=seq, steps=steps, build_s=build_s,
+               losses=losses, sync_step_loss=sync_loss,
+               step_ms=1e3 * wall / steps, tokens_per_s=tokens_per_s,
+               flops_per_token_active=active,
+               flops_per_token_executed=executed,
+               flops_share=tokens_per_s * active / BF16_PEAK,
+               flops_share_executed=tokens_per_s * executed / BF16_PEAK,
+               peak_memory_bytes=peak, aux_loss=aux, routing=routing,
+               launches=n,
+               launches_per_step={k: v // (steps + 1) for k, v in n.items()},
+               profile=prof,
+               params=sum(p.numel() for p in model.parameters()))
+    drop = [r[when]["dropped_first_share"] for r in routing.values()
+            for when in ("first_step", "last_step")]
+    print(f"[gpt-moe] gpt2-small-en, {MOE_EXPERTS} experts every 2nd layer "
+          f"(gshard, capacity 1.2), {res['params']} parameters, B={batch} "
+          f"T={seq} bf16 AdamW: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; one step under "
+          f"set_sync_debug_mode('error'): no sync, loss {sync_loss:.6f}")
+    print(f"[gpt-moe] {res['step_ms']:.3f} ms a step, {tokens_per_s:.1f} "
+          f"tokens/s, flops share {100 * res['flops_share']:.2f}% (top-2 "
+          f"active, {active / 1e9:.3f} GFLOP a token) / "
+          f"{100 * res['flops_share_executed']:.2f}% (the E x C capacity "
+          f"slots executed, {executed / 1e9:.3f}) of the 989 TFLOP/s dense "
+          f"bf16 peak (H100 SXM data sheet), peak memory {peak} bytes, aux "
+          f"loss {aux:.6f}, first choices dropped {min(drop):.4f}-"
+          f"{max(drop):.4f} a layer and step (first, last; capacity "
+          f"{caps[0]}), launches a step "
+          f"{res['launches_per_step']} on {smi}")
+    for i, r in routing.items():
+        print(f"[gpt-moe] layer {i} (capacity {r['capacity']}): tokens "
+              f"kept by each expert, first step "
+              f"{r['first_step']['kept_per_expert']}, last step "
+              f"{r['last_step']['kept_per_expert']}; first choices dropped "
+              f"{r['first_step']['dropped_first_share']:.4f} / "
+              f"{r['last_step']['dropped_first_share']:.4f}; second choices "
+              f"kept {r['first_step']['second_kept_share']:.4f} / "
+              f"{r['last_step']['second_kept_share']:.4f}")
+    _print_profile("gpt-moe-profile", "one step", prof)
+    print(f"[gpt-moe-profile] attention kernels (fused flash forward, "
+          f"delta, dk/dv, dq): {prof['attention_ms']:.3f} ms of the step")
+    del model, step, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_parity(dev, seed, tol=1e-4, steps=3):
+    """Phase 33's parity: gpt2-small-en's width with 2 layers (the second
+    MoE, 8 experts, the naive top-2 gate: no random draw), f32, batch 2 x
+    1024, three steps on the card and on the CPU from the same weights:
+    losses within 1e-4 relative; 2 fused forwards and 2 of each fused
+    backward kernel a step on the card."""
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(seed + 3).randint(
+        0, 50304, size=(2, 1025)).astype(np.int64)
+
+    def build(where):
+        return _moe_model(where, seed, num_layers=2, moe_gate="naive")
+
+    def run(model):
+        step = _moe_step(model)
+        return [float(step(ids[:, :-1], ids[:, 1:])) for _ in range(steps)]
+
+    res = _parity("gpt-moe-parity", build, run, dev, tol)
+    want = {k: 0 for k in res["launches"]}
+    want.update({k: 2 * steps for k in ("fused_fwd", "fused_bwd_delta",
+                                        "fused_bwd_dkv", "fused_bwd_dq")})
+    if res["launches"] != want:
+        _fail(f"gpt-moe parity: launches {res['launches']} != {want}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -3674,6 +4184,21 @@ def main(argv=None) -> int:
     for what, n in slice_launches.items():
         if n["flash"] == 0 or n["paged"] == 0:
             _fail(f"phase {what}: rows 1 and 7 launched {n}")
+    # BERT / ERNIE pretraining and GPT-MoE (phases 32, 33) follow the
+    # earlier ones
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    bert_fwd, bert_bwd = _bert_kernel_cases(dev)
+    bert = phase_bert_train(dev, smi, args.seed)
+    bert_parity = phase_bert_parity(dev, args.seed)
+    bert["phase_s"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    moe = phase_moe_train(dev, smi, args.seed)
+    moe_parity = phase_moe_parity(dev, args.seed)
+    moe["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phases 32-33] {bert['phase_s']:.1f} s (BERT) + "
+          f"{moe['phase_s']:.1f} s (GPT-MoE) of wall time")
+    n_bert, n_moe = bert["launches"], moe["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -3727,21 +4252,38 @@ def main(argv=None) -> int:
              plain_ms=f_main["plain_ms"],
              bound_ms=f_main["bound_ms"], bound_by=f_main["bound_by"],
              library_ms=f_main["library_ms"],
-             launches_by_phase={k: v["flash"]
-                                for k, v in slice_launches.items()},
+             launches_by_phase={**{k: v["flash"]
+                                   for k, v in slice_launches.items()},
+                                "32 bert": n_bert["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
+        dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
+             route="cuda",
+             source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+             replaces="paddle_tpu/kernels/flash_attention.py:208",
+             launches=n_bert["fwd"], max_abs_err=bert_fwd["max_abs_err"],
+             ms=bert_fwd["ms"], eager_ms=bert_fwd["eager_ms"],
+             plain_ms=bert_fwd["plain_ms"], bound_ms=bert_fwd["bound_ms"],
+             bound_by=bert_fwd["bound_by"],
+             library_ms=bert_fwd["library_ms"],
+             shape="B=64 T=512 H=12 D=64 bfloat16 full, role views",
+             launches_of="phase 32: 6 steps, 12 a step"),
         dict(name="flash_attention_qkv_fused", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
              replaces=f"{fa_py}:490", launches=n_tr["fused_fwd"],
+             launches_by_phase={"33 gpt-moe": n_moe["fused_fwd"]},
              max_abs_err=fused_fwd["max_abs_err"], ms=fused_fwd["ms"],
              eager_ms=fused_fwd["eager_ms"],
              plain_ms=fused_fwd["plain_ms"], bound_ms=fused_fwd["bound_ms"],
              bound_by=fused_fwd["bound_by"],
              library_ms=fused_fwd["library_ms"],
              shape="B=16 T=1024 H=12 D=64 bfloat16 causal"),
-        bwd_row("flash_attention_qkv_fused_bwd (delta + dk/dv + dq kernels)",
-                534, n_tr["fused_bwd_delta"] + n_tr["fused_bwd_dkv"]
-                + n_tr["fused_bwd_dq"], fused_bwd),
+        dict(bwd_row("flash_attention_qkv_fused_bwd (delta + dk/dv + dq "
+                     "kernels)", 534, n_tr["fused_bwd_delta"]
+                     + n_tr["fused_bwd_dkv"] + n_tr["fused_bwd_dq"],
+                     fused_bwd),
+             launches_by_phase={"33 gpt-moe": n_moe["fused_bwd_delta"]
+                                + n_moe["fused_bwd_dkv"]
+                                + n_moe["fused_bwd_dq"]}),
         dict(name="flash_attention_qkv_fused at D=128 (gpt3-1.3B recipe)",
              route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -3758,9 +4300,23 @@ def main(argv=None) -> int:
                 big["launches"]["fused_bwd_delta"]
                 + big["launches"]["fused_bwd_dkv"]
                 + big["launches"]["fused_bwd_dq"], d128_bwd),
-        bwd_row("flash_attention_bwd (delta + dk/dv + dq kernels)", 371,
-                n_att[1024]["bwd_delta"] + n_att[1024]["bwd_dkv"]
-                + n_att[1024]["bwd_dq"], sep_1024),
+        dict(bwd_row("flash_attention_bwd (delta + dk/dv + dq kernels)",
+                     371, n_att[1024]["bwd_delta"] + n_att[1024]["bwd_dkv"]
+                     + n_att[1024]["bwd_dq"], sep_1024),
+             launches_by_phase={"32 bert": n_bert["bwd_delta"]
+                                + n_bert["bwd_dkv"] + n_bert["bwd_dq"]}),
+        dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
+                  "delta + dk/dv + dq kernels)",
+             route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
+             launches=n_bert["bwd_delta"] + n_bert["bwd_dkv"]
+             + n_bert["bwd_dq"], max_abs_err=bert_bwd["max_abs_err"],
+             ms=bert_bwd["ms"], eager_ms=bert_bwd["eager_ms"],
+             plain_ms=bert_bwd["plain_ms"], bound_ms=bert_bwd["bound_ms"],
+             bound_by=bert_bwd["bound_by"],
+             library_ms=bert_bwd["library_ms"],
+             library_bwd_ms=bert_bwd["library_bwd_ms"],
+             shape="B=64 T=512 H=12 D=64 bfloat16 full, role views",
+             launches_of="phase 32: 6 steps, 12 of each kernel a step"),
         bwd_row("flash_bwd_dq_kernel", 402, n_att[1100]["bwd_dq"], sep_1100,
                 "dq"),
         bwd_row("flash_bwd_dkv_kernel", 425, n_att[1100]["bwd_dkv"],
@@ -3888,7 +4444,10 @@ def main(argv=None) -> int:
                            recipe_sync=recipe_sync,
                            fused_head_train=fused_head, lora=lora,
                            int8_weights=int8w, supervisor=sup,
-                           host_tier=tier, kernels=kernels,
+                           host_tier=tier, bert_flash=[bert_fwd, bert_bwd],
+                           bert_train=bert, bert_parity=bert_parity,
+                           moe_train=moe, moe_parity=moe_parity,
+                           kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -146,11 +146,14 @@ class ShardedTrainStep:
     # -- the train state -----------------------------------------------------
     def _entries(self):
         """(trainable parameters, everything else in the state dict): the
-        JAX step's ``params`` and ``buffers``."""
+        JAX step's ``params`` and ``buffers``.  A parameter's second name
+        (BERT's tied ``cls.decoder_weight``) is neither."""
         params = {n: p for n, p in self.model.named_parameters()
                   if p.requires_grad}
-        buffers = {n: t for n, t in self.model.state_dict().items()
-                   if n not in params}
+        trained = {id(p) for p in params.values()}
+        buffers = {n: t.detach()
+                   for n, t in self.model.state_dict(keep_vars=True).items()
+                   if n not in params and id(t) not in trained}
         return params, buffers
 
     def state_dict(self) -> dict:

@@ -1,17 +1,22 @@
 """Weights and train states between the JAX package and the port, as numpy.
 
 The port keeps the JAX model's parameter and buffer names, so a JAX
-``state_dict()`` turned into numpy arrays loads by name, for GPT and for
-ResNet alike (conv weights as they are, batch-norm ``_mean`` and
-``_variance`` buffers by name).  Two things differ: the port's
-projections are ``nn.Linear`` (weight ``[out, in]``) where paddle stores
-``[in, out]``, so linear weights (GPT's projections, ResNet's ``fc``)
-transpose; and GPT's fused qkv columns must be head-major ``[nh, 3, hd]``
-— a state whose ``qkv_layout`` marker is below 2 (role-major ``[3, nh,
-hd]``) is permuted on load, as ``GPTSelfAttention._state_dict_compat_``
-does in the JAX package; other models have no such layer and are not
-touched.  A name on one side only raises, so a torch-style state with
-``num_batches_tracked`` is refused.
+``state_dict()`` turned into numpy arrays loads by name, for GPT (with
+its MoE experts and gates, ``mlp.moe.experts.{i}.fc0.weight``,
+``mlp.moe.gate.gate.weight``, ...), BERT / ERNIE and ResNet alike (conv
+weights as they are, batch-norm ``_mean`` and ``_variance`` buffers by
+name).  Two things differ: the port's projections are ``nn.Linear``
+(weight ``[out, in]``) where paddle stores ``[in, out]``, so linear
+weights (GPT's and BERT's projections, experts and gates, ResNet's
+``fc``) transpose; and GPT's fused qkv columns must be head-major ``[nh,
+3, hd]`` — a state whose ``qkv_layout`` marker is below 2 (role-major
+``[3, nh, hd]``) is permuted on load, as
+``GPTSelfAttention._state_dict_compat_`` does in the JAX package; other
+models have no such layer and are not touched (BERT's qkv is role-major
+on both sides).  BERT's tied decoder is one parameter under two names
+(``cls.decoder_weight`` and the word embedding's), as in JAX: both
+entries load into it, so it stays tied.  A name on one side only raises,
+so a torch-style state with ``num_batches_tracked`` is refused.
 
 A train state (``ShardedTrainStep.state_dict()``, the ``train_state_v2``
 layout: ``params``, ``slots``, ``buffers``, ``step``, ``opt_step_count``,

@@ -47,7 +47,9 @@ The training recipe's options (``GPTConfig``):
   time that does not grow with depth; under recompute, one layer
   rematerialised at a time).  PyTorch compiles nothing, the parameters
   stay per-layer objects in both (the state dict does not change), and
-  per-layer checkpointing already recomputes one layer at a time.
+  per-layer checkpointing already recomputes one layer at a time.  (JAX
+  falls back to its per-layer loop for a model with experts; here it is
+  the one loop anyway.)
 * ``fuse_head_loss``: in training ``GPTForPretraining`` returns
   ``FusedHeadOutput(hidden, tied weight)`` and the criterion runs
   ``F.fused_linear_nll_loss`` (the ``[B, T, V]`` logits never exist).  The
@@ -62,8 +64,22 @@ after the base projection, as in JAX's ``GPTSelfAttention``; the int8
 base weights are the engine's own serving copy of the model
 (``serving.adapters.weight_quant.quantize_model``).
 
-Not ported: MoE (``moe_num_experts > 0``), ``fuse_qkv=False`` (ROADMAP
-module entry 2), growing-concat and dense per-slot caches (entry 4).
+GPT-MoE (``moe_num_experts > 0``): every ``moe_every_n_layers``-th layer's
+MLP is a :class:`GPTMoEMLP`, a ``MoELayer``
+(``incubate.distributed.models.moe``) over ``moe_num_experts`` expert MLPs
+with the ``moe_gate`` gate ("gshard", "switch" or "naive"), train / eval
+capacity factors ``(cf, 2 * cf)`` for the first two.  As in JAX, a MoE
+layer takes no fused pre-LN route and runs outside recompute (its gate's
+balance loss is read after the forward), and the gates' losses of the last
+forward sum to ``GPTModel.moe_aux_loss()``, which
+:class:`GPTMoEPretrainingCriterion` adds to the LM loss at
+``moe_aux_loss_weight``.  ``fuse_qkv=False`` computes what ``True``
+computes: the JAX model reads the flag nowhere either.  ``activation``
+is any name of ``nn.functional.ACTIVATIONS`` (JAX's ``getattr(F,
+activation)``).
+
+Not ported: growing-concat and dense per-slot caches, and serving a MoE
+model (ROADMAP module entry 4).
 """
 from __future__ import annotations
 
@@ -76,6 +92,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..incubate.distributed.models.moe import MoELayer
 from ..kernels.ln_matmul import ln_matmul_enabled
 from ..kernels.paged_attention import SPARE_PAGE, paged_decode_attention
 from ..nn import LayerNorm
@@ -84,9 +101,10 @@ from ..serving.adapters.lora import active as _lora_active
 from ..serving.kv_quant import quantize_rows
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTSelfAttention",
-           "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
-           "FusedHeadOutput", "GPTForPretraining",
-           "GPTPretrainingCriterion", "build_gpt",
+           "GPTMLP", "GPTMoEMLP", "GPTDecoderLayer", "GPTEmbeddings",
+           "GPTModel", "FusedHeadOutput", "GPTForPretraining",
+           "GPTPretrainingCriterion", "GPTMoEPretrainingCriterion",
+           "build_gpt",
            "gpt_num_params", "gpt_train_flops_per_token",
            "QKV_LAYOUT_HEAD_MAJOR", "SPARE_PAGE"]
 
@@ -105,11 +123,12 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     use_recompute: bool = False
     scan_layers: bool = False       # the same per-layer loop (docstring)
-    fuse_qkv: bool = True
+    fuse_qkv: bool = True           # False computes the same (docstring)
     activation: str = "gelu"
+    # MoE (GPT-MoE / GShard FFN replacement): 0 = dense FFN
     moe_num_experts: int = 0
-    moe_top_k: int = 0
-    moe_every_n_layers: int = 2
+    moe_top_k: int = 0  # 0 = the gate's own default (gshard 2, switch 1)
+    moe_every_n_layers: int = 2  # every n-th block becomes MoE
     moe_capacity_factor: float = 1.2
     moe_aux_loss_weight: float = 0.01
     moe_gate: str = "gshard"
@@ -118,19 +137,9 @@ class GPTConfig:
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
-        if self.activation != "gelu":
-            raise NotImplementedError(
-                f"activation {self.activation!r}: the port has exact gelu "
-                f"only")
-        if self.moe_num_experts > 0:
-            raise NotImplementedError(
-                f"moe_num_experts={self.moe_num_experts}: the MoE FFN is "
-                f"not ported yet (ROADMAP module entry 2)")
-        if not self.fuse_qkv:
-            raise NotImplementedError(
-                "fuse_qkv=False (separate q, k, v projections) is not "
-                "ported; the port has the fused head-major qkv projection "
-                "(ROADMAP module entry 2)")
+        if self.activation not in F.ACTIVATIONS:
+            raise ValueError(f"activation {self.activation!r} is not one of "
+                             f"{sorted(F.ACTIVATIONS)}")
 
 
 # FleetX / GPT-3 paper ladder (vocab padded to a 128 multiple)
@@ -306,6 +315,7 @@ class GPTMLP(nn.Module):
         super().__init__()
         self.fc0 = nn.Linear(config.hidden_size, config.intermediate_size)
         self.fc1 = nn.Linear(config.intermediate_size, config.hidden_size)
+        self.act = getattr(F, config.activation)
 
     def forward(self, x, pre_norm=None):
         if pre_norm is not None:
@@ -314,30 +324,59 @@ class GPTMLP(nn.Module):
                                   eps=pre_norm._epsilon)
         else:
             h = self.fc0(x)
-        # exact (erf) gelu, as jax.nn.gelu(approximate=False)
-        return self.fc1(torch.nn.functional.gelu(h))
+        return self.fc1(self.act(h))
+
+
+class GPTMoEMLP(nn.Module):
+    """The GShard-style FFN: a ``MoELayer`` over ``moe_num_experts``
+    :class:`GPTMLP` experts.  The gate's balance loss of the last forward
+    is ``last_aux_loss`` (None for the naive gate)."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        cf = config.moe_capacity_factor
+        gate = {"type": config.moe_gate}
+        fixed_k = {"gshard": 2, "switch": 1}.get(config.moe_gate)
+        if fixed_k is None:
+            gate["top_k"] = config.moe_top_k or 2
+        elif config.moe_top_k not in (0, fixed_k):
+            raise ValueError(
+                f"moe_gate={config.moe_gate!r} requires moe_top_k={fixed_k} "
+                f"(got {config.moe_top_k}); use moe_gate='naive' for other k")
+        if config.moe_gate in ("gshard", "switch"):
+            gate["capacity"] = (cf, 2 * cf)  # train/eval caps the gate uses
+        self.moe = MoELayer(
+            config.hidden_size,
+            [GPTMLP(config) for _ in range(config.moe_num_experts)],
+            gate=gate, capacity_factor=cf)
+        self.last_aux_loss = None
+
+    def forward(self, x):
+        out = self.moe(x)
+        self.last_aux_loss = self.moe.gate.get_loss()
+        return out
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block; its MLP is a :class:`GPTMoEMLP` with
+    ``use_moe``."""
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, use_moe: bool = False):
         super().__init__()
         eps = config.layer_norm_epsilon
         self.norm1 = LayerNorm(config.hidden_size, epsilon=eps)
         self.self_attn = GPTSelfAttention(config)
         self.norm2 = LayerNorm(config.hidden_size, epsilon=eps)
-        self.mlp = GPTMLP(config)
+        self.mlp = GPTMoEMLP(config) if use_moe else GPTMLP(config)
         self.dropout1 = nn.Dropout(config.hidden_dropout_prob)
         self.dropout2 = nn.Dropout(config.hidden_dropout_prob)
 
-    @staticmethod
-    def _fuse_ln_proj():
+    def _fuse_ln_proj(self):
         """Route the pre-LNs into their projections (one ``ln_matmul``
-        each) when the opt-in kernel is on.  JAX's other conditions (no
-        model parallelism, no mesh, a dense MLP) always hold in the port;
-        the caller checks that there is no cache."""
-        return ln_matmul_enabled()
+        each) when the opt-in kernel is on and the MLP is dense.  JAX's
+        other conditions (no model parallelism, no mesh) always hold in
+        the port; the caller checks that there is no cache."""
+        return ln_matmul_enabled() and not isinstance(self.mlp, GPTMoEMLP)
 
     def forward(self, x, cache=None):
         if cache is None and self._fuse_ln_proj():
@@ -376,7 +415,11 @@ class GPTModel(nn.Module):
         self.config = config
         self.embeddings = GPTEmbeddings(config)
         self.layers = nn.ModuleList(
-            [GPTDecoderLayer(config) for _ in range(config.num_layers)])
+            [GPTDecoderLayer(
+                config,
+                use_moe=(config.moe_num_experts > 0 and
+                         (i + 1) % max(config.moe_every_n_layers, 1) == 0))
+             for i in range(config.num_layers)])
         self.final_norm = LayerNorm(config.hidden_size,
                                     epsilon=config.layer_norm_epsilon)
 
@@ -411,7 +454,9 @@ class GPTModel(nn.Module):
                     scope.layer = i        # each layer gathers its bank slice
                 x, c = layer(x, cache=caches[i])
                 new_caches.append(c)
-            elif recompute:
+            elif recompute and not isinstance(layer.mlp, GPTMoEMLP):
+                # (a MoE layer runs outside recompute, as in JAX: its
+                # gate's loss is read after the forward)
                 # the values the layer holds now (the train step's cast
                 # ones inside its functional_call) ride as inputs, so the
                 # replay in backward() computes with them
@@ -422,6 +467,16 @@ class GPTModel(nn.Module):
                 x = layer(x)
         x = self.final_norm(x)
         return x if caches is None else (x, new_caches)
+
+    def moe_aux_loss(self):
+        """The sum of the gates' balance losses of the last forward (None
+        for a model without a gate that records one)."""
+        total = None
+        for layer in self.layers:
+            aux = getattr(layer.mlp, "last_aux_loss", None)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return total
 
 
 def _call_layer(layer, names, x, *values):
@@ -493,6 +548,31 @@ class GPTPretrainingCriterion(nn.Module):
             m = loss_mask.reshape(-1).float()
             return (loss * m).sum() / m.sum().clamp(min=1.0)
         return loss.mean()
+
+
+class GPTMoEPretrainingCriterion(nn.Module):
+    """The LM loss plus ``aux_loss_weight`` (default: the config's
+    ``moe_aux_loss_weight``) times ``model``'s :meth:`GPTModel.moe_aux_loss`
+    of the same forward.  It holds the model without registering it, so it
+    owns none of the model's parameters."""
+
+    def __init__(self, model, aux_loss_weight=None, ignore_index=-100):
+        super().__init__()
+        gpt = getattr(model, "gpt", model)
+        object.__setattr__(self, "_gpt", gpt)
+        w = aux_loss_weight
+        if w is None:
+            cfg = getattr(gpt, "config", None)
+            w = cfg.moe_aux_loss_weight if cfg is not None else 0.01
+        self.aux_weight = w
+        self.lm = GPTPretrainingCriterion(ignore_index=ignore_index)
+
+    def forward(self, prediction_scores, masked_lm_labels, loss_mask=None):
+        loss = self.lm(prediction_scores, masked_lm_labels, loss_mask)
+        aux = self._gpt.moe_aux_loss()
+        if aux is not None:
+            loss = loss + self.aux_weight * aux
+        return loss
 
 
 def gpt_num_params(cfg: GPTConfig) -> int:

@@ -1,5 +1,9 @@
 """Functionals of the port (``paddle_tpu.nn.functional`` counterparts)."""
-from .activation import relu
+from .activation import (ACTIVATIONS, celu, elu, gelu, hardshrink,
+                         hardsigmoid, hardswish, hardtanh, leaky_relu,
+                         log_sigmoid, mish, relu, relu6, selu, sigmoid, silu,
+                         softplus, softshrink, softsign, swish, tanh,
+                         tanhshrink)
 from .attention import (fused_ln_linear, fused_qkv_attention,
                         scaled_dot_product_attention)
 from .conv import conv2d, pointwise_as_dot
@@ -11,4 +15,8 @@ __all__ = ["scaled_dot_product_attention", "fused_qkv_attention",
            "fused_ln_linear", "layer_norm", "batch_norm", "fused_nll_loss",
            "fused_linear_nll_loss",
            "cross_entropy", "conv2d", "pointwise_as_dot", "max_pool2d",
-           "adaptive_avg_pool2d", "relu"]
+           "adaptive_avg_pool2d", "ACTIVATIONS", "relu", "relu6", "elu",
+           "selu", "celu", "gelu", "sigmoid", "log_sigmoid", "hardsigmoid",
+           "hardswish", "hardtanh", "hardshrink", "softshrink", "tanhshrink",
+           "leaky_relu", "softplus", "softsign", "silu", "swish", "mish",
+           "tanh"]

@@ -81,7 +81,8 @@ port does not reimplement.  Sampled rows take no drafts and emit one
 token a step.
 
 Flags of the JAX engine this port does not have raise
-``NotImplementedError`` naming their ROADMAP entry.
+``NotImplementedError`` naming their ROADMAP entry, and so does a model
+with MoE layers (entry 4).
 """
 from __future__ import annotations
 
@@ -440,6 +441,9 @@ class Engine:
             raise _unported("sample_on_device (device-fused sampling)")
         if decode_timeout_s is not None:
             raise _unported("decode_timeout_s (the crash-dump watchdog)", 9)
+        if model.gpt.config.moe_num_experts > 0:
+            raise _unported("serving a model with MoE layers (capacity "
+                            "routing over the decode graph's padded slots)")
         if host_prefix is not None and host_prefix_mb is not None:
             raise ValueError(
                 "pass host_prefix_mb= (engine-owned tier) OR host_prefix= "

@@ -1542,3 +1542,108 @@ def test_host_tier_on_card(cuda, kv_dtype):
     assert st["host_prefix"]["demote_errors"] == 0
     for g, w in zip(got1 + got2, want1 + want2):
         np.testing.assert_array_equal(g, w)
+
+
+# -- GPT-MoE and BERT training ------------------------------------------------
+
+def _launches():
+    return (fa.flash_attention_bthd.launches,
+            fa.flash_attention_bwd.launches_delta,
+            fa.flash_attention_bwd.launches_dkv,
+            fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_qkv_fused.launches,
+            fa.flash_attention_qkv_fused_bwd.launches_delta,
+            fa.flash_attention_qkv_fused_bwd.launches_dkv,
+            fa.flash_attention_qkv_fused_bwd.launches_dq)
+
+
+def _family_step(family, dev, dtype=None, **kw):
+    """A 2-layer train step of gpt-tiny with MoE layers (GShard gate, 4
+    experts, heads of 32) or of bert-tiny (heads of 64), dropout 0, AdamW,
+    with its batch on ``dev``."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import (BertPretrainingCriterion,
+                                         GPTMoEPretrainingCriterion,
+                                         build_bert, build_gpt)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    drop = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    rs = np.random.RandomState(3)
+    if family == "moe":
+        model = build_gpt("gpt-tiny", device=dev, seed=1, moe_num_experts=4,
+                          max_position_embeddings=128, **drop, **kw)
+        ids = torch.from_numpy(rs.randint(0, 1024, (2, 129))).to(dev)
+        batch = (ids[:, :-1], ids[:, 1:])
+        crit = GPTMoEPretrainingCriterion(model)
+        num_labels = 1
+    else:
+        model = build_bert("bert-tiny", device=dev, seed=1, **drop, **kw)
+        ids, lab = (torch.from_numpy(rs.randint(0, 1024, (2, 128))).to(dev)
+                    for _ in range(2))
+        batch = (ids, lab, torch.tensor([0, 1], device=dev))
+        bc = BertPretrainingCriterion()
+
+        def crit(out, labels, nsp):
+            return bc(out[0], out[1], labels, nsp)
+
+        num_labels = 2
+    step = make_train_step(model, AdamW(learning_rate=1e-3, parameters=model),
+                           loss_fn=crit, num_labels=num_labels,
+                           compute_dtype=dtype)
+    return model, step, batch
+
+
+@pytest.mark.cuda
+def test_moe_step_syncs_nothing_and_launches_the_fused_kernels(cuda):
+    """A bf16 GPT-MoE step (capacity dispatch, GShard's random routing,
+    the balance loss) with its batch on the card waits for the device
+    nowhere, and each layer launches the fused flash forward and its three
+    backward kernels once."""
+    model, step, batch = _family_step("moe", cuda, torch.bfloat16)
+    first = step(*batch)                    # builds what the first builds
+    torch.cuda.synchronize()
+    before = _launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = step(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = _launches()
+    assert tuple(b - a for a, b in zip(before, after)) == (
+        0, 0, 0, 0, 2, 2, 2, 2)
+    assert np.isfinite([float(first), float(second)]).all()
+    assert float(model.gpt.moe_aux_loss().detach()) > 0
+
+
+@pytest.mark.cuda
+def test_bert_step_launches_the_separate_kernels(cuda):
+    """A bf16 BERT step (bf16 parameters and slots, the bench's recipe)
+    runs each layer's attention through the separate-operand flash
+    forward on the fused projection's role views and its three backward
+    kernels once, and no fused kernel."""
+    model, step, batch = _family_step("bert", cuda)
+    model.to(torch.bfloat16)
+    before = _launches()
+    losses = [float(step(*batch)) for _ in range(3)]
+    after = _launches()
+    assert tuple(b - a for a, b in zip(before, after)) == (
+        6, 6, 6, 6, 0, 0, 0, 0)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["moe", "bert"])
+def test_family_steps_on_card_match_cpu(cuda, family):
+    """Three f32 steps on the card (kernels) and on the CPU (plain
+    versions) from the same weights: losses within 1e-4 relative (GPT-MoE
+    with the naive gate: no random draw)."""
+    from paddle_tpu_torch.models import load_jax_state, to_jax_state
+
+    kw = dict(moe_gate="naive") if family == "moe" else {}
+    state = to_jax_state(_family_step(family, "cpu", **kw)[0])
+    losses = {}
+    for dev in ("cpu", cuda):
+        model, step, batch = _family_step(family, dev, **kw)
+        load_jax_state(model, state)
+        losses[str(dev)] = [float(step(*batch)) for _ in range(3)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -292,10 +292,12 @@ def test_adam_folds_l2_and_refuses_unported_options():
     opt.step()
     np.testing.assert_allclose(r.detach().numpy(), -0.5, rtol=1e-6)
     np.testing.assert_allclose(r.grad.numpy(), 2.0)
-    for kw, what in [(dict(moe_num_experts=4), "MoE"),
-                     (dict(fuse_qkv=False), "fuse_qkv")]:
-        with pytest.raises(NotImplementedError, match=f"{what}.*entry 2"):
-            gpt_config("gpt-tiny", **kw)
+    # MoE and fuse_qkv=False are ported (tests/test_torch_moe.py): both
+    # configurations build
+    for kw in (dict(moe_num_experts=4), dict(fuse_qkv=False)):
+        cfg = gpt_config("gpt-tiny", **kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+        build_gpt(cfg, device="cpu")
 
 
 # -- the step ------------------------------------------------------------------
