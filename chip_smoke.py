@@ -276,6 +276,45 @@ run with a non-zero exit, and nothing is caught):
    5 and 6 (phase 33) carry their launches in the kernels line's
    ``launches_by_phase``, and the BERT-shape cases are entries of their
    own.
+34. (phases 34-36 run after 33) PP-YOLOE-s training at
+   ``bench_ppyoloe``'s recipe (``bench.py:476-520``), full width and
+   depth: ``PPYOLOE(num_classes=80)`` (8234460 parameters) from torch's
+   seeded generator, batch 8 x 3 x 640^2 with the bench's
+   ``RandomState(0)`` images and two gt boxes an image, Momentum (0.01,
+   0.9, L2 5e-4), bf16 over f32 masters, cuDNN autotuning on: one
+   warm-up and 5 timed steps (the bench runs 10), one profiled step; step
+   ms, images/s, the flops share by the bench's 3 x 17.4e9 FLOP an image
+   and by the model's own conv shapes, peak memory (above what the
+   phase began with, as in 35 and 36), busy share and the five largest
+   kernels; gated on finite, falling losses, a non-zero
+   positive count in every step, one step build, no attention or
+   LayerNorm launch and no wait for the device in a step (one more step
+   under ``set_sync_debug_mode("error")``); then ``fuse()`` in eval mode (the fused forward
+   within 1e-3 of the unfused, relative to its largest element) and
+   ``predict`` at the batch's median best-class score (detections in
+   every image, the card's NMS keeping the CPU's indices on the same
+   boxes); then an f32 parity at half width
+   (16 ... 256), 2 x 64^2, three steps, losses within 1e-4 relative;
+35. PP-OCRv3's recognizer: rows 1 and 2 at its global mixing's shape
+   (B=128 T=80 H=8, D = 16 and 32, bf16, not causal, separate q, k, v)
+   against their plain versions and ``sdpa_ref`` differentiated in f32
+   (bf16 tolerance), device ms, SDPA's and the bounds; then
+   ``ppocrv3_rec(6625)`` (3477057 parameters, the JAX defaults) at
+   PP-OCRv3's 3 x 48 x 320 (T = 80), batch 128, labels of 25, Adam 1e-3,
+   bf16 over f32 masters: one warm-up and 5 timed steps, one profiled;
+   images/s, step ms, peak memory, busy share, launches a step; gated on
+   finite, falling CTC losses, no wait for the device in the model's
+   forward and backward (torch's CTC loss waits once a call: it copies
+   its lengths to the device) and exactly 4 flash forwards and 4 of each
+   backward kernel a step, 3 at D = 16 and 1 at D = 32 as the counters
+   by head size read them; then
+   its f32 parity at full width, 4 lines, three steps (1e-4 relative);
+36. CRNN at the JAX test's widths on 32 x 320 lines (T = 80), batch 128,
+   f32, Adam 5e-3: falling CTC losses, ``ctc_greedy_decode`` of its
+   logits on the card, and of seeded logits on the card and the CPU
+   (equal rows, ids in every row).  The D = 16 and D = 32 cases are
+   entries of the kernels line with the launches counted at each head
+   size, and rows 1 and 2 carry phase 35's in ``launches_by_phase``.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -1175,11 +1214,11 @@ def _ln_counters(zero=False):
     return {key: getattr(fn, attr) for fn, attr, key in slots}
 
 
-def _attention_counters(zero=False):
-    """The flash launch counters (set to 0 first with ``zero``)."""
+def _attention_slots():
+    """(wrapper, counter attribute, key) of every flash launch counter."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    slots = [(fa.flash_attention_bthd, "launches", "fwd"),
+    return [(fa.flash_attention_bthd, "launches", "fwd"),
              (fa.flash_attention_qkv_fused, "launches", "fused_fwd"),
              (fa.flash_attention_bwd, "launches_delta", "bwd_delta"),
              (fa.flash_attention_bwd, "launches_dkv", "bwd_dkv"),
@@ -1190,10 +1229,25 @@ def _attention_counters(zero=False):
               "fused_bwd_dkv"),
              (fa.flash_attention_qkv_fused_bwd, "launches_dq",
               "fused_bwd_dq")]
+
+
+def _attention_counters(zero=False):
+    """The flash launch counters (set to 0 first with ``zero``, those by
+    head size too)."""
+    slots = _attention_slots()
     if zero:
         for fn, attr, _ in slots:
             setattr(fn, attr, 0)
+            fn.launches_by_head_size = {}
     return {key: getattr(fn, attr) for fn, attr, key in slots}
+
+
+def _attention_by_head_size():
+    """The flash launches by head size since the counters were last set
+    to 0, as counted where each kernel launches: ``{"<key>_d<D>": n}``."""
+    return {f"{key}_d{d}": n for fn, attr, key in _attention_slots()
+            for (what, d), n in sorted(fn.launches_by_head_size.items())
+            if what == attr}
 
 
 def _max_err(got, want, dtype, what):
@@ -3619,21 +3673,31 @@ BERT_FLOPS_PER_TOKEN = 6 * 110e6     # bench_bert's count (bench.py:569)
 MOE_EXPERTS = 8
 
 
-def _bert_kernel_cases(dev, B=64, T=512, H=12, D=64):
+def _attention_cases(dev, B=64, T=512, H=12, D=64, views=True,
+                       tag="bert-flash"):
     """Rows 1 and 2 at BERT-base's attention (phase 32): the forward and
     the single-tile backward on the role views of one ``[B, T, 3, H, D]``
     bf16 projection, not causal, against their plain versions (bf16
     tolerance); device ms, SDPA (forward; forward+backward and its
-    backward alone) and the bounds."""
+    backward alone) and the bounds.  With ``views=False`` (SVTR's
+    attention, phase 35) q, k and v are three ``[B, T, H, D]`` tensors, as
+    ``nn.MultiHeadAttention``'s projections give them, and the kernels'
+    output and gradients are also held to ``sdpa_ref`` differentiated by
+    torch in f32 on the same operands (bf16 tolerance)."""
     import torch
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    qkv = torch.randn(B, T, 3, H, D, device=dev, generator=gen).to(
-        torch.bfloat16)
-    q, k, v = qkv.unbind(2)
+    if views:
+        qkv = torch.randn(B, T, 3, H, D, device=dev, generator=gen).to(
+            torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        qkv = None
+        q, k, v = (torch.randn(B, T, H, D, device=dev, generator=gen).to(
+            torch.bfloat16) for _ in range(3))
     do = torch.randn(B, T, H, D, device=dev, generator=gen).to(
         torch.bfloat16)
     out, lse = fa.flash_attention_bthd(q, k, v, causal=False,
@@ -3642,13 +3706,26 @@ def _bert_kernel_cases(dev, B=64, T=512, H=12, D=64):
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=False,
                                             return_lse=True)
-    fwd_err = max(_max_err([out], [ref], torch.bfloat16, "BERT forward"),
+    what = f"{tag} D={D}"
+    fwd_err = max(_max_err([out], [ref], torch.bfloat16, f"{what} forward"),
                   _max_err([lse], [ref_lse], torch.float32,
-                           "BERT forward lse"))
+                           f"{what} forward lse"))
     del ref, ref_lse
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False)
-    bwd_err = _max_err(grads, want, torch.bfloat16, "BERT backward")
-    del want, grads
+    bwd_err = _max_err(grads, want, torch.bfloat16, f"{what} backward")
+    del want
+    if not views:
+        ops = [x.float().requires_grad_() for x in (q, k, v)]
+        ref = fa.sdpa_ref(*ops, None, False, D ** -0.5)
+        ref.backward(do.float())
+        fwd_err = max(fwd_err, _max_err([out], [ref.detach()],
+                                        torch.bfloat16,
+                                        f"{what} forward vs sdpa_ref"))
+        bwd_err = max(bwd_err, _max_err(
+            grads, [x.grad for x in ops], torch.bfloat16,
+            f"{what} backward vs sdpa_ref"))
+        del ops, ref
+    del grads
     torch.cuda.empty_cache()
     qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
@@ -3676,15 +3753,18 @@ def _bert_kernel_cases(dev, B=64, T=512, H=12, D=64):
         flops, nbytes = cost(B, T, T, H, D, False, itemsize=2)
         bound_ms, bound_by = _bound(flops, nbytes, BF16_PEAK)
         row = dict(part=part, B=B, Tq=T, Tk=T, H=H, D=D, dtype="bfloat16",
-                   causal=False, operands="role views of [B, T, 3, H, D]",
+                   causal=False,
+                   operands="role views of [B, T, 3, H, D]" if views
+                   else "separate [B, T, H, D]",
                    max_abs_err=err, ms=ms, eager_ms=eager_ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                    bound_by=bound_by, tflops=flops / ms / 1e9)
         if part == "bwd":
             row["library_bwd_ms"] = lib_ms - rows[0]["library_ms"]
         rows.append(row)
-        print(f"[bert-flash] {part} B={B} T={T} H={H} D={D} bf16 full, "
-              f"role views: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+        print(f"[{tag}] {part} B={B} T={T} H={H} D={D} bf16 full, "
+              f"{'role views' if views else 'separate q, k, v'}: "
+              f"max_abs_err={err:.3e} kernel {ms:.4f} ms "
               f"(eager {eager_ms:.4f}; {row['tflops']:.1f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, sdpa {'fwd' if part == 'fwd' else 'fwd+bwd'}"
               f" {lib_ms:.4f} ms"
@@ -4085,6 +4165,431 @@ def phase_moe_parity(dev, seed, tol=1e-4, steps=3):
     return res
 
 
+# -- detection and text recognition (phases 34-36) -------------------------
+
+PPYOLOE_BENCH_FLOPS = 17.4e9    # bench.py:511, one image forward at 640^2
+PPYOLOE_S_PARAMS = 8234460      # PPYOLOE(num_classes=80), counted in JAX
+PPOCRV3_REC_PARAMS = 3477057    # ppocrv3_rec(6625) at the JAX defaults
+
+
+def _ppyoloe_batch(dev, batch, size):
+    """``bench_ppyoloe``'s inputs: ``RandomState(0)`` images and the two
+    fixed gt boxes and labels an image."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    x = rng.standard_normal((batch, 3, size, size)).astype(np.float32)
+    gtb = np.stack([np.array([[4, 4, 300, 300], [64, 32, 400, 500]],
+                             np.float32)] * batch)
+    gtl = np.stack([np.array([1, 3], np.int64)] * batch)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, gtb, gtl))
+
+
+def _ppyoloe_step(model, compute_dtype=None):
+    """``bench_ppyoloe``'s step: Momentum (lr 0.01, momentum 0.9, weight
+    decay 5e-4), ``PPYOLOELoss(model)``, ``num_labels=2``."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import PPYOLOELoss
+
+    opt = Momentum(learning_rate=0.01, momentum=0.9, parameters=model,
+                   weight_decay=5e-4)
+    return make_train_step(model, opt, loss_fn=PPYOLOELoss(model),
+                           num_labels=2, compute_dtype=compute_dtype)
+
+
+@contextlib.contextmanager
+def _positives(step):
+    """Records each loss call's positive count (``is_pos.sum()``, kept on
+    the device: no sync) in the yielded list."""
+    crit = step.loss_fn
+    seen = []
+    assign = crit.assign
+
+    def counting(*args, **kwargs):
+        t = assign(*args, **kwargs)
+        seen.append(t["is_pos"].sum())
+        return t
+
+    crit.assign = counting
+    try:
+        yield seen
+    finally:
+        del crit.assign
+
+
+def _no_sync(tag, fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a wait for the
+    device anywhere in it fails the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        _fail(f"{tag}: the step waits for the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def phase_ppyoloe_train(dev, smi, seed, steps=5, batch=8, size=640):
+    """Phase 34: ``bench_ppyoloe``'s recipe (``bench.py:476-520``) at full
+    width and depth: ``PPYOLOE(num_classes=80)`` (8.23M parameters) from
+    torch's seeded generator on the card, batch 8 x 3 x 640^2, bf16
+    compute over f32 masters, cuDNN autotuning on; one warm-up and 5 timed
+    steps (the bench runs 10), one profiled step and one step under
+    ``set_sync_debug_mode("error")``.  Gates: finite, falling losses, a
+    non-zero positive count in every step, one step build, no attention
+    or LayerNorm kernel launched, no wait for the device in a step.  Peak
+    memory is counted above what was allocated when the phase began.
+    Then, in eval mode, ``fuse()`` (the fused forward within 1e-3 of the
+    unfused one, relative to its largest element) and ``predict`` at the
+    batch's median best-class score as its threshold (:func:`_detections`)."""
+    import torch
+
+    from paddle_tpu_torch.vision.models import PPYOLOE, conv_flops
+
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.manual_seed(seed)
+    model = PPYOLOE(num_classes=80, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PPYOLOE_S_PARAMS:
+        _fail(f"ppyoloe-s has {n_params} parameters, not "
+              f"{PPYOLOE_S_PARAMS}")
+    flops_fwd = conv_flops(model, size, size)
+    step = _ppyoloe_step(model, torch.bfloat16)
+    data = _ppyoloe_batch(dev, batch, size)
+    build_s = time.perf_counter() - t0
+    bench0 = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        with _positives(step) as pos:
+            losses, wall, n, peak = _timed_steps(step, data, steps)
+        peak -= base
+        with _no_plain():
+            prof = _device_profile(lambda: step(*data), top=5)
+        _no_sync("ppyoloe-s", lambda: step(*data))
+    finally:
+        torch.backends.cudnn.benchmark = bench0
+    positives = [int(p) for p in pos]
+    _falling("ppyoloe-s", losses)
+    if len(positives) != steps + 1 or not all(p > 0 for p in positives):
+        _fail(f"ppyoloe-s: positive counts {positives}")
+    if step.compile_count != 1 or any(n.values()):
+        _fail(f"ppyoloe-s: {step.compile_count} step builds, launches {n}")
+    ips = steps * batch / wall
+    res = dict(model="PPYOLOE(num_classes=80)", params=n_params, batch=batch,
+               size=size, steps=steps, build_s=build_s, losses=losses,
+               positives=positives, step_ms=1e3 * wall / steps,
+               images_per_s=ips,
+               flops_share_bench=ips * 3 * PPYOLOE_BENCH_FLOPS / BF16_PEAK,
+               flops_fwd_per_image=flops_fwd,
+               flops_share_own=ips * 3 * flops_fwd / BF16_PEAK,
+               peak_memory_bytes=peak, memory_at_start_bytes=base,
+               cudnn_benchmark=True, profile=prof)
+    print(f"[ppyoloe] PPYOLOE(num_classes=80) {n_params} parameters, "
+          f"B={batch} {size}x{size} bf16 over f32 masters, Momentum (0.01, "
+          f"0.9, L2 5e-4): losses {', '.join(f'{v:.6f}' for v in losses)}, "
+          f"positives {positives} (built in {build_s:.1f} s)")
+    print(f"[ppyoloe] {res['step_ms']:.3f} ms a step, {ips:.1f} images/s, "
+          f"flops share {100 * res['flops_share_bench']:.2f}% of the 989 "
+          f"TFLOP/s dense bf16 peak by the bench's 3 x 17.4e9 FLOP an image, "
+          f"{100 * res['flops_share_own']:.2f}% by the model's conv shapes "
+          f"({flops_fwd / 1e9:.4f} GFLOP an image forward, x3), peak memory "
+          f"{peak} bytes above the phase's start ({base} then) on {smi}")
+    _print_profile("ppyoloe-profile", "one step", prof)
+
+    # deploy: fuse the RepVGG blocks, then predict, in eval mode (f32)
+    model.eval()
+    x = data[0]
+    with torch.no_grad():
+        plain = model(x)[0]
+        model.fuse()
+        fused = model(x)[0]
+    rel = max(float((f - p).abs().max()) / float(p.abs().max())
+              for f, p in zip(fused, plain))
+    if not rel <= 1e-3:
+        _fail(f"ppyoloe-s: the fused forward differs by {rel} relative")
+    res.update(fuse_max_rel_diff=rel, **_detections(model, x))
+    print(f"[ppyoloe] eval: fused forward within {rel:.3e} of the unfused "
+          f"(largest element); predict (score > {res['score_threshold']:.6f}"
+          f", the median best-class score; NMS IoU 0.5, 100 max): "
+          f"candidates an image {res['candidates_per_image']}, detections "
+          f"an image {res['detections_per_image']}, kept indices equal to "
+          f"the CPU's NMS on the same boxes")
+    del model, step, data, plain, fused
+    torch.cuda.empty_cache()
+    return res
+
+
+def _detections(model, x, iou=0.5, max_dets=100):
+    """``model.predict`` on the card with the batch's median best-class
+    score as its threshold, so that about half the anchors reach NMS.
+    Gates: detections in every image, and the card's NMS keeping exactly
+    the indices the CPU's keeps on the same decoded boxes and scores."""
+    import torch
+
+    from paddle_tpu_torch.vision.ops import nms
+
+    with torch.no_grad():
+        boxes, scores = model.decode(model(x))
+    best = scores.max(dim=-1).values
+    thr = float(best.median())
+    dets = model.predict(x, score_threshold=thr, nms_threshold=iou,
+                         max_dets=max_dets)
+    counts = [len(b) for b, _ in dets]
+    cands = []
+    for i in range(boxes.shape[0]):
+        kept = []
+        for b, s in ((boxes[i], best[i]), (boxes[i].cpu(), best[i].cpu())):
+            idx = torch.nonzero(s > thr).reshape(-1)
+            kept.append(idx[nms(b[idx], iou_threshold=iou, scores=s[idx],
+                                top_k=max_dets)].cpu())
+        cands.append(int(idx.numel()))
+        if not torch.equal(*kept) or not len(kept[0]):
+            _fail(f"ppyoloe-s: image {i}: the card's NMS kept "
+                  f"{kept[0].tolist()}, the CPU's {kept[1].tolist()}")
+    if not all(counts):
+        _fail(f"ppyoloe-s: predict found detections an image {counts}")
+    return dict(score_threshold=thr, candidates_per_image=cands,
+                detections_per_image=counts)
+
+
+def phase_ppyoloe_parity(dev, seed, tol=1e-4, steps=3):
+    """Phase 34's parity: PP-YOLOE at half width (16 ... 256, PP-YOLOE-s's
+    depth, 80 classes), f32, batch 2 x 64^2 with the bench's gt boxes
+    scaled to 64^2, three Momentum steps on the card and on the CPU from
+    the same weights: losses within 1e-4 relative."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.vision.models import PPYOLOE
+
+    x = np.random.RandomState(seed + 5).randn(2, 3, 64, 64).astype(
+        np.float32)
+    gtb = np.array([[[4, 4, 30, 30], [6, 3, 40, 50]]] * 2, np.float32)
+    gtl = np.array([[1, 3]] * 2, np.int64)
+
+    def build(where):
+        torch.manual_seed(seed)
+        return PPYOLOE(num_classes=80, width=(16, 32, 64, 128, 256),
+                       device=where)
+
+    def run(model):
+        step = _ppyoloe_step(model)
+        return [float(step(x, gtb, gtl)) for _ in range(steps)]
+
+    res = _parity("ppyoloe-parity", build, run, dev, tol)
+    if any(res["launches"].values()):
+        _fail(f"ppyoloe parity: launches {res['launches']}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ocr_step(model, lr, compute_dtype=None):
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import CTCHeadLoss
+
+    return make_train_step(model, Adam(learning_rate=lr, parameters=model),
+                           loss_fn=CTCHeadLoss(),
+                           compute_dtype=compute_dtype)
+
+
+def _ocr_batch(dev, seed, batch, shape, classes, label_len):
+    """Text-line images and labels in ``[1, classes)`` (0 is the blank)
+    from ``RandomState(seed)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((batch,) + shape).astype(np.float32)
+    y = rng.randint(1, classes, (batch, label_len)).astype(np.int64)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _model_pass(model, x):
+    """The model's bf16 forward and backward under a plain loss (no CTC):
+    torch's CTC copies its lengths to the device, a wait a call."""
+    import torch
+
+    values = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+    out = torch.func.functional_call(model, values, (x.to(torch.bfloat16),))
+    out.float().square().mean().backward()
+    model.zero_grad(set_to_none=True)
+
+
+def phase_svtr_train(dev, smi, seed, steps=5, batch=128):
+    """Phase 35: PP-OCRv3's recognizer at its published width:
+    ``ppocrv3_rec(6625)`` (``ppocr_keys_v1``'s 6623 characters, space and
+    blank; 3.48M parameters; the JAX defaults ``dims=(64, 128, 256)``,
+    ``depths=(3, 6, 3)``, 8 heads) from torch's seeded generator on the
+    card, PP-OCRv3's ``rec_image_shape`` 3 x 48 x 320 (T = 80), batch 128
+    (PaddleOCR's ``batch_size_per_card``), labels of 25 from
+    ``RandomState(seed)``, Adam lr 1e-3, bf16 compute over f32 masters:
+    one warm-up and 5 timed steps, one profiled step, then the model's
+    bf16 forward and backward (a plain loss: torch's CTC copies its
+    lengths to the device, one wait a call) under
+    ``set_sync_debug_mode("error")``.  Gates: finite, falling CTC losses,
+    no wait for the device in the model, one step build and exactly 4
+    flash forwards and 4 of each backward kernel a step (the 3 global
+    blocks of stage 2 at head size 16 and the one of stage 3 at 32, no
+    mask, as the counters by head size read them), nothing else.  Peak
+    memory is counted above what was allocated when the phase began."""
+    import torch
+
+    from paddle_tpu_torch.vision.models import ppocrv3_rec
+    from paddle_tpu_torch.vision.models.ppocr import GlobalMixBlock
+
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.manual_seed(seed)
+    model = ppocrv3_rec(6625, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PPOCRV3_REC_PARAMS:
+        _fail(f"ppocrv3_rec(6625) has {n_params} parameters, not "
+              f"{PPOCRV3_REC_PARAMS}")
+    heads = sorted(b.attn.head_dim for b in model.blocks
+                   if isinstance(b, GlobalMixBlock))
+    if heads != [16, 16, 16, 32]:
+        _fail(f"ppocrv3_rec(6625): global blocks at head sizes {heads}")
+    step = _ocr_step(model, 1e-3, torch.bfloat16)
+    data = _ocr_batch(dev, seed, batch, (3, 48, 320), 6625, 25)
+    build_s = time.perf_counter() - t0
+    losses, wall, n, peak = _timed_steps(step, data, steps)
+    by_d = _attention_by_head_size()
+    peak -= base
+    _falling("ppocrv3-rec", losses)
+    kinds = ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")
+    want = {k: 0 for k in n}
+    want.update({k: 4 * (steps + 1) for k in kinds})
+    want_d = {f"{k}_d{d}": share * (steps + 1)
+              for k in kinds for d, share in ((16, 3), (32, 1))}
+    if step.compile_count != 1 or n != want or by_d != want_d:
+        _fail(f"ppocrv3-rec: {step.compile_count} step builds, launches "
+              f"{n} != {want} or by head size {by_d} != {want_d}")
+    with _no_plain():
+        prof = _device_profile(lambda: step(*data), top=5)
+    _no_sync("ppocrv3-rec", lambda: _model_pass(model, data[0]))
+    prof["attention_ms"] = sum(v for k, v in prof.pop(
+        "all_kernels_ms").items() if "flash_" in k)
+    ips = steps * batch / wall
+    res = dict(model="ppocrv3_rec(6625)", params=n_params, batch=batch,
+               shape=[3, 48, 320], T=80, steps=steps, build_s=build_s,
+               losses=losses, step_ms=1e3 * wall / steps, images_per_s=ips,
+               peak_memory_bytes=peak, memory_at_start_bytes=base,
+               launches=n, launches_by_head_size=by_d,
+               launches_per_step={k: v // (steps + 1) for k, v in n.items()},
+               profile=prof)
+    print(f"[svtr] ppocrv3_rec(6625) {n_params} parameters, B={batch} "
+          f"3x48x320 (T=80), bf16 over f32 masters, Adam 1e-3, labels of "
+          f"25: CTC losses {', '.join(f'{v:.6f}' for v in losses)} (built "
+          f"in {build_s:.1f} s)")
+    print(f"[svtr] {res['step_ms']:.3f} ms a step, {ips:.1f} images/s, peak "
+          f"memory {peak} bytes above the phase's start ({base} then), "
+          f"flash launches a step {res['launches_per_step']}, in the "
+          f"{steps + 1} steps by head size {by_d} on {smi}")
+    _print_profile("svtr-profile", "one step", prof)
+    print(f"[svtr-profile] attention kernels (flash forward, delta, dk/dv, "
+          f"dq): {prof['attention_ms']:.3f} ms of the step")
+    del model, step, data
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_svtr_parity(dev, seed, tol=1e-4, steps=3):
+    """Phase 35's parity: ``ppocrv3_rec(6625)`` at full width, f32, batch
+    4 x 3 x 48 x 320, three Adam steps on the card and on the CPU from the
+    same weights: losses within 1e-4 relative; 4 forwards and 4 of each
+    backward kernel a step on the card."""
+    import torch
+
+    from paddle_tpu_torch.vision.models import ppocrv3_rec
+
+    def build(where):
+        torch.manual_seed(seed)
+        return ppocrv3_rec(6625, device=where)
+
+    def run(model):
+        step = _ocr_step(model, 1e-3)
+        where = next(model.parameters()).device
+        data = _ocr_batch(where, seed + 1, 4, (3, 48, 320), 6625, 25)
+        return [float(step(*data)) for _ in range(steps)]
+
+    res = _parity("svtr-parity", build, run, dev, tol)
+    want = {k: 0 for k in res["launches"]}
+    want.update({k: 4 * steps for k in ("fwd", "bwd_delta", "bwd_dkv",
+                                         "bwd_dq")})
+    if res["launches"] != want:
+        _fail(f"svtr parity: launches {res['launches']} != {want}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_crnn(dev, smi, seed, steps=5, batch=128):
+    """Phase 36: ``crnn`` at the JAX test's widths (11 classes, 1 channel,
+    ``channels=(8, 16, 32)``, hidden 32) on 32 x 320 lines (T = 80), batch
+    128, labels of 10, Adam lr 5e-3, f32 (the LSTM is cuDNN's): one
+    warm-up and 5 steps, then ``ctc_greedy_decode`` of the trained
+    logits on the card, and of seeded logits of the same shape on the card
+    and on the CPU.  Gates: finite, falling CTC losses; decoded ids in
+    [1, 11) and at most T of them; the seeded logits' rows decoded alike on
+    both devices, with ids in them."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.vision.models import crnn, ctc_greedy_decode
+
+    base = torch.cuda.memory_allocated()
+    torch.manual_seed(seed)
+    model = crnn(11, in_channels=1, hidden_size=32, channels=(8, 16, 32),
+                 device=dev)
+    step = _ocr_step(model, 5e-3)
+    data = _ocr_batch(dev, seed + 2, batch, (1, 32, 320), 11, 10)
+    losses, wall, n, peak = _timed_steps(step, data, steps)
+    peak -= base
+    _falling("crnn", losses)
+    with torch.no_grad():
+        logits = model(data[0])
+    fixed = torch.from_numpy(np.random.RandomState(seed + 3).randn(
+        *logits.shape).astype(np.float32))
+    decoded, fixed_card, fixed_cpu = (ctc_greedy_decode(t) for t in (
+        logits, fixed.to(dev), fixed))
+    if logits.shape != (batch, 80, 11) or any(
+            len(rows) != batch or not all(
+                len(r) <= 80 and all(1 <= i < 11 for i in r) for r in rows)
+            for rows in (decoded, fixed_card)):
+        _fail(f"crnn: logits {tuple(logits.shape)}, decoded rows "
+              f"{decoded[:2]}, {fixed_card[:2]}")
+    if fixed_card != fixed_cpu or not all(fixed_card):
+        _fail(f"crnn: seeded logits decoded {fixed_card[:2]} on the card, "
+              f"{fixed_cpu[:2]} on the CPU")
+    lengths = [len(r) for r in decoded]
+    fixed_lengths = [len(r) for r in fixed_card]
+    res = dict(model="crnn(11, channels=(8, 16, 32), hidden 32)",
+               batch=batch, shape=[1, 32, 320], T=80, losses=losses,
+               step_ms=1e3 * wall / steps, images_per_s=steps * batch / wall,
+               peak_memory_bytes=peak, memory_at_start_bytes=base,
+               decoded_lengths=lengths, decoded_first=decoded[0],
+               seeded_decoded_lengths=fixed_lengths)
+    print(f"[crnn] B={batch} 1x32x320 (T=80) f32, Adam 5e-3: CTC losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; {res['step_ms']:.3f} "
+          f"ms a step, {res['images_per_s']:.1f} images/s, peak memory "
+          f"{peak} bytes above the phase's start on {smi}; greedy decode "
+          f"on the card: trained logits mean length "
+          f"{sum(lengths) / len(lengths):.2f} (first row {decoded[0]}), "
+          f"seeded logits mean length "
+          f"{sum(fixed_lengths) / len(fixed_lengths):.2f}, equal to the "
+          f"CPU's")
+    del model, step, data, logits
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -4188,7 +4693,7 @@ def main(argv=None) -> int:
     # earlier ones
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    bert_fwd, bert_bwd = _bert_kernel_cases(dev)
+    bert_fwd, bert_bwd = _attention_cases(dev)
     bert = phase_bert_train(dev, smi, args.seed)
     bert_parity = phase_bert_parity(dev, args.seed)
     bert["phase_s"] = time.perf_counter() - t_phase
@@ -4199,6 +4704,23 @@ def main(argv=None) -> int:
     print(f"[phases 32-33] {bert['phase_s']:.1f} s (BERT) + "
           f"{moe['phase_s']:.1f} s (GPT-MoE) of wall time")
     n_bert, n_moe = bert["launches"], moe["launches"]
+    # detection and text recognition (phases 34-36) follow the earlier ones
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    det = phase_ppyoloe_train(dev, smi, args.seed)
+    det_parity = phase_ppyoloe_parity(dev, args.seed)
+    det["phase_s"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    svtr_cases = {d: _attention_cases(dev, B=128, T=80, H=8, D=d,
+                                        views=False, tag="svtr-flash")
+                  for d in (16, 32)}
+    svtr = phase_svtr_train(dev, smi, args.seed)
+    svtr_parity = phase_svtr_parity(dev, args.seed)
+    ocr_crnn = phase_crnn(dev, smi, args.seed)
+    svtr["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phases 34-36] {det['phase_s']:.1f} s (PP-YOLOE) + "
+          f"{svtr['phase_s']:.1f} s (SVTR, CRNN) of wall time")
+    n_svtr = svtr["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -4254,7 +4776,8 @@ def main(argv=None) -> int:
              library_ms=f_main["library_ms"],
              launches_by_phase={**{k: v["flash"]
                                    for k, v in slice_launches.items()},
-                                "32 bert": n_bert["fwd"]},
+                                "32 bert": n_bert["fwd"],
+                                "35 svtr": n_svtr["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
         dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
              route="cuda",
@@ -4304,7 +4827,9 @@ def main(argv=None) -> int:
                      371, n_att[1024]["bwd_delta"] + n_att[1024]["bwd_dkv"]
                      + n_att[1024]["bwd_dq"], sep_1024),
              launches_by_phase={"32 bert": n_bert["bwd_delta"]
-                                + n_bert["bwd_dkv"] + n_bert["bwd_dq"]}),
+                                + n_bert["bwd_dkv"] + n_bert["bwd_dq"],
+                                "35 svtr": n_svtr["bwd_delta"]
+                                + n_svtr["bwd_dkv"] + n_svtr["bwd_dq"]}),
         dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
                   "delta + dk/dv + dq kernels)",
              route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
@@ -4317,6 +4842,34 @@ def main(argv=None) -> int:
              library_bwd_ms=bert_bwd["library_bwd_ms"],
              shape="B=64 T=512 H=12 D=64 bfloat16 full, role views",
              launches_of="phase 32: 6 steps, 12 of each kernel a step"),
+    ]
+    # rows 1 and 2 at SVTR's global mixing (phase 35), with the launches
+    # its run counted at each head size
+    by_d = svtr["launches_by_head_size"]
+    for d in (16, 32):
+        fwd_row, bwd_row_ = svtr_cases[d]
+        for part, row, line, launches in (
+                ("fwd", fwd_row, 208, by_d[f"fwd_d{d}"]),
+                ("bwd", bwd_row_, 371, sum(by_d[f"{k}_d{d}"] for k in (
+                    "bwd_delta", "bwd_dkv", "bwd_dq")))):
+            kernels.append(dict(
+                name=(f"flash_attention_bthd at SVTR's shape, D={d} (phase "
+                      f"35)" if part == "fwd" else
+                      f"flash_attention_bwd at SVTR's shape, D={d} (phase "
+                      f"35; delta + dk/dv + dq kernels)"),
+                route="cuda",
+                source=("paddle_tpu_torch/kernels/csrc/flash_attention_"
+                        f"{part}.cu"),
+                replaces=f"{fa_py}:{line}", launches=launches,
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                eager_ms=row["eager_ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"],
+                **({"library_bwd_ms": row["library_bwd_ms"]}
+                   if part == "bwd" else {}),
+                shape=f"B=128 T=80 H=8 D={d} bfloat16 full, separate q, k, v",
+                launches_of=f"phase 35: 6 steps, counted at D={d}"))
+    kernels += [
         bwd_row("flash_bwd_dq_kernel", 402, n_att[1100]["bwd_dq"], sep_1100,
                 "dq"),
         bwd_row("flash_bwd_dkv_kernel", 425, n_att[1100]["bwd_dkv"],
@@ -4447,6 +5000,9 @@ def main(argv=None) -> int:
                            host_tier=tier, bert_flash=[bert_fwd, bert_bwd],
                            bert_train=bert, bert_parity=bert_parity,
                            moe_train=moe, moe_parity=moe_parity,
+                           ppyoloe_train=det, ppyoloe_parity=det_parity,
+                           svtr_flash=svtr_cases, svtr_train=svtr,
+                           svtr_parity=svtr_parity, crnn=ocr_crnn,
                            kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)

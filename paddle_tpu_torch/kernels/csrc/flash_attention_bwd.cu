@@ -425,6 +425,7 @@ int dispatch_bwd(int which, const void* q, const void* k, const void* v,
   BwdArgs<T> a = make_args<T>(q, k, v, dout, lse, delta, dq, dk, dv, st, Tq,
                               Tk, H, scale, causal);
   switch (D) {
+    case 16: return launch_bwd<T, 16>(which, a, B, s);
     case 32: return launch_bwd<T, 32>(which, a, B, s);
     case 64: return launch_bwd<T, 64>(which, a, B, s);
     case 128: return launch_bwd<T, 128>(which, a, B, s);
@@ -880,6 +881,7 @@ int dispatch_bwd_bf16(int which, const void* q, const void* k, const void* v,
                       int B, int Tq, int Tk, int H, int D, float scale,
                       int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_bwd_bf16<16>(which, q, k, v, dout, lse, delta, dq, dk, dv, st, B, Tq, Tk, H, scale, causal, s);
     case 32: return launch_bwd_bf16<32>(which, q, k, v, dout, lse, delta, dq, dk, dv, st, B, Tq, Tk, H, scale, causal, s);
     case 64: return launch_bwd_bf16<64>(which, q, k, v, dout, lse, delta, dq, dk, dv, st, B, Tq, Tk, H, scale, causal, s);
     case 128: return launch_bwd_bf16<128>(which, q, k, v, dout, lse, delta, dq, dk, dv, st, B, Tq, Tk, H, scale, causal, s);

@@ -45,7 +45,10 @@
 // fed back as wgmma's A operand for O += P V (V read MN-major from the same
 // tile layout).  Only tiles that cross the causal diagonal or the ragged
 // edge are masked; tiles wholly above the diagonal are never loaded (for
-// a warpgroup whose rows they miss, not computed).  setmaxnreg gives the
+// a warpgroup whose rows they miss, not computed).  Head sizes 16, 32, 64
+// and 128 are instanced; at D = 16 a row of Q, K or V is 32 bytes, so the
+// tiles take TMA's 32-byte swizzle (`Tile<16>`), Q K^T is one wgmma K step
+// and P V an m64n16 product.  setmaxnreg gives the
 // consumers 240 registers and the producer 24.  The epilogue stages O
 // through the warpgroup's own Q rows for 16-byte stores.  Operations bound
 // it (~4*T^2*D/2 causal flops against 8*T*D bytes a head).
@@ -254,6 +257,7 @@ int dispatch_fwd(const void* q, const void* k, const void* v, void* out,
                  float* lse, const long long* st, int B, int Tq, int Tk,
                  int H, int D, float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_fwd<T, 16>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
     case 32: return launch_fwd<T, 32>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
     case 64: return launch_fwd<T, 64>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
     case 128: return launch_fwd<T, 128>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
@@ -480,6 +484,7 @@ int dispatch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                       float* lse, const long long* st, int B, int Tq, int Tk,
                       int H, int D, float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_fwd_bf16<16>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
     case 32: return launch_fwd_bf16<32>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
     case 64: return launch_fwd_bf16<64>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
     case 128: return launch_fwd_bf16<128>(q, k, v, out, lse, st, B, Tq, Tk, H, scale, causal, s);
@@ -536,6 +541,7 @@ extern "C" {
 // Shared-memory bytes one block requests for head size D (0: unsupported).
 int paddle_flash_attention_smem_bytes(int D) {
   switch (D) {
+    case 16: return fwd_smem_floats<16>() * (int)sizeof(float);
     case 32: return fwd_smem_floats<32>() * (int)sizeof(float);
     case 64: return fwd_smem_floats<64>() * (int)sizeof(float);
     case 128: return fwd_smem_floats<128>() * (int)sizeof(float);

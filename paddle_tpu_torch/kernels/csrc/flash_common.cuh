@@ -95,15 +95,20 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // A bf16 tile of R rows x D columns as TMA writes it (sm90.cuh): D / W
 // column blocks of [R][W], rows of SWB bytes, 16-byte chunks XOR-swizzled
-// by row.
+// by row: the chunk bits [4, 4 + log2(SWB / 16)) of an address XOR its
+// bits [7, ...), which for rows of SWB bytes are row bits from SH up.
+// D = 16 takes the 32-byte swizzle: one 16-column block, one wgmma K step
+// a row.
 template <int D>
 struct Tile {
-  static constexpr int SWB = D >= 64 ? 128 : 64;    // swizzle bytes
+  static constexpr int SWB = D >= 64 ? 128 : D == 32 ? 64 : 32;  // bytes
   static constexpr int W = SWB / 2;                 // columns of a block
   static constexpr int NCB = D / W;                 // column blocks
-  static constexpr int MODE = SWB == 128 ? 1 : 2;   // descriptor swizzle
+  static constexpr int MODE = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
   static constexpr int CPB = SWB / 16;              // chunks a block row
-  static constexpr int SH = SWB == 128 ? 0 : 1;     // row bits -> XOR
+  static constexpr int SH = SWB == 128 ? 0 : SWB == 64 ? 1 : 2;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "the bf16 flash tiles take head size 16, 32, 64 or 128");
 
   // Byte offset of 16-byte chunk c (columns 8c..8c+7) of row r.
   template <int R>

@@ -5,7 +5,8 @@
 // a source).
 //
 // Shared-memory tiles are what TMA writes with a 128-byte swizzle (64
-// bf16 columns a row; 64-byte swizzle, 32 columns, for head size 32): a
+// bf16 columns a row; 64-byte swizzle, 32 columns, for head size 32;
+// 32-byte swizzle, 16 columns, for head size 16): a
 // tile of R rows and D columns is D / W column blocks of [R][W] (W = the
 // swizzle's width in elements), each block R * swizzle bytes, every block
 // 1024-byte aligned so that the swizzle (an XOR of address bits [4, 7)
@@ -183,7 +184,8 @@ __device__ __forceinline__ void fence_proxy_async() {
 // -- wgmma --------------------------------------------------------------------
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle (1: 128 bytes, 2: 64 bytes).
+// offsets (16-byte units) and the swizzle (1: 128 bytes, 2: 64 bytes,
+// 3: 32 bytes).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, int swizzle) {
   uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
@@ -223,8 +225,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // m64nNk16, f32 += bf16 * bf16; acc = 0 overwrites d.  `ss`: A and B
 // from shared memory, A K-major, B K-major (TB = 0) or MN-major (TB = 1)
 // (N = 64, 128, 256); `rs`: A from registers
-// (the m16n8k16 A fragment of each warp's 16 rows), B MN-major (N = 32,
-// 64, 128: a head size).
+// (the m16n8k16 A fragment of each warp's 16 rows), B MN-major (N = 16,
+// 32, 64, 128: a head size).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int acc) {
@@ -410,7 +425,8 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int acc) {
-  if constexpr (N == 32) wgmma_rs_n32(d, a, db, acc);
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db, acc);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db, acc);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
   else wgmma_rs_n128(d, a, db, acc);
 }
@@ -483,8 +499,9 @@ inline int encode_map(CUtensorMap* map, MapPos* pos, const void* ptr,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(ptr), dims, strides, box, ones,
                   CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : CU_TENSOR_MAP_SWIZZLE_64B,
+                  swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                        : CU_TENSOR_MAP_SWIZZLE_32B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

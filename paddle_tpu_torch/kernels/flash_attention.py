@@ -15,7 +15,9 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/kernels/flash_attention.py``:
   serve every T.  For the fused operand they write dq, dk and dv into the
   role slices of one ``[B, T, nh, 3, hd]`` gradient buffer.
 
-Both take float32 or bfloat16; softmax state, sums and the lse are f32.
+Both take float32 or bfloat16 at head size 16, 32, 64 or 128 (any other
+raises ``ValueError`` on the card); softmax state, sums and the lse are
+f32.
 float32 runs f32-FMA kernels (no TF32); bfloat16 runs tensor-core
 kernels: TMA loads bf16 tiles into mbarrier rings and ``wgmma`` multiplies
 them, with the softmax on the f32 accumulators.  TMA reads through a 4-D
@@ -345,8 +347,8 @@ def _lib_for(D):
 
     lib = _build.library()
     if lib.paddle_flash_attention_smem_bytes(D) == 0:
-        raise ValueError(f"the flash kernels take head size 32, 64 or 128, "
-                         f"got {D}")
+        raise ValueError(f"the flash kernels take head size 16, 32, 64 or "
+                         f"128, got {D}")
     return lib
 
 
@@ -383,7 +385,7 @@ def _launch_fwd(q, k, v, out, causal, scale):
             _stride_array((v, "v"), (out, "out")), B, Tq, Tk, H, D, code,
             stream)
         _build.check(err, "flash_attention_dead_fwd")
-        flash_attention_bthd.launches_dead += 1
+        _count(flash_attention_bthd, "launches_dead", D)
     return lse
 
 
@@ -412,7 +414,7 @@ def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
         out.data_ptr(), do.data_ptr(), delta.data_ptr(),
         _stride_array((out, "out"), (do, "dO")), B, Tq, H, D, code, stream)
     _build.check(err, "flash_attention_bwd_delta")
-    counter.launches_delta += 1
+    _count(counter, "launches_delta", D)
     common = (st, B, Tq, Tk, H, D, ctypes.c_float(scale), int(bool(causal)),
               code, stream)
     err = lib.paddle_flash_attention_bwd_dkv(
@@ -420,19 +422,27 @@ def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *common)
     _build.check(err, "flash_attention_bwd_dkv")
-    counter.launches_dkv += 1
+    _count(counter, "launches_dkv", D)
     err = lib.paddle_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common)
     _build.check(err, "flash_attention_bwd_dq")
-    counter.launches_dq += 1
+    _count(counter, "launches_dq", D)
     if causal and Tq > Tk:      # rows with no live key: the reference's
         err = lib.paddle_flash_attention_dead_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), st,
             B, Tq, Tk, H, D, ctypes.c_float(scale), code, stream)
         _build.check(err, "flash_attention_dead_bwd")
-        counter.launches_dead += 1
+        _count(counter, "launches_dead", D)
+
+
+def _count(fn, what, D):
+    """One launch of ``fn``'s kernel ``what``: adds one to ``fn.<what>``
+    and to ``fn.launches_by_head_size[(what, D)]``."""
+    setattr(fn, what, getattr(fn, what) + 1)
+    by = fn.launches_by_head_size
+    by[what, D] = by.get((what, D), 0) + 1
 
 
 def _on_card(x, what):
@@ -457,7 +467,7 @@ def _bthd_fwd(q, k, v, causal, scale):
                                      return_lse=True)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = _launch_fwd(q, k, v, out, causal, scale)
-    flash_attention_bthd.launches += 1
+    _count(flash_attention_bthd, "launches", q.shape[-1])
     return out, lse
 
 
@@ -526,7 +536,7 @@ def _fused_fwd(qkv, causal, scale):
     B, T, nh, hd = q.shape
     out = torch.empty(B, T, nh * hd, dtype=qkv.dtype, device=qkv.device)
     lse = _launch_fwd(q, k, v, out.view(B, T, nh, hd), causal, scale)
-    flash_attention_qkv_fused.launches += 1
+    _count(flash_attention_qkv_fused, "launches", hd)
     return out, lse
 
 
@@ -596,3 +606,8 @@ flash_attention_bwd.launches_dead = 0
 flash_attention_qkv_fused_bwd.launches_delta = 0
 flash_attention_qkv_fused_bwd.launches_dkv = 0
 flash_attention_qkv_fused_bwd.launches_dq = 0
+# (counter name, head size D) -> launches
+flash_attention_bthd.launches_by_head_size = {}
+flash_attention_qkv_fused.launches_by_head_size = {}
+flash_attention_bwd.launches_by_head_size = {}
+flash_attention_qkv_fused_bwd.launches_by_head_size = {}

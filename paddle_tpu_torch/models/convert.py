@@ -3,12 +3,14 @@
 The port keeps the JAX model's parameter and buffer names, so a JAX
 ``state_dict()`` turned into numpy arrays loads by name, for GPT (with
 its MoE experts and gates, ``mlp.moe.experts.{i}.fc0.weight``,
-``mlp.moe.gate.gate.weight``, ...), BERT / ERNIE and ResNet alike (conv
-weights as they are, batch-norm ``_mean`` and ``_variance`` buffers by
-name).  Two things differ: the port's projections are ``nn.Linear``
-(weight ``[out, in]``) where paddle stores ``[in, out]``, so linear
-weights (GPT's and BERT's projections, experts and gates, ResNet's
-``fc``) transpose; and GPT's fused qkv columns must be head-major ``[nh,
+``mlp.moe.gate.gate.weight``, ...), BERT / ERNIE, ResNet, PP-YOLOE, SVTR
+and CRNN alike (conv weights as they are, batch-norm ``_mean`` and
+``_variance`` buffers by name, ``LayerList`` children ``"0"``, ``"1"``,
+..., LSTM weights ``[4 H, in]`` as they are).  Two things differ: the
+port's projections are ``nn.Linear`` (weight ``[out, in]``) where paddle
+stores ``[in, out]``, so linear weights (GPT's and BERT's projections,
+experts and gates, ResNet's ``fc``, ``MultiHeadAttention``'s
+projections) transpose; and GPT's fused qkv columns must be head-major ``[nh,
 3, hd]`` — a state whose ``qkv_layout`` marker is below 2 (role-major
 ``[3, nh, hd]``) is permuted on load, as
 ``GPTSelfAttention._state_dict_compat_`` does in the JAX package; other

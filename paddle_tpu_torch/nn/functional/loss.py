@@ -10,14 +10,42 @@ the bf16 logits are 1.65 GB and their f32 upcast 3.3 GB.
 ``fused_linear_nll_loss`` goes further: the LM head's product and the loss
 in one pass over vocab chunks (``_FusedLinearNLL``), so the ``[N, V]``
 logits never exist, in any type.
+
+``binary_cross_entropy_with_logits`` is the JAX package's arithmetic:
+``max(z, 0) - z y + log1p(exp(-|z|))``, times ``(pos_weight - 1) y + 1``
+and ``weight`` where given.
+
+``ctc_loss`` keeps the JAX function's three rules: it guesses the layout
+(time-major ``[T, B, C]`` unless ``log_probs.shape[0] ==
+labels.shape[0]``, so T == B reads batch-first), applies ``log_softmax``
+itself (in f32 here), and its ``"mean"`` is the plain mean of the
+per-sample losses (not divided by the label lengths).  The forward
+algorithm is ``torch.nn.functional.ctc_loss`` (the JAX package scans it
+in ``lax.scan``, no Pallas kernel); where the two differ the JAX result
+is restored: an input length outside ``[1, T]`` is clipped to it (the
+JAX ``t_idx`` clip), an empty label's loss is ``log 2`` lower (JAX adds
+the all-blank path's probability twice), and an alignment that does not
+fit the input gives JAX's 1e30 (the -1e30 floor of its log space) with
+a zero gradient (JAX's gradient of that floor is not copied).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ...kernels.ln_matmul import _mm_f32
 
-__all__ = ["fused_nll_loss", "fused_linear_nll_loss", "cross_entropy"]
+__all__ = ["fused_nll_loss", "fused_linear_nll_loss", "cross_entropy",
+           "binary_cross_entropy_with_logits", "ctc_loss"]
+
+
+def _reduce(val, reduction):
+    if reduction == "mean":
+        return val.mean()
+    if reduction == "sum":
+        return val.sum()
+    return val
 
 
 class _FusedNLL(torch.autograd.Function):
@@ -151,3 +179,64 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     loss = fused_nll_loss(input, label, ignore_index)
     n = (label != ignore_index).sum().clamp(min=1)
     return loss.sum() / n
+
+
+def _host_ints(x):
+    if torch.is_tensor(x):
+        return x.reshape(-1).tolist()
+    return [int(v) for v in (x.reshape(-1) if hasattr(x, "reshape") else x)]
+
+
+def _on(vals, device):
+    """Host ints as an int64 tensor on ``device`` without waiting for the
+    device: a fill when they are equal, else a pinned copy."""
+    if len(set(vals)) == 1:
+        return torch.full((len(vals),), vals[0], dtype=torch.int64,
+                          device=device)
+    t = torch.tensor(vals, dtype=torch.int64)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    base = (logit.clamp(min=0) - logit * label
+            + torch.log1p(torch.exp(-logit.abs())))
+    if pos_weight is not None:
+        base = base * ((pos_weight - 1) * label + 1)
+    if weight is not None:
+        base = base * weight
+    return _reduce(base, reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False, name=None):
+    """CTC over ``log_probs`` ``[T, B, C]`` (or batch-first, by the JAX
+    layout rule) and padded ``labels`` ``[B, L]``; f32 losses."""
+    if log_probs.dim() == 3 and log_probs.shape[0] != labels.shape[0]:
+        lp = log_probs
+    else:
+        lp = log_probs.transpose(0, 1)
+    lp = torch.log_softmax(lp.float(), dim=-1)
+    T = lp.shape[0]
+    dev = lp.device
+    # torch's CTC reads the lengths on the host: from a CUDA tensor that is
+    # one wait for the device, from host values none
+    in_host = [min(max(int(v), 1), T) for v in _host_ints(input_lengths)]
+    lab_host = _host_ints(label_lengths)
+    in_len, lab_len = _on(in_host, dev), _on(lab_host, dev)
+    labels = labels.long()
+    loss = torch.nn.functional.ctc_loss(
+        lp, labels, in_host, lab_host, blank=blank, reduction="none",
+        zero_infinity=True)
+    # an alignment fits when T covers the labels and a blank between each
+    # repeated pair
+    pos = torch.arange(labels.shape[1] - 1, device=dev)
+    repeats = ((labels[:, 1:] == labels[:, :-1])
+               & (pos < lab_len[:, None] - 1)).sum(1)
+    fits = in_len >= lab_len + repeats
+    loss = torch.where(fits, loss, torch.full_like(loss, 1e30))
+    loss = loss - math.log(2.0) * (lab_len == 0).to(loss.dtype)
+    return _reduce(loss, reduction)

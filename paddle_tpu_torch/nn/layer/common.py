@@ -1,16 +1,21 @@
-"""Common layers (``paddle_tpu.nn.layer.common`` counterparts): ``Linear``
-and ``Flatten``.
+"""Common layers (``paddle_tpu.nn.layer.common`` counterparts): ``Linear``,
+``Flatten``, ``Upsample`` and ``UpsamplingNearest2D``.
 
 ``Linear`` is a ``torch.nn.Linear``: its weight is ``[out, in]`` where
 paddle's is ``[in, out]``, and ``models.convert`` transposes it on the way
 in and out, as for GPT's projections.  Initialised as paddle does: a
 Xavier-uniform weight and a zero bias; ``bias_attr=False`` drops the
-bias."""
+bias.
+
+``Upsample`` calls ``F.interpolate`` with its settings (see there for
+what each mode computes); ``UpsamplingNearest2D`` is its nearest mode."""
 from __future__ import annotations
 
 from torch import nn
 
-__all__ = ["Linear", "Flatten"]
+from .. import functional as F
+
+__all__ = ["Linear", "Flatten", "Upsample", "UpsamplingNearest2D"]
 
 
 def _check_attrs(weight_attr, bias_attr):
@@ -34,3 +39,28 @@ class Linear(nn.Linear):
 class Flatten(nn.Flatten):
     def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__(start_axis, stop_axis)
+
+
+class Upsample(nn.Module):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)

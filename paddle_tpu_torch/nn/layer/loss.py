@@ -1,13 +1,14 @@
-"""``CrossEntropyLoss`` (``paddle_tpu.nn.layer.loss.CrossEntropyLoss``)
-over ``F.cross_entropy`` (the hard-label mean; the other options raise
-there)."""
+"""Loss layers (``paddle_tpu.nn.layer.loss`` counterparts):
+``CrossEntropyLoss`` over ``F.cross_entropy`` (the hard-label mean; the
+other options raise there), ``BCEWithLogitsLoss`` and ``CTCLoss`` over
+their functionals."""
 from __future__ import annotations
 
 from torch import nn
 
 from .. import functional as F
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "BCEWithLogitsLoss", "CTCLoss"]
 
 
 class CrossEntropyLoss(nn.Module):
@@ -30,3 +31,28 @@ class CrossEntropyLoss(nn.Module):
                                soft_label=self.soft_label, axis=self.axis,
                                use_softmax=self.use_softmax,
                                label_smoothing=self.label_smoothing)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class CTCLoss(nn.Module):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)

@@ -1,4 +1,5 @@
-"""Vision models of the port (``paddle_tpu.vision`` counterpart)."""
-from . import models
+"""Vision of the port (``paddle_tpu.vision`` counterpart): the models and
+the detection ops."""
+from . import models, ops
 
-__all__ = ["models"]
+__all__ = ["models", "ops"]

@@ -28,12 +28,12 @@ in the reference.
 """
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as tF
 from torch import nn as tnn
 
 from ... import nn
 from ...device import resolve_device
+from .flops import conv_flops
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152",
@@ -190,38 +190,13 @@ class ResNet(tnn.Module):
 
 
 def resnet_conv_flops(model, height=224, width=224) -> float:
-    """Forward flops of one image through ``model``'s convolutions and
-    ``fc``, at 2 a multiply-add, from the shapes one forward of a zero
-    image gives (run in eval mode without gradients, so nothing updates;
-    the model's mode is restored).  Batch norm, activations and pooling
-    are not counted."""
+    """:func:`~.flops.conv_flops` of a ResNet (its convolutions and
+    ``fc``), which counts the plain stem: a model built with
+    ``stem_s2d=True`` is refused at even image sizes."""
     if model.stem_s2d and height % 2 == 0 and width % 2 == 0:
         raise ValueError("resnet_conv_flops counts the plain stem: build the "
                          "model with stem_s2d=False")
-    total = [0.0]
-
-    def conv_hook(mod, inp, out):
-        k = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
-        total[0] += 2.0 * out[0].numel() * k
-
-    def fc_hook(mod, inp, out):
-        total[0] += 2.0 * mod.in_features * mod.out_features
-
-    hooks = [m.register_forward_hook(conv_hook if isinstance(m, nn.Conv2D)
-                                     else fc_hook)
-             for m in model.modules() if isinstance(m, (nn.Conv2D, nn.Linear))]
-    was_training = model.training
-    p = next(model.parameters())
-    try:
-        model.eval()
-        with torch.no_grad():
-            model(torch.zeros(1, 3, height, width, dtype=p.dtype,
-                              device=p.device))
-    finally:
-        model.train(was_training)
-        for h in hooks:
-            h.remove()
-    return total[0]
+    return conv_flops(model, height, width)
 
 
 def _resnet(arch, Block, depth, pretrained, **kwargs):

@@ -1647,3 +1647,232 @@ def test_family_steps_on_card_match_cpu(cuda, family):
         load_jax_state(model, state)
         losses[str(dev)] = [float(step(*batch)) for _ in range(3)]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# -- head size 16 (SVTR's global mixing at PP-OCRv3's widths) ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("T", [80, 160])
+def test_head_size_16_matches_sdpa_ref(cuda, dtype, causal, T):
+    """Rows 1-4 at D = 16: the separate-operand forward, then the delta,
+    dk/dv and dq kernels through autograd, one launch each, against
+    ``sdpa_ref`` differentiated by torch in f32 on the same operands (the
+    bf16 operands upcast: the plain math, as the kernels compute it).
+    f32 at 1e-5; bf16 at one bf16 rounding (1e-2)."""
+    B, H, D = 3, 4, 16
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _qkv(B, T, T, H, D, seed=T + causal))
+    do = torch.from_numpy(np.random.RandomState(T).randn(
+        B, T, H, D).astype(np.float32)).to(cuda, dtype)
+    ops = [x.clone().requires_grad_() for x in (q, k, v)]
+    refs = [x.float().requires_grad_() for x in (q, k, v)]
+    before = _launches()
+    by_d = [dict(f.launches_by_head_size)
+            for f in (fa.flash_attention_bthd, fa.flash_attention_bwd)]
+    out = fa.flash_attention_bthd(*ops, causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = _launches()
+    assert tuple(b - a for a, b in zip(before, after)) == (
+        1, 1, 1, 1, 0, 0, 0, 0)
+    for f, was, kinds in zip(
+            (fa.flash_attention_bthd, fa.flash_attention_bwd), by_d,
+            (["launches"], ["launches_delta", "launches_dkv",
+                            "launches_dq"])):
+        assert [f.launches_by_head_size.get((k, 16), 0) - was.get((k, 16), 0)
+                for k in kinds] == [1] * len(kinds)
+    ref = fa.sdpa_ref(*refs, None, causal, D ** -0.5)
+    ref.backward(do.float())
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else _tols(dtype))
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, **tol)
+    for name, g, w in zip("qkv", ops, refs):
+        assert g.grad.dtype == dtype
+        torch.testing.assert_close(g.grad.float(), w.grad, **tol,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 24, 48, 256])
+def test_other_head_sizes_raise(cuda, dtype, D):
+    """A head size the kernels do not take raises on the card, before any
+    launch; nothing sends it to the plain path."""
+    q = torch.randn(2, 64, 2, D, device=cuda).to(dtype)
+    before = _launches()
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_attention_bthd(q, q, q, causal=False)
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_multi_head_attention_head_size_16(cuda, dtype):
+    """``nn.MultiHeadAttention`` at head size 16 (SVTR's stage-2 width,
+    128 / 8 heads), no mask: one flash forward and one of each backward
+    kernel, output and every gradient against the layer's math with
+    ``sdpa_ref`` in f32 from the same weights (f32 at 1e-5, bf16 at
+    1e-2)."""
+    from paddle_tpu_torch import nn as pnn
+
+    torch.manual_seed(0)
+    mha = pnn.MultiHeadAttention(128, 8).to(cuda, dtype)
+    ref = pnn.MultiHeadAttention(128, 8).to(cuda)
+    ref.load_state_dict({k: v.float() for k, v in mha.state_dict().items()})
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        4, 80, 128).astype(np.float32)).to(cuda)
+    xs = [x.to(dtype).requires_grad_(), x.to(dtype).float().requires_grad_()]
+    before = _launches()
+    out = mha(xs[0], xs[0], xs[0])
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _launches())) == (
+        1, 1, 1, 1, 0, 0, 0, 0)
+
+    def heads(t):
+        return t.reshape(4, 80, 8, 16)
+
+    y = xs[1]
+    o = fa.sdpa_ref(heads(ref.q_proj(y)), heads(ref.k_proj(y)),
+                    heads(ref.v_proj(y)), None, False, 0.25)
+    want = ref.out_proj(o.reshape(4, 80, 128))
+    (want ** 2).sum().backward()
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else _tols(dtype))
+    torch.testing.assert_close(out.float(), want, **tol)
+    torch.testing.assert_close(xs[0].grad.float(), xs[1].grad,
+                               **(tol if dtype == torch.float32 else
+                                  dict(rtol=2e-2, atol=2e-2)))
+    top = max(float(r.grad.abs().max()) for r in ref.parameters())
+    for (name, p), (_, r) in zip(mha.named_parameters(),
+                                 ref.named_parameters()):
+        # the key bias's gradient is 0 in exact arithmetic (softmax ignores
+        # a per-query constant): what both sides hold is rounding noise,
+        # so it is held to the layer's largest gradient element
+        scale = top if name == "k_proj.bias" else float(r.grad.abs().max())
+        torch.testing.assert_close(p.grad.float(), r.grad, rtol=tol["rtol"],
+                                   atol=tol["atol"] * max(scale, 1.0),
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def _vision_step(name, dev, compute_dtype=None):
+    """A small train step of PP-YOLOE (Momentum, the bench's recipe), SVTR
+    at head sizes 16 and 32 (Adam), or CRNN (Adam), with its batch on
+    ``dev``; weights from torch's seed 0."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.optimizer import Adam, Momentum
+    from paddle_tpu_torch.vision.models import (PPYOLOE, PPYOLOELoss,
+                                                CTCHeadLoss, crnn,
+                                                ppocrv3_rec)
+
+    torch.manual_seed(0)
+    rs = np.random.RandomState(2)
+    if name == "ppyoloe":
+        model = PPYOLOE(num_classes=4, width=(8, 16, 32, 64, 128),
+                        depth=(1, 1, 1, 1), device=dev)
+        batch = (rs.randn(2, 3, 64, 64).astype(np.float32),
+                 np.array([[[4, 4, 40, 40], [20, 10, 60, 50]],
+                           [[8, 8, 32, 48], [0, 0, 0, 0]]], np.float32),
+                 np.array([[1, 3], [2, -1]], np.int64))
+        step = make_train_step(model, Momentum(0.01, momentum=0.9,
+                                               parameters=model,
+                                               weight_decay=5e-4),
+                               loss_fn=PPYOLOELoss(model), num_labels=2,
+                               compute_dtype=compute_dtype)
+    else:
+        if name == "svtr":
+            model = ppocrv3_rec(12, dims=(32, 64, 128), depths=(1, 2, 2),
+                                num_heads=4, device=dev)
+            x = rs.randn(2, 3, 32, 64).astype(np.float32)
+        else:
+            model = crnn(11, in_channels=1, hidden_size=32,
+                         channels=(8, 16, 32), device=dev)
+            x = rs.randn(2, 1, 32, 64).astype(np.float32)
+        batch = (x, rs.randint(1, 11, (2, 5)).astype(np.int64))
+        step = make_train_step(model, Adam(2e-3, parameters=model),
+                               loss_fn=CTCHeadLoss(),
+                               compute_dtype=compute_dtype)
+    return model, step, tuple(torch.from_numpy(b).to(dev) for b in batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ppyoloe", "svtr", "crnn"])
+def test_vision_steps_on_card_match_cpu(cuda, name):
+    """Three f32 steps on the card and on the CPU from the same weights:
+    losses within 1e-4 relative; SVTR's two global blocks launch the
+    flash forward and its three backward kernels once each a step."""
+    from paddle_tpu_torch.models import load_jax_state, to_jax_state
+
+    state = to_jax_state(_vision_step(name, "cpu")[0])
+    losses = {}
+    for dev in ("cpu", cuda):
+        model, step, batch = _vision_step(name, dev)
+        load_jax_state(model, state)
+        before = _launches()
+        losses[str(dev)] = [float(step(*batch)) for _ in range(3)]
+        n = tuple(b - a for a, b in zip(before, _launches()))
+    want = 3 * 2 if name == "svtr" else 0
+    assert n == (want,) * 4 + (0,) * 4
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cats", [False, True], ids=["plain", "categories"])
+def test_nms_on_card_equals_cpu(cuda, cats):
+    """The kept indices of ``vision.ops.nms`` on card tensors equal the
+    CPU's exactly (the same f32 element-wise IoU ops)."""
+    from paddle_tpu_torch.vision import ops as vops
+
+    rs = np.random.RandomState(3)
+    xy = rs.rand(500, 2).astype(np.float32) * 300
+    boxes = np.concatenate([xy, xy + rs.rand(500, 2).astype(np.float32)
+                            * 60 + 4], 1)
+    scores = np.round(rs.rand(500).astype(np.float32) * 50) / 50
+    cat = rs.randint(0, 5, 500) if cats else None
+    got = []
+    for dev in ("cpu", cuda):
+        got.append(vops.nms(
+            torch.from_numpy(boxes).to(dev), iou_threshold=0.4,
+            scores=torch.from_numpy(scores).to(dev),
+            category_idxs=None if cat is None
+            else torch.from_numpy(cat).to(dev), top_k=100))
+    assert got[1].device.type == "cuda"
+    assert torch.equal(got[0], got[1].cpu()) and len(got[0]) == 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ppyoloe-step", "svtr-model"])
+def test_vision_bf16_path_syncs_nothing(cuda, name):
+    """A bf16 PP-YOLOE step (the TAL loss included), and SVTR's forward and
+    backward in bf16 (flash at D = 16 and 32), with their batch on the
+    card wait for the device nowhere.  (torch's CTC loss copies the
+    lengths to the device, one wait a call: SVTR's step is held without
+    it.)"""
+    model, step, batch = _vision_step(name.split("-")[0], cuda,
+                                      torch.bfloat16)
+    if name == "ppyoloe-step":
+        def run():
+            return step(*batch)
+    else:
+        model.to(torch.bfloat16)
+        x = batch[0].to(torch.bfloat16)
+
+        def run():
+            loss = model(x).float().square().mean()
+            loss.backward()
+            return loss.detach()
+    first = run()                           # builds what the first builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite([float(first), float(second)]).all()
