@@ -314,7 +314,33 @@ run with a non-zero exit, and nothing is caught):
    logits on the card, and of seeded logits on the card and the CPU
    (equal rows, ids in every row).  The D = 16 and D = 32 cases are
    entries of the kernels line with the launches counted at each head
-   size, and rows 1 and 2 carry phase 35's in ``launches_by_phase``.
+   size, and rows 1 and 2 carry phase 35's in ``launches_by_phase``;
+37. (run after 36) the gateway curve of ``bench.py``'s serving leg
+   (``_bench_gateway_curve``, its on-chip branch) through the port's HTTP
+   front door: ``start_gateway([EngineSupervisor(Engine(gpt2-small-en,
+   max_slots=8, max_len=640, max_queue=8))])`` with a ``LoadShedder``
+   seeded from phase 4's p50 prefill and p50 token seconds, tenant
+   ``bench`` (``max_queue=16``); one warm-up request, then 30 streamed
+   requests at each offered 10, 40 and 160 QPS (Poisson arrivals; prompts
+   of 64 tokens from ``RandomState(7)``, 32 new tokens, ``deadline_ms``
+   2000): achieved QPS, completed, shed (429s), tokens/s and the client's
+   p50 / p99 time to the first SSE chunk a level; ``decode_compiles`` 1
+   over the curve; host ms a decode step beside phase 4's, device ms a
+   replayed step; perfscope's sampled decode device time (CUDA events,
+   every 8th step) with its MFU and memory-bandwidth share against the
+   H100 peaks; the device memory ledger against ``memory_allocated``; 8
+   greedy requests through HTTP equal, bit for bit, to the same prompts
+   through ``Engine.submit``; then the kill/restart probe with a second
+   supervised replica serving: ``serving.scheduler`` armed once under
+   background load, ``kill_restart_ttft_ms`` to the first request
+   completed after the rebuild, the supervisors' restarts, every build
+   one capture; gated on every finished journey partitioning its wall
+   time within 1 ms, ``/metrics`` holding every ``paddle_tpu_serving_*`` /
+   ``paddle_tpu_gateway_*`` family the constants name (but those of flags
+   this engine lacks, and the shed / re-dispatch / interrupt counters
+   when nothing was shed, re-dispatched or interrupted), and rows 1 and 7
+   launching in the phase (the paged reads all replayed but the
+   captures'), carried in the kernels line's ``launches_by_phase``.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -970,9 +996,11 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
         _fail(f"{tag}: LayerNorm launches {ln_n} != {ln_want}")
     worst = _teacher_forced(cpu_model, prompts, outs, margin)
     ttft = sorted(h.ttft_s for h in handles)
+    tok_lat = sorted(t for h in handles for t in h.token_latencies_s)
     res = dict(kv_dtype=kv_dtype or "f32", requests=n_req, new_tokens=new,
                wall_s=wall, tokens_per_s=n_req * new / wall,
                p50_ttft_ms=1e3 * ttft[len(ttft) // 2],
+               p50_token_ms=1e3 * tok_lat[len(tok_lat) // 2],
                peak_memory_bytes=peak, prefill_batches=prefills,
                decode_steps=steps, flash_launches=flash_n,
                paged_launches=paged_total, eager_paged_launches=paged_n,
@@ -1007,9 +1035,9 @@ def _ms(x):
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def _gpt2_small(dev, seed):
-    """gpt2-small-en at full width on ``dev`` and on the CPU, with the
-    same random weights from ``seed``."""
+def _gpt2_small(dev, seed, cpu=True):
+    """gpt2-small-en at full width on ``dev`` and (``cpu``) on the CPU,
+    with the same random weights from ``seed``."""
     from paddle_tpu_torch.models import build_gpt, load_jax_state
 
     model = build_gpt("gpt2-small-en", device=dev)
@@ -1019,6 +1047,8 @@ def _gpt2_small(dev, seed):
         _fail(f"gpt2-small-en is not at full width: {cfg}")
     state = _random_state(model, seed)
     load_jax_state(model, state)
+    if not cpu:
+        return model, None
     cpu_model = build_gpt("gpt2-small-en", device="cpu")
     load_jax_state(cpu_model, state)
     return model, cpu_model
@@ -4589,6 +4619,390 @@ def phase_crnn(dev, smi, seed, steps=5, batch=128):
     torch.cuda.empty_cache()
     return res
 
+GW_QPS, GW_REQ, GW_NEW, GW_PROMPT = (10.0, 40.0, 160.0), 30, 32, 64
+GW_DEADLINE_MS, GW_SAMPLE, GW_GREEDY = 2000, 8, 8
+# families of the constants no request of phase 37 can reach: its engine
+# has no adapters, prefix cache, speculative decoding or host tier
+GW_FLAG_FAMILIES = ("adapter", "prefix", "speculative", "cow")
+# counters that exist once their event happened (a shed, an interrupted
+# or re-dispatched request): held when the run had one
+GW_EVENT_FAMILIES = ("paddle_tpu_gateway_shed_total",
+                     "paddle_tpu_serving_requests_interrupted_total",
+                     "paddle_tpu_serving_requests_redispatched_total")
+
+
+def _named_families():
+    """Every ``paddle_tpu_serving_*`` and ``paddle_tpu_gateway_*`` family
+    the port's constants name (the engine's, the supervisor's, the
+    gateway's, the router's and the HTTP layer's), and the gateway's
+    window gauges (named where ``window_stats`` sets them)."""
+    from paddle_tpu_torch.serving import engine, supervisor
+    from paddle_tpu_torch.serving.gateway import gateway, http, router
+
+    names = {v for mod in (engine, supervisor, gateway, router, http)
+             for k, v in vars(mod).items()
+             if k.isupper() and isinstance(v, str) and v.startswith(
+                 ("paddle_tpu_serving_", "paddle_tpu_gateway_"))}
+    return names | {f"paddle_tpu_gateway_window_{x}" for x in (
+        "ttft_seconds", "queue_wait_seconds", "token_seconds", "shed_rate",
+        "requests", "redispatches", "rebuilds", "phase_share")}
+
+
+def _http(port, path, body=None, timeout=600):
+    """One request to the gateway: ``(status, headers, body bytes)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, json.dumps(body).encode(),
+                         {"Content-Type": "application/json",
+                          "X-Tenant": "bench"})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def _streamed(port, prompt, new, deadline_ms, out, lock):
+    """``bench.py``'s streamed client: appends ``(ttft_s, tokens,
+    status)`` — the time to the first SSE ``data:`` line, as the client
+    sees it."""
+    import http.client
+
+    payload = {"prompt": prompt, "max_tokens": new, "stream": True}
+    if deadline_ms is not None:
+        payload["deadline_ms"] = deadline_ms
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    row = (None, 0, -1)
+    try:
+        c.request("POST", "/v1/completions", json.dumps(payload).encode(),
+                  {"Content-Type": "application/json", "X-Tenant": "bench"})
+        r = c.getresponse()
+        if r.status != 200:
+            r.read()
+            row = (None, 0, r.status)
+        else:
+            ttft, n_tok = None, 0
+            for line in r:
+                if not line.startswith(b"data: "):
+                    continue
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                data = line[6:].strip()
+                if data == b"[DONE]":
+                    break
+                n_tok += len(json.loads(data)["choices"][0]["token_ids"])
+            r.read()          # the chunked body's end: a clean close
+            row = (ttft, n_tok, 200)
+    except OSError:
+        row = (None, 0, -1)
+    finally:
+        c.close()
+        with lock:
+            out.append(row)
+
+
+def _pct(vals, q):
+    import numpy as np
+
+    return float(np.percentile(vals, q)) if vals else None
+
+
+def _clients(port, rs, vocab, n, new, deadline_ms, qps=None):
+    """``n`` streamed clients on threads (Poisson arrivals at ``qps``, or
+    all at once), joined: their rows and the wall time."""
+    import threading
+
+    out, lock, threads = [], threading.Lock(), []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        prompt = [int(t) for t in rs.randint(1, vocab, GW_PROMPT)]
+        th = threading.Thread(target=_streamed, args=(
+            port, prompt, new, deadline_ms, out, lock))
+        th.start()
+        threads.append(th)
+        if qps is not None:
+            time.sleep(min(rs.exponential(1.0 / qps), 0.5))
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads) or len(out) != n:
+        _fail("gateway: a client did not finish")
+    return out, time.perf_counter() - t0
+
+
+def _kill_probe(port, rs, vocab, first, sups, tag):
+    """``serving.scheduler`` armed once under 8 streamed background
+    requests; waits for one of ``sups`` to restart, then for the first
+    request completed after it (429 / 503 retried, as bench.py's probe):
+    its ms from the kill.  ``first``: the supervisor whose restart counts
+    (None: any of ``sups``)."""
+    import threading
+
+    from paddle_tpu_torch.testing import faults
+
+    restarts0 = sum(s.restarts for s in sups)
+    bg_out, bg_lock = [], threading.Lock()
+    bg = [threading.Thread(target=_streamed, args=(
+        port, [int(t) for t in rs.randint(1, vocab, GW_PROMPT)], GW_NEW,
+        None, bg_out, bg_lock)) for _ in range(8)]
+    for th in bg:
+        th.start()
+    faults.arm("serving.scheduler", times=1)
+    t_kill = time.perf_counter()
+    deadline = t_kill + 300
+    try:
+        while sum(s.restarts for s in sups) == restarts0:
+            if time.perf_counter() > deadline:
+                _fail(f"{tag}: the kill was never absorbed by a restart")
+            time.sleep(0.01)
+        kill_ms = None
+        while time.perf_counter() < deadline:
+            probe, plock = [], threading.Lock()
+            _streamed(port, [int(t) for t in rs.randint(1, vocab, GW_PROMPT)],
+                      GW_NEW, None, probe, plock)
+            if probe[0][2] == 200:
+                kill_ms = 1e3 * (time.perf_counter() - t_kill)
+                break
+            time.sleep(0.05)
+    finally:
+        faults.reset()
+        for th in bg:
+            th.join(timeout=600)
+    if kill_ms is None:
+        _fail(f"{tag}: no request completed after the restart")
+    if first is not None and first.restarts == 0:
+        _fail(f"{tag}: another supervisor restarted")
+    return kill_ms
+
+
+def phase_gateway(dev, seed, serve4, smi):
+    """Phase 37: ``bench.py``'s gateway curve (``_bench_gateway_curve``,
+    its on-chip branch) through the port on the card."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.observability import journey, perfscope
+    from paddle_tpu_torch.serving import Engine, EngineSupervisor
+    from paddle_tpu_torch.serving.gateway import (LoadShedder, TenantConfig,
+                                                  start_gateway)
+    from paddle_tpu_torch.testing import faults
+
+    tag = "gateway"
+    t_phase = time.perf_counter()
+    model, _ = _gpt2_small(dev, seed, cpu=False)
+    V = model.config.vocab_size
+    builds = []
+
+    def factory():
+        e = Engine(model, max_slots=8, max_len=640, max_queue=8,
+                   page_size=16, device=dev)
+        builds.append(e)
+        return e
+
+    perfscope.reset_programs()
+    perfscope.reset_peaks()                 # the card's row of the table
+    perfscope.set_sample_every(GW_SAMPLE)
+    journey.clear()
+    sup = EngineSupervisor(factory, name="bench0", poll_interval_s=0.02)
+    shedder = LoadShedder()
+    # seeded from phase 4's measured p50s, as bench.py's serving leg does
+    shedder.seed(serve4["p50_ttft_ms"] / 1e3, serve4["p50_token_ms"] / 1e3)
+    stack = start_gateway([sup], own_engines=True, shedder=shedder,
+                          tenants=[TenantConfig("bench", max_queue=16)])
+    rs = np.random.RandomState(7)
+    port = stack.port
+    curve, sup2 = [], None
+    try:
+        status, _, raw = _http(port, "/v1/completions",
+                               {"prompt": [3] * GW_PROMPT, "max_tokens": 2})
+        if status != 200:
+            _fail(f"{tag}: the warm-up request answered {status}: {raw}")
+        torch.cuda.synchronize()
+        bases = [builds[0].stats()]
+        _counters_zero()
+        for qps in GW_QPS:
+            out, wall = _clients(port, rs, V, GW_REQ, GW_NEW, GW_DEADLINE_MS,
+                                 qps)
+            ttfts = [1e3 * t for t, _, s in out if s == 200 and t is not None]
+            done = sum(1 for _, _, s in out if s == 200)
+            shed = sum(1 for _, _, s in out if s == 429)
+            if done + shed != GW_REQ or any(
+                    n != GW_NEW for _, n, s in out if s == 200):
+                _fail(f"{tag}: qps {qps}: statuses "
+                      f"{sorted(s for _, _, s in out)}, tokens "
+                      f"{[n for _, n, s in out if s == 200]}")
+            curve.append(dict(
+                offered_qps=qps, achieved_qps=done / wall, requests=GW_REQ,
+                completed=done, shed=shed, shed_rate=shed / GW_REQ,
+                tokens_per_s=sum(n for _, n, _ in out) / wall,
+                ttft_p50_ms=_pct(ttfts, 50), ttft_p99_ms=_pct(ttfts, 99)))
+        st = builds[0].stats()
+        decode_compiles = st["decode_compiles"]
+        if decode_compiles != 1:
+            _fail(f"{tag}: decode_compiles {decode_compiles} over the curve")
+        steps = st["decode_steps"] - bases[0]["decode_steps"]
+        replays = (st["decode_graph_replays"]
+                   - bases[0]["decode_graph_replays"])
+        host_step_ms = 1e3 * (st["decode_seconds"]
+                              - bases[0]["decode_seconds"]) / max(steps, 1)
+        device_step_ms = _device_step_ms(st, bases[0])
+        if replays != steps or steps == 0:
+            _fail(f"{tag}: {replays} replays for {steps} decode steps")
+        perf = perfscope.program_stats("serving.decode")
+        report = perfscope.perf_report()
+        row = next(r for r in report["programs"]
+                   if r["program"] == "serving.decode")
+        if not perf or not perf["sampled"]:
+            _fail(f"{tag}: perfscope sampled no decode step: {perf}")
+        torch.cuda.synchronize()
+        memory = perfscope.memory_report()
+        # 8 greedy requests through HTTP, then the same prompts through
+        # Engine.submit on the same weights, one at a time both ways;
+        # prompts of 65-128 tokens pad every prefill to one bucket
+        prompts = [rs.randint(1, V, rs.randint(65, 129)).astype(np.int64)
+                   for _ in range(GW_GREEDY)]
+        http_out = []
+        for p in prompts:
+            status, _, raw = _http(port, "/v1/completions",
+                                   {"prompt": [int(t) for t in p],
+                                    "max_tokens": 16})
+            if status != 200:
+                _fail(f"{tag}: greedy request answered {status}: {raw}")
+            http_out.append(json.loads(raw)["choices"][0]["token_ids"])
+        eng_out = [[int(t) for t in sup.engine.submit(
+            p, max_new_tokens=16).result(timeout=600)] for p in prompts]
+        if http_out != eng_out:
+            _fail(f"{tag}: HTTP greedy tokens differ from Engine.submit's")
+        # bench.py's kill/restart probe: the scheduler killed once under
+        # background load, then the first request completed after the
+        # supervisor rebuilt the engine
+        kill_ms = _kill_probe(port, rs, V, sup, [sup], tag)
+        # then again with a second supervised replica serving: one replica
+        # dies and rebuilds (capturing its decode graph) while the other
+        # takes the traffic
+        sup2 = EngineSupervisor(factory, name="bench1", poll_interval_s=0.02)
+        sup2.submit(prompts[0][:40], max_new_tokens=4).result(timeout=600)
+        stack.gateway.router.add_replica("bench1", sup2)
+        n_builds = len(builds)
+        kill2_ms = _kill_probe(port, rs, V, None, [sup, sup2], tag)
+        # traffic over both replicas until the rebuilt one has captured
+        deadline = time.perf_counter() + 300
+        while not (len(builds) > n_builds and all(
+                e.compile_stats()["decode_compiles"] == 1
+                for e in builds[n_builds:])):
+            if time.perf_counter() > deadline:
+                _fail(f"{tag}: the rebuilt engine never captured")
+            _clients(port, rs, V, 8, 8, None)
+        faults.reset()
+        restarts = sup.restarts + sup2.restarts
+        all_builds = sup.builds() + sup2.builds()
+        if any(b["decode_compiles"] != 1 for b in all_builds):
+            _fail(f"{tag}: builds' compile stats {all_builds}")
+        launches = _row_launches(builds, bases)
+        captures = len(builds) - 1          # the builds after the zeroing
+        # an operator's scrape: the router's replica gauges refresh on
+        # /healthz and /debug/fleet, the window gauges on /metrics itself
+        health = _http(port, "/healthz")
+        fleet = json.loads(_http(port, "/debug/fleet")[2])
+        status, _, metrics = _http(port, "/metrics")
+        window = json.loads(_http(port, "/debug/window")[2])
+        if health[0] != 200 or fleet["alive"] != 2:
+            _fail(f"{tag}: /healthz {health[0]}, /debug/fleet {fleet}")
+    finally:
+        faults.reset()
+        perfscope.set_sample_every(0)
+        stack.close()
+        if sup2 is not None:
+            sup2.shutdown()
+    # the paged reads outside the replays are the captures' own: two
+    # warm-up steps and the captured one, N_LAYERS launches each
+    if launches["flash"] == 0 or launches["paged"] == 0 or \
+            launches["paged_eager"] != 3 * N_LAYERS * captures:
+        _fail(f"{tag}: rows 1 and 7 launched {launches} ({captures} "
+              f"captures in the phase, {3 * N_LAYERS} eager paged launches "
+              f"each)")
+    # every finished journey partitions its wall time
+    finished = journey.recent(10 ** 9)
+    worst = max((abs(sum(p["dur"] for p in j.phases()) - j.wall_s)
+                 for j in finished), default=None)
+    if not finished or worst > 1e-3:
+        _fail(f"{tag}: {len(finished)} journeys, worst partition gap "
+              f"{worst} s (limit 1 ms)")
+    present = {ln.split()[2] for ln in metrics.decode().splitlines()
+               if ln.startswith("# TYPE")}
+    named = _named_families()
+    want = {n for n in named if not any(f in n for f in GW_FLAG_FAMILIES)}
+    want -= {n for n in GW_EVENT_FAMILIES if n not in present}
+    missing = want - present
+    if status != 200 or missing:
+        _fail(f"{tag}: /metrics lacks {sorted(missing)}")
+    res = dict(curve=curve, decode_compiles=decode_compiles,
+               kill_restart_ttft_ms=kill_ms,
+               two_replica_kill_restart_ms=kill2_ms,
+               supervisor_restarts=restarts,
+               builds=all_builds, host_step_ms=host_step_ms,
+               device_step_ms=device_step_ms,
+               phase4_host_step_ms=serve4["decode_step_ms"],
+               phase4_device_step_ms=serve4["device_step_ms"],
+               perfscope=dict(sampled=perf["sampled"],
+                              dispatches=perf["dispatches"],
+                              mean_device_ms=1e3 * perf["device_seconds"]
+                              / perf["sampled"],
+                              mfu=row["mfu"], hbm_bw_frac=row["hbm_bw_frac"],
+                              peak_flops=row["peak_flops"],
+                              peak_hbm_bw=report["peak_hbm_bw"],
+                              dtype=row["dtype"], flops=row["flops"],
+                              bytes=row["bytes"]),
+               memory=dict(owners=memory["owners"],
+                           total_tracked=memory["total_tracked"],
+                           bytes_in_use=memory["backend"].get("bytes_in_use"),
+                           unattributed=memory.get("unattributed")),
+               greedy_http_equal=GW_GREEDY, journeys=len(finished),
+               journey_worst_gap_s=worst, families=sorted(want),
+               families_not_held=sorted(named - want),
+               window_phase_share=window.get("phase_share"),
+               window_shed_reasons=window.get("shed_reasons"),
+               launches=launches, device=smi,
+               phase_s=time.perf_counter() - t_phase)
+    for lv in curve:
+        print(f"[{tag}] offered {lv['offered_qps']:.0f} qps: achieved "
+              f"{lv['achieved_qps']:.2f} qps, {lv['completed']}/"
+              f"{lv['requests']} completed, {lv['shed']} shed (rate "
+              f"{lv['shed_rate']:.3f}), {lv['tokens_per_s']:.1f} tokens/s, "
+              f"TTFT p50 {_ms(lv['ttft_p50_ms'])} ms p99 "
+              f"{_ms(lv['ttft_p99_ms'])} ms (client, first SSE chunk)")
+    ps = res["perfscope"]
+    print(f"[{tag}] decode_compiles {decode_compiles}; kill_restart_ttft_ms "
+          f"{kill_ms:.1f} (one replica; {kill2_ms:.1f} with a second "
+          f"replica serving), supervisor restarts {restarts} (every one of "
+          f"{len(all_builds)} builds decode_compiles 1); host ms a decode "
+          f"step {host_step_ms:.3f} (phase 4: "
+          f"{serve4['decode_step_ms']:.3f}), device ms a replayed step "
+          f"{_ms(device_step_ms)} (phase 4: "
+          f"{_ms(serve4['device_step_ms'])}); perfscope: {ps['sampled']} of "
+          f"{ps['dispatches']} decode steps sampled (CUDA events), mean "
+          f"{ps['mean_device_ms']:.4f} device ms, MFU {ps['mfu']} and "
+          f"memory-bandwidth share {ps['hbm_bw_frac']} against "
+          f"{ps['peak_flops']:.3g} FLOP/s ({ps['dtype']}) and "
+          f"{ps['peak_hbm_bw']:.3g} B/s")
+    print(f"[{tag}] ledger {memory['total_tracked']} bytes "
+          f"{memory['owners']} against memory_allocated "
+          f"{res['memory']['bytes_in_use']} (unattributed "
+          f"{res['memory']['unattributed']}); {GW_GREEDY} HTTP greedy "
+          f"requests equal to Engine.submit's; {len(finished)} journeys "
+          f"partition their wall time (worst gap {worst:.3e} s; shares "
+          f"{res['window_phase_share']}, sheds by reason "
+          f"{res['window_shed_reasons']}); /metrics "
+          f"holds all {len(want)} families held to it (not held: "
+          f"{res['families_not_held']}); launches {launches}; "
+          f"{res['phase_s']:.1f} s; {smi}")
+    return res
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4721,6 +5135,10 @@ def main(argv=None) -> int:
     print(f"[phases 34-36] {det['phase_s']:.1f} s (PP-YOLOE) + "
           f"{svtr['phase_s']:.1f} s (SVTR, CRNN) of wall time")
     n_svtr = svtr["launches"]
+    # the gateway curve (phase 37) follows the earlier ones
+    torch.cuda.empty_cache()
+    gateway = phase_gateway(dev, args.seed + 10, serve, smi)
+    slice_launches["37 gateway"] = gateway["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -5003,7 +5421,7 @@ def main(argv=None) -> int:
                            ppyoloe_train=det, ppyoloe_parity=det_parity,
                            svtr_flash=svtr_cases, svtr_train=svtr,
                            svtr_parity=svtr_parity, crnn=ocr_crnn,
-                           kernels=kernels,
+                           gateway=gateway, kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

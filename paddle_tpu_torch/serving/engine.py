@@ -70,6 +70,26 @@ surface and the host prefix tier:
   step's and tail prefill's attention read runs the paged decode kernel
   (``paddle_tpu_torch/kernels``); on the CPU the same code runs their
   plain versions.
+* **telemetry** (``paddle_tpu_torch.observability``), under the JAX
+  engine's names and at its sites: the ``paddle_tpu_serving_*`` counters,
+  gauges and histograms (requests by outcome, tokens, TTFT, per-token
+  latency, batch seconds by phase, slots, queue depth, pages, prefix,
+  speculative, adapter and host-tier series, weight and pool bytes);
+  flight events for admit, evict, reject, stalls, loads, promotes, COW
+  copies, death, hand-off; spans around each batched prefill, tail
+  prefill, prefix copy, adapter load and decode step; the journey phases
+  of ``submit(journey=)`` (``engine_queue`` split at an ``adapter_stall``
+  / ``page_stall``, ``build`` for the decode graph's capture,
+  ``adapter_load``, ``prefix_promote``, ``prefill``, ``prefix_copy``,
+  ``tail_prefill``, and one ``decode`` a dispatch with the drafted and
+  accepted counts); ``decode_timeout_s`` arms the crash-dump watchdog
+  around each prefill, tail prefill and decode step; the device memory
+  ledger's rows (``weights``, ``kv_pool``, ``adapter_bank`` and the nested
+  ``prefix_cache``); and, with perfscope sampling on, the CUDA-event
+  device time of every Nth decode replay against the signature's cost.
+  Everything recorded is a host value the step already has (the token
+  copy, the lengths on the host): nothing waits for the device to feed a
+  metric.
 
 **Sampling.**  Greedy decoding (temperature 0) is exact: the same
 weights give the JAX engine's tokens, speculative or not.  With a
@@ -87,11 +107,12 @@ with MoE layers (entry 4).
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from collections import deque
 from concurrent.futures import CancelledError
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -101,6 +122,10 @@ from ..device import resolve_device
 from ..kernels import layer_norm as _ln
 from ..kernels import paged_attention as _pa
 from ..kernels.paged_attention import SPARE_PAGE
+from ..observability import flight, registry
+from ..observability import perfscope as _perfscope
+from ..observability import watchdog as _watchdog
+from ..observability.trace import span
 from ..testing import faults
 from .adapters.lora import adapter_scope
 from .adapters.registry import AdapterRankError
@@ -115,6 +140,44 @@ from .speculative import NgramDrafter
 __all__ = ["Engine", "RequestHandle", "QueueFullError", "EngineClosedError",
            "EngineDrainingError", "EngineDeadError", "EngineStalledError",
            "RequestInterruptedError", "DeadlineExceededError", "_bucket"]
+
+# -- metric names (paddle_tpu_torch.observability registry; the JAX
+# engine's names, so one dashboard reads either package) --------------------
+SERVING_ACTIVE_SLOTS = "paddle_tpu_serving_active_slots"
+SERVING_QUEUE_DEPTH = "paddle_tpu_serving_queue_depth"
+SERVING_REQUESTS = "paddle_tpu_serving_requests_total"
+SERVING_TOKENS = "paddle_tpu_serving_tokens_total"
+SERVING_TTFT = "paddle_tpu_serving_ttft_seconds"
+SERVING_TOKEN_LATENCY = "paddle_tpu_serving_token_seconds"
+SERVING_BATCH_SECONDS = "paddle_tpu_serving_batch_seconds"
+SERVING_REDISPATCHED = "paddle_tpu_serving_requests_redispatched_total"
+SERVING_INTERRUPTED = "paddle_tpu_serving_requests_interrupted_total"
+SERVING_PREFIX_HITS = "paddle_tpu_serving_prefix_cache_hits_total"
+SERVING_PREFIX_MISSES = "paddle_tpu_serving_prefix_cache_misses_total"
+SERVING_PREFIX_EVICTIONS = "paddle_tpu_serving_prefix_cache_evictions_total"
+SERVING_SPEC_DRAFTED = "paddle_tpu_serving_speculative_tokens_drafted_total"
+SERVING_SPEC_ACCEPTED = \
+    "paddle_tpu_serving_speculative_tokens_accepted_total"
+SERVING_KV_POOL_BYTES = "paddle_tpu_serving_kv_pool_bytes"
+SERVING_KV_PAGES_FREE = "paddle_tpu_serving_kv_pages_free"
+SERVING_KV_PAGES_ACTIVE = "paddle_tpu_serving_kv_pages_active"
+SERVING_KV_PAGES_CACHED = "paddle_tpu_serving_kv_pages_cached"
+SERVING_KV_COW_COPIES = "paddle_tpu_serving_kv_page_cow_copies_total"
+SERVING_ADAPTERS_RESIDENT = "paddle_tpu_serving_adapters_resident"
+SERVING_ADAPTER_TOKENS = "paddle_tpu_serving_adapter_tokens_total"
+SERVING_ADAPTER_TTFT = "paddle_tpu_serving_adapter_ttft_seconds"
+SERVING_ADAPTER_LOADS = "paddle_tpu_serving_adapter_loads_total"
+SERVING_ADAPTER_EVICTIONS = "paddle_tpu_serving_adapter_evictions_total"
+SERVING_ADAPTER_STALLS = "paddle_tpu_serving_adapter_load_stalls_total"
+SERVING_WEIGHT_BYTES = "paddle_tpu_serving_weight_bytes"
+SERVING_HOST_PREFIX_HITS = "paddle_tpu_serving_host_prefix_hits_total"
+SERVING_HOST_PREFIX_PROMOTES = \
+    "paddle_tpu_serving_host_prefix_promotes_total"
+SERVING_HOST_PREFIX_PROMOTE_SECONDS = \
+    "paddle_tpu_serving_host_prefix_promote_seconds"
+
+# the perfscope program names of the engine's dispatches
+PROGRAM_DECODE = "serving.decode"
 
 
 class QueueFullError(RuntimeError):
@@ -166,6 +229,15 @@ class RequestInterruptedError(RuntimeError):
         self.cause = cause
 
 
+@contextmanager
+def _armed(name: str, timeout: float):
+    _watchdog.arm(name, timeout)
+    try:
+        yield
+    finally:
+        _watchdog.disarm()
+
+
 class _Retired(Exception):
     """The engine died or shut down under its own scheduler thread: the
     thread exits without another launch."""
@@ -178,15 +250,17 @@ class RequestHandle:
     """Future-style handle for one submitted request: ``result(timeout)``
     returns the generated ids (or raises the request's error), ``tokens``
     is the stream so far, ``ttft_s`` and ``token_latencies_s`` carry the
-    latency telemetry."""
+    latency telemetry, and ``journey`` (when the caller passed one) the
+    request's phase timeline."""
 
     def __init__(self, engine, prompt, max_new_tokens, eos_token_id,
                  temperature, top_k, seed, deadline_s, stream,
-                 adapter=None, conversation=None):
+                 adapter=None, conversation=None, journey=None):
         self.request_id = next(_ids)
         self.redispatches = 0        # times re-enqueued after an engine death
         self.adapter = adapter       # LoRA adapter name (None: base model)
         self.conversation = conversation  # prefix-index namespace qualifier
+        self.journey = journey       # observability.journey.Journey or None
         self._adapter_slot = 0       # bank row while active (0: zero adapter)
         self._adapter_pinned = False
         self.prompt = prompt
@@ -214,6 +288,10 @@ class RequestHandle:
         self.promote_s: Optional[float] = None   # host-tier promote wall s
         now = time.perf_counter()
         self.t_submit = now
+        self.t_queue = now           # engine-queue entry (reset on resubmit)
+        self._stall_t0: Optional[float] = None   # HOL stall began (journey)
+        self._stall_kind: Optional[str] = None   # adapter_stall | page_stall
+        self._park_t0: Optional[float] = None    # parked by a supervisor
         self.t_admit: Optional[float] = None
         self._t_last_token = now
         self.ttft_s: Optional[float] = None
@@ -290,14 +368,10 @@ def _sample_row(logits_row, temperature: float, top_k: int,
     return int(torch.multinomial(probs, 1, generator=gen))
 
 
-_ENTRIES = {4: "the rest of the serving engine",
-            9: "gateway, fleet control and observability"}
-
-
-def _unported(flag: str, entry: int = 4):
+def _unported(flag: str):
     return NotImplementedError(
-        f"{flag} is not ported yet: ROADMAP section 1, module entry {entry} "
-        f"({_ENTRIES[entry]})")
+        f"{flag} is not ported yet: ROADMAP section 1, module entry 4 (the "
+        f"rest of the serving engine)")
 
 
 class _DecodeGraph(NamedTuple):
@@ -401,6 +475,13 @@ class Engine:
             build).  Either tier needs ``prefix_cache=True``.
         decode_kernel: ``"pallas"``, the JAX flag value for the fused
             paged read; here it is the CUDA paged decode kernel.
+        tokenizer: optional — lets ``submit`` accept strings (``encode``)
+            and the gateway take string prompts.
+        decode_timeout_s: arm the crash-dump watchdog around every batched
+            prefill, tail prefill and decode step (default: the
+            ``PADDLE_TPU_DECODE_TIMEOUT_S`` env var): a stalled dispatch
+            writes a bundle naming the stuck phase (the flight tail, the
+            open spans, every thread's stack) instead of a silent hang.
     """
 
     def __init__(self, model, max_slots: int = 8, max_len: int = 256,
@@ -419,7 +500,7 @@ class Engine:
                  redispatch_hook: Optional[Callable] = None,
                  decode_timeout_s: Optional[float] = None,
                  sample_on_device: bool = False,
-                 decode_kernel: str = "pallas"):
+                 decode_kernel: str = "pallas", tokenizer=None):
         self.device = resolve_device(device)
         if decode_kernel not in ("xla", "pallas"):
             raise ValueError(f"decode_kernel must be 'xla' or 'pallas', "
@@ -439,8 +520,6 @@ class Engine:
             raise _unported("decode_kernel='xla' (the gather read)")
         if sample_on_device:
             raise _unported("sample_on_device (device-fused sampling)")
-        if decode_timeout_s is not None:
-            raise _unported("decode_timeout_s (the crash-dump watchdog)", 9)
         if model.gpt.config.moe_num_experts > 0:
             raise _unported("serving a model with MoE layers (capacity "
                             "routing over the decode graph's padded slots)")
@@ -470,6 +549,16 @@ class Engine:
                               else max(1, min(int(prefill_batch),
                                               self.max_slots)))
         self.eos_token_id = eos_token_id
+        self.tokenizer = tokenizer
+        if decode_timeout_s is None:
+            raw = os.environ.get("PADDLE_TPU_DECODE_TIMEOUT_S", "")
+            try:
+                decode_timeout_s = float(raw)
+            except ValueError:
+                decode_timeout_s = None
+        self._decode_timeout_s = (float(decode_timeout_s)
+                                  if decode_timeout_s and
+                                  decode_timeout_s > 0 else None)
         self.kv_dtype = kv_dtype
         self._quant = kv_dtype == "int8"
         self._auto_start = bool(auto_start)
@@ -577,6 +666,8 @@ class Engine:
                         "decode_device_seconds": 0.0,
                         # device memory the decode-graph captures reserved
                         "decode_graph_reserved_bytes": 0}
+        self._evicted_wave = 0     # prefix entries one admission evicted
+        self._build = None         # the last capture's (start, seconds)
         self._active_pages = 0     # pages referenced by in-flight requests
         self._cached_pages = 0     # pages referenced by prefix entries
         self._page_stalled = False
@@ -627,6 +718,45 @@ class Engine:
                                        pin_memory=on_card)
             self._bstage = torch.zeros(self._bbank.shape,
                                        pin_memory=on_card)
+        # the device memory ledger's rows (observability/perfscope.py): one
+        # per long-lived allocation this build owns, released by shutdown
+        # (a rebuilt engine registers its own), and the prefix cache's
+        # pages as a nested sub-account of the pool bytes
+        led = _perfscope.ledger()
+        self._ledger_rows = [led.register(
+            "weights", self._weight_bytes,
+            detail=("serving weights, int8 + scales"
+                    if weight_dtype == "int8" else "serving weights"))]
+        if adapters is not None:
+            self._ledger_rows.append(led.register(
+                "adapter_bank", sum(t.numel() * t.element_size() for t in
+                                    (self._abank, self._bbank,
+                                     self._ascale)),
+                detail=f"stacked LoRA banks, {self._adapters.capacity} rows "
+                       f"+ zero adapter"))
+        self._ledger_rows.append(led.register(
+            "kv_pool", self._pool_bytes,
+            detail=f"paged KV pool, {n_pages} pages + the spare"))
+        self._ledger_prefix = (led.register(
+            "prefix_cache", 0, nested=True,
+            detail="retained KV pages (bytes inside kv_pool)")
+            if self._prefix is not None else None)
+        if self._ledger_prefix is not None:
+            self._ledger_rows.append(self._ledger_prefix)
+        self._page_bytes = self._pool_bytes // (n_pages + 1)
+        reg = registry()
+        reg.gauge(SERVING_WEIGHT_BYTES,
+                  "device bytes of the serving weight operands as stored"
+                  ).set(float(self._weight_bytes))
+        reg.gauge(SERVING_KV_POOL_BYTES,
+                  "device bytes of the serving KV pools (incl. int8 scales)"
+                  ).set(float(self._pool_bytes))
+        # the decode step's GEMM operations a token (the trunk's linears
+        # and the tied head; perfscope's cost of the decode signature)
+        self._gemm_params = sum(
+            m.weight.numel() for m in model.modules()
+            if isinstance(m, torch.nn.Linear)) + \
+            model.gpt.embeddings.word_embeddings.weight.numel()
         # the decode step's static inputs (what the graph reads), their
         # host staging arrays (pinned on the card) and the ids' way back
         dec = [torch.zeros((n_rows, self._W), dtype=torch.int64, device=dev),
@@ -685,9 +815,9 @@ class Engine:
         registered LoRA adapter (an unknown name or a rank that can never
         fit the bank raises the registry's typed error here);
         ``conversation`` qualifies the prefix namespace to ``(adapter,
-        conversation)``."""
-        if journey is not None:
-            raise _unported("journey= (request journeys)", 9)
+        conversation)``; ``journey`` is an optional
+        :class:`~paddle_tpu_torch.observability.journey.Journey` the engine
+        appends its phases to (the caller finishes it)."""
         if self._dead is not None:
             raise EngineDeadError(self._dead) from self._dead
         if self._stop:
@@ -695,6 +825,10 @@ class Engine:
         if self._draining:
             raise EngineDrainingError(
                 "engine is draining; no new admissions")
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise ValueError("string prompt needs a tokenizer")
+            prompt = self.tokenizer.encode(prompt)
         ids = np.asarray(prompt).astype(np.int64).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty prompt")
@@ -724,7 +858,8 @@ class Engine:
         eos = self.eos_token_id if eos_token_id is ... else eos_token_id
         req = RequestHandle(self, ids, max_new_tokens, eos, temperature,
                             top_k, seed, deadline_s, stream,
-                            adapter=adapter, conversation=conversation)
+                            adapter=adapter, conversation=conversation,
+                            journey=journey)
         hook = self.admission_hook
         if hook is not None:
             try:
@@ -732,14 +867,30 @@ class Engine:
             except Exception:
                 with self._lock:
                     self._counts["rejected"] += 1
+                flight.record("serving", "reject", request=req.request_id,
+                              reason="admission_hook")
+                registry().counter(
+                    SERVING_REQUESTS, "serving requests by outcome").inc(
+                    1.0, labels={"outcome": "rejected"})
                 raise
         with self._lock:
             if len(self._queue) >= self.max_queue:
                 self._counts["rejected"] += 1
+                self._gauges_locked()
+                flight.record("serving", "reject", request=req.request_id,
+                              queue_depth=len(self._queue),
+                              max_queue=self.max_queue)
+                registry().counter(
+                    SERVING_REQUESTS, "serving requests by outcome").inc(
+                    1.0, labels={"outcome": "rejected"})
                 raise QueueFullError(
                     f"admission queue full ({self.max_queue}); retry later")
             self._queue.append(req)
             self._counts["submitted"] += 1
+            self._gauges_locked()
+        registry().counter(SERVING_REQUESTS,
+                           "serving requests by outcome").inc(
+            1.0, labels={"outcome": "submitted"})
         if self._auto_start:
             self.start()
         self._wake.set()
@@ -767,6 +918,9 @@ class Engine:
         req._engine = self
         req._state = "queued"
         req._torn = False
+        req.t_queue = time.perf_counter()   # journey engine_queue restarts
+        req._stall_t0 = None
+        req._stall_kind = None
         req.slot = None
         req._prefix_src = None  # the dead engine's pool (and index) is gone
         req._prefix_match = 0
@@ -780,6 +934,13 @@ class Engine:
         with self._lock:
             self._queue.append(req)
             self._counts["resubmitted"] += 1
+            self._gauges_locked()
+        flight.record("serving", "resubmit", request=req.request_id,
+                      redispatches=req.redispatches)
+        registry().counter(
+            SERVING_REDISPATCHED,
+            "requests re-dispatched after an engine death").inc(
+            1.0, labels={"layer": "supervisor"})
         if self._auto_start:
             self.start()
         self._wake.set()
@@ -817,10 +978,14 @@ class Engine:
         request finishes; True when all did before the deadline."""
         with self._lock:
             self._draining = True
-            pending = bool(self._queue) or self._pool.n_active > 0
-        if pending and self._dead is None and not self._stop:
+            depth, active = len(self._queue), self._pool.n_active
+        flight.record("serving", "drain_begin", queue_depth=depth,
+                      active_slots=active, deadline_s=float(deadline_s))
+        if (depth or active) and self._dead is None and not self._stop:
             self.start()
-        return self.join(timeout=deadline_s) and self._dead is None
+        ok = self.join(timeout=deadline_s) and self._dead is None
+        flight.record("serving", "drain_done", drained=ok)
+        return ok
 
     def undrain(self):
         """Reverse :meth:`drain` on an engine still alive; raises on a dead
@@ -830,7 +995,10 @@ class Engine:
         if self._stop:
             raise EngineClosedError("engine is shut down")
         with self._lock:
+            was = self._draining
             self._draining = False
+        if was:
+            flight.record("serving", "undrain")
 
     def abandon(self, cause: Optional[BaseException] = None):
         """Declare the engine dead from outside its scheduler thread (a
@@ -863,10 +1031,18 @@ class Engine:
             self._page_alloc.check()     # zero leaked pages at teardown
             if self._adapters is not None:
                 self._adapters.check()   # zero leaked adapter pins
+            self._gauges_locked()
+            ledger_rows, self._ledger_rows = self._ledger_rows, []
+            self._ledger_prefix = None
         if self._thread is None or not self._thread.is_alive():
             self._release_device()
+        # this build's device memory goes with its pools and banks: a
+        # leaked ledger row would mean leaked device bytes
+        for row in ledger_rows:
+            row.release()
         if self._own_host_tier:
             self._host_tier.close()
+        _perfscope.record_memory_stats()
         err = EngineClosedError("engine shut down")
         for req in queued + active:
             req._finish(err)
@@ -1014,6 +1190,8 @@ class Engine:
                 except _Retired:
                     return
                 except Exception as e:  # noqa: BLE001 — fail loudly
+                    # an OOM names the ledger's owners in a crash bundle
+                    _perfscope.note_exception(e, program="serving")
                     self._fail_as_dead(e)
                     raise
                 with self._lock:
@@ -1070,6 +1248,10 @@ class Engine:
                 # freeze the streams first: a stuck dispatch may still
                 # come back and try to emit
                 r._torn = True
+            self._gauges_locked()
+        flight.record("serving", "scheduler_error",
+                      error=f"{type(cause).__name__}: {cause}",
+                      queued=len(queued), active=len(active))
         fresh = [r for r in queued + active if not r._tokens]
         streamed = [r for r in active if r._tokens]
         taken: set = set()
@@ -1086,9 +1268,19 @@ class Engine:
             self._counts["interrupted"] += len(streamed)
         for r in lost:
             r._finish(EngineDeadError(cause))
+        reg = registry()
         for r in streamed:
+            flight.record("serving", "interrupted", request=r.request_id,
+                          tokens=len(r._tokens))
+            reg.counter(SERVING_INTERRUPTED,
+                        "requests failed mid-stream by an engine death"
+                        ).inc(1.0)
             r._finish(RequestInterruptedError(r.request_id, len(r._tokens),
                                               cause))
+        if taken:
+            flight.record("serving", "handoff", n=len(taken),
+                          requests=",".join(str(r.request_id) for r in fresh
+                                            if id(r) in taken))
 
     def _sweep(self):
         """Evict cancelled / past-deadline requests (queued and active)."""
@@ -1101,7 +1293,7 @@ class Engine:
                     self._queue.remove(req)
                     outcome = ("cancelled" if req._cancel_requested
                                else "deadline_expired")
-                    self._counts[outcome] += 1
+                    self._evicted_counters_locked(req, outcome)
                     to_finish.append((req, outcome))
             for req in self._pool.active().values():
                 if req._cancel_requested or (req.deadline is not None and
@@ -1110,6 +1302,8 @@ class Engine:
                                else "deadline_expired")
                     self._evict_locked(req, outcome)
                     to_finish.append((req, outcome))
+            if to_finish:
+                self._gauges_locked()
         for req, outcome in to_finish:
             req._finish(CancelledError() if outcome == "cancelled" else
                         DeadlineExceededError(
@@ -1122,7 +1316,8 @@ class Engine:
         with self._lock:
             if req in self._queue:
                 self._queue.remove(req)
-                self._counts["cancelled"] += 1
+                self._evicted_counters_locked(req, "cancelled")
+                self._gauges_locked()
                 req._finish(CancelledError())
                 return True
         self._wake.set()
@@ -1139,6 +1334,37 @@ class Engine:
         return (req.adapter if req.conversation is None
                 else (req.adapter, req.conversation))
 
+    @staticmethod
+    def _journey_admit_locked(req: RequestHandle, **attrs):
+        """Close the request's engine-queue window on its journey: one
+        ``engine_queue`` phase (queue entry -> admit), split at the stall
+        boundary into an ``adapter_stall`` / ``page_stall`` phase when the
+        head-of-line request spent part of the window blocked on bank pins
+        or page exhaustion."""
+        j = req.journey
+        if j is None:
+            return
+        stall_t0, kind = req._stall_t0, req._stall_kind
+        req._stall_t0 = None
+        req._stall_kind = None
+        if stall_t0 is not None and kind is not None and \
+                stall_t0 > req.t_queue:
+            j.phase("engine_queue", req.t_queue, stall_t0 - req.t_queue,
+                    **attrs)
+            j.phase(kind, stall_t0, req.t_admit - stall_t0)
+        else:
+            j.phase("engine_queue", req.t_queue,
+                    req.t_admit - req.t_queue, **attrs)
+
+    @staticmethod
+    def _mark_stall_locked(req: RequestHandle, kind: str):
+        """First time the head-of-line request blocks this episode:
+        remember when, so the admit-time journey phase can attribute the
+        stalled tail of the queue wait to its cause."""
+        if req._stall_t0 is None:
+            req._stall_t0 = time.perf_counter()
+            req._stall_kind = kind
+
     def _pin_adapter_locked(self, req: RequestHandle) -> bool:
         """Make the request's adapter resident and pinned before its lane
         is taken, scheduling a cold bank load when needed.  False when
@@ -1150,15 +1376,31 @@ class Engine:
         ev0 = res.evictions
         got = res.acquire(req.adapter)
         if got is None:
+            self._mark_stall_locked(req, "adapter_stall")
             if not self._adapter_stalled:
                 self._adapter_stalled = True
                 self._counts["adapter_load_stalls"] += 1
+                flight.record("serving", "adapter_load_stall",
+                              request=req.request_id, adapter=req.adapter,
+                              resident=res.n_resident)
+                registry().counter(
+                    SERVING_ADAPTER_STALLS,
+                    "admissions stalled on a fully-pinned adapter bank"
+                ).inc(1.0)
             return False
         slot, cold = got
         self._adapter_stalled = False
         req._adapter_slot = slot
         req._adapter_pinned = True
-        self._counts["adapter_evictions"] += res.evictions - ev0
+        dev = res.evictions - ev0
+        if dev:
+            self._counts["adapter_evictions"] += dev
+            flight.record("serving", "adapter_evict", n=dev,
+                          request=req.request_id, for_adapter=req.adapter)
+            registry().counter(
+                SERVING_ADAPTER_EVICTIONS,
+                "refs-0 adapters evicted from the bank (LRU)").inc(
+                float(dev))
         if cold:
             if req.adapter not in self._adapter_uploads:
                 self._counts["adapter_loads"] += 1
@@ -1235,19 +1477,31 @@ class Engine:
                     alloc.deref(p)
                 self._cached_pages -= len(e.pages)
                 self._counts["prefix_evictions"] += 1
+                self._evicted_wave += 1
+                flight.record("serving", "prefix_evict",
+                              pages=len(e.pages), cached_tokens=e.n)
             pages = alloc.alloc(need)
             if pages is None:
-                # the pin is dropped so a parked request holds no bank row
+                # the pin is dropped so a parked request holds no bank row;
+                # the stall is flight-recorded once an episode
                 self._unpin_adapter_locked(req)
+                self._mark_stall_locked(req, "page_stall")
                 if not self._page_stalled:
                     self._page_stalled = True
                     self._counts["page_alloc_stalls"] += 1
+                    flight.record("serving", "page_alloc_stall",
+                                  request=req.request_id, need=need,
+                                  free=alloc.n_free,
+                                  cached_pages=self._cached_pages)
                 break
             self._page_stalled = False
             self._queue.popleft()
             req.slot = self._pool.alloc(req)
             req._state = "active"
             req.t_admit = time.perf_counter()
+            self._journey_admit_locked(
+                req, slot=req.slot, pages_reserved=len(pages),
+                pages_shared=(hit[1] // P if hit is not None else 0))
             if hit is not None:
                 entry, matched = hit
                 self._prefix.touch(entry)      # count the peeked hit
@@ -1301,14 +1555,39 @@ class Engine:
 
     def _admit(self) -> bool:
         with self._lock:
+            self._evicted_wave = 0
             batch = self._admit_locked()
+            evicted = self._evicted_wave
+            prefix_metrics = None
+            if self._prefix is not None and batch:
+                # a host-tier promote counts as a miss here (the JAX
+                # engine's count: it becomes a hit only as it uploads)
+                prefix_metrics = (sum(1 for r in batch if r.prefix_hit),
+                                  sum(1 for r in batch if not r.prefix_hit))
+            self._gauges_locked()
         if not batch:
             return False
+        if evicted:
+            registry().counter(
+                SERVING_PREFIX_EVICTIONS,
+                "prefix-cache rows evicted back to the free list").inc(
+                float(evicted))
+        if prefix_metrics is not None:
+            reg = registry()
+            hits, misses = prefix_metrics
+            if hits:
+                reg.counter(SERVING_PREFIX_HITS,
+                            "admissions served from the prefix cache").inc(
+                    float(hits))
+            if misses:
+                reg.counter(SERVING_PREFIX_MISSES,
+                            "admissions with no usable cached prefix").inc(
+                    float(misses))
         for req in batch:
             if req.temperature > 0:
                 req._gen = torch.Generator(device=self.device)
                 req._gen.manual_seed(req.seed)
-        self._flush_adapter_uploads()
+        self._flush_adapter_uploads(batch)
         self._flush_promotes(batch)
         cold = [r for r in batch if r._prefix_src is None]
         hits = [r for r in batch if r._prefix_src is not None]
@@ -1318,13 +1597,15 @@ class Engine:
             self._prefill_hits(hits)
         return True
 
-    def _flush_adapter_uploads(self):
+    def _flush_adapter_uploads(self, batch=()):
         """Cold loads: write each scheduled adapter's zero-padded factors
         into its row of the pinned staging banks and copy the row into the
         device banks on the engine's stream, ahead of every forward that
         reads it (the admission's prefill then waits for the stream, so a
         staging row is never rewritten under its copy).  The mapping is
-        checked again in case a stalled request's row was reused first."""
+        checked again in case a stalled request's row was reused first.
+        Every request of ``batch`` (the admission wave) waiting on a
+        loaded adapter gets an ``adapter_load`` phase on its journey."""
         if self._adapters is None:
             return
         with self._lock:
@@ -1334,21 +1615,34 @@ class Engine:
         for name, slot in ups:
             self._check_live()
             t0 = time.perf_counter()
-            ad = self.adapter_registry.get(name)
-            a, b = self._astage[slot].numpy(), self._bstage[slot].numpy()
-            a[...] = 0.0
-            b[...] = 0.0
-            for i in range(ad.num_layers):
-                a[i, :, :ad.rank] = ad.a[i]
-                b[i, :ad.rank, :] = ad.b[i]
-            self._abank[slot].copy_(self._astage[slot], non_blocking=True)
-            self._bbank[slot].copy_(self._bstage[slot], non_blocking=True)
-            self._ascale[slot].fill_(ad.scale)
+            with span("serving.adapter_load", adapter=name, bank_slot=slot):
+                ad = self.adapter_registry.get(name)
+                a = self._astage[slot].numpy()
+                b = self._bstage[slot].numpy()
+                a[...] = 0.0
+                b[...] = 0.0
+                for i in range(ad.num_layers):
+                    a[i, :, :ad.rank] = ad.a[i]
+                    b[i, :ad.rank, :] = ad.b[i]
+                self._abank[slot].copy_(self._astage[slot],
+                                        non_blocking=True)
+                self._bbank[slot].copy_(self._bstage[slot],
+                                        non_blocking=True)
+                self._ascale[slot].fill_(ad.scale)
+            dt = time.perf_counter() - t0
             with self._lock:
                 if self._adapters.slot_of(name) == slot:
                     self._adapters.mark_loaded(name)
-                self._counts["adapter_load_seconds"] += \
-                    time.perf_counter() - t0
+                self._counts["adapter_load_seconds"] += dt
+            registry().counter(
+                SERVING_ADAPTER_LOADS,
+                "cold adapter loads into the device bank").inc(1.0)
+            flight.record("serving", "adapter_load", adapter=name,
+                          bank_slot=slot, load_ms=round(dt * 1e3, 3))
+            for req in batch:
+                if req.adapter == name and req.journey is not None:
+                    req.journey.phase("adapter_load", t0, dt, adapter=name,
+                                      bank_slot=slot)
 
     def _flush_promotes(self, batch):
         """Host-tier promotion: upload each promoted request's cached
@@ -1416,11 +1710,33 @@ class Engine:
                 req._prefix_match = m
                 req._cow = None                  # page-aligned by block
                 req.prefix_hit = True
-                req.promote_s = time.perf_counter() - t0
+                dt = req.promote_s = time.perf_counter() - t0
                 self._counts["host_prefix_promotes"] += 1
                 # the upload may still read the slab: the tier rewrites the
                 # entry's range only after it
                 tier.release(hentry, ev[1] if timed else None)
+            # the wall of the upload's enqueue and the re-index (the
+            # device time is host_prefix_promote_seconds in stats())
+            reg = registry()
+            reg.counter(
+                SERVING_HOST_PREFIX_HITS,
+                "admissions whose prefix was found in the host tier").inc(
+                1.0)
+            reg.counter(
+                SERVING_HOST_PREFIX_PROMOTES,
+                "host-tier prefixes re-uploaded into device pages").inc(1.0)
+            reg.histogram(
+                SERVING_HOST_PREFIX_PROMOTE_SECONDS,
+                "host->device promote wall seconds (upload + re-index)"
+            ).observe(dt)
+            nbytes = q * self._page_bytes
+            flight.record("serving", "host_prefix_promote",
+                          request=req.request_id, cached_tokens=m,
+                          pages=q, bytes=nbytes,
+                          promote_ms=round(dt * 1e3, 3))
+            if req.journey is not None:
+                req.journey.phase("prefix_promote", t0, dt,
+                                  cached_tokens=m, pages=q, bytes=nbytes)
 
     def _resolve_promotes_locked(self):
         """Fold the finished promotes' CUDA-event times into the counts."""
@@ -1455,6 +1771,11 @@ class Engine:
                 plens[i] = req.prompt.size
                 tables[i] = self._page_tables[req.slot]
                 aids[i] = req._adapter_slot
+                flight.record("serving", "admit", request=req.request_id,
+                              slot=req.slot,
+                              prompt_len=int(req.prompt.size),
+                              queue_wait_ms=round(
+                                  1e3 * (req.t_admit - req.t_submit), 3))
         # host-side scatter plan: prompt positions map through the lane's
         # table; padding positions and padding lanes are not written
         pos = np.arange(bucket)
@@ -1463,30 +1784,51 @@ class Engine:
         lane, col = np.nonzero(pid < NP)
         dev = self.device
         H, D = self._heads, self._head_dim
-        faults.fault_point("serving.prefill", n=len(batch))
-        self._check_live()
         t0 = time.perf_counter()
-        with torch.no_grad():
-            caches = [(torch.zeros((n, bucket, H, D), device=dev),
-                       torch.zeros((n, bucket, H, D), device=dev), 0)
-                      for _ in self._kpools]
-            with self._scope(torch.from_numpy(aids).to(dev)):
-                x, new_caches = self._net.gpt(torch.from_numpy(ids).to(dev),
-                                              caches=caches)
-            h_last = x[torch.arange(n, device=dev),
-                       torch.from_numpy(plens - 1).to(dev)]
-            logits = self._net.lm_head(h_last)
-            idx = (torch.from_numpy(pid[lane, col]).long().to(dev),
-                   torch.from_numpy(col % P).long().to(dev))
-            src = (torch.from_numpy(lane).to(dev), torch.from_numpy(col).to(dev))
-            for i, (kb, vb, _) in enumerate(new_caches):
-                self._write_pages(i, idx, kb[src], vb[src])
-            toks = self._sample(logits, batch)
+        # the watchdog's window covers the seam: a stalled dispatch (or a
+        # fault that stalls it) dumps while the thread is still stuck
+        with self._deadline("serving.prefill"):
+            faults.fault_point("serving.prefill", n=len(batch))
+            self._check_live()
+            with torch.no_grad(), span("serving.prefill", n=len(batch),
+                                       bucket=bucket):
+                caches = [(torch.zeros((n, bucket, H, D), device=dev),
+                           torch.zeros((n, bucket, H, D), device=dev), 0)
+                          for _ in self._kpools]
+                with self._scope(torch.from_numpy(aids).to(dev)):
+                    x, new_caches = self._net.gpt(
+                        torch.from_numpy(ids).to(dev), caches=caches)
+                h_last = x[torch.arange(n, device=dev),
+                           torch.from_numpy(plens - 1).to(dev)]
+                logits = self._net.lm_head(h_last)
+                idx = (torch.from_numpy(pid[lane, col]).long().to(dev),
+                       torch.from_numpy(col % P).long().to(dev))
+                src = (torch.from_numpy(lane).to(dev),
+                       torch.from_numpy(col).to(dev))
+                for i, (kb, vb, _) in enumerate(new_caches):
+                    self._write_pages(i, idx, kb[src], vb[src])
+                toks = self._sample(logits, batch)
+        dt = time.perf_counter() - t0
         with self._lock:
             self._counts["prefill_batches"] += 1
-            self._counts["prefill_seconds"] += time.perf_counter() - t0
+            self._counts["prefill_seconds"] += dt
             self._sigs["prefill"].add((n, bucket))
+        registry().histogram(SERVING_BATCH_SECONDS,
+                             "prefill/decode batch wall time").observe(
+            dt, labels={"phase": "prefill"})
+        for req in batch:
+            if req.journey is not None:
+                req.journey.phase("prefill", t0, dt, n=len(batch),
+                                  bucket=bucket,
+                                  prompt=int(req.prompt.size))
         self._emit_first_tokens(batch, toks)
+
+    def _deadline(self, name: str):
+        """The crash-dump watchdog armed around one dispatch (nothing
+        without ``decode_timeout_s``)."""
+        if self._decode_timeout_s is None:
+            return nullcontext()
+        return _armed(name, self._decode_timeout_s)
 
     def _prefill_hits(self, hits) -> None:
         """Prefix-hit admission: the hits already share the cached pages
@@ -1504,6 +1846,7 @@ class Engine:
         src = np.full(lanes, NP, np.int64)
         dst = np.full(lanes, NP, np.int64)
         n_copy = 0
+        cow_ids: list = []           # requests whose boundary page COWs
         tb = _bucket(max(r.prompt.size - r._prefix_match for r in hits), 1,
                      self._limit)
         ids = np.zeros((n_rows, tb), np.int64)
@@ -1514,36 +1857,71 @@ class Engine:
                 if req._cow is not None:
                     src[n_copy], dst[n_copy] = req._cow
                     n_copy += 1
+                    cow_ids.append(req.request_id)
                     req._cow = None
                 m = req._prefix_match
                 tail = req.prompt[m:]
                 ids[req.slot, :tail.size] = tail
                 lens[req.slot] = m
                 gidx[req.slot] = tail.size - 1
+                flight.record("serving", "prefix_admit",
+                              request=req.request_id, slot=req.slot,
+                              src_slot=-1, cached_tokens=m,
+                              tail=int(tail.size),
+                              queue_wait_ms=round(
+                                  1e3 * (req.t_admit - req.t_submit), 3))
             tables = np.array(self._page_tables)
             aids = np.array(self._aids)
         dev = self.device
-        faults.fault_point("serving.prefill", n=len(hits))
-        self._check_live()
         t0 = time.perf_counter()
-        with torch.no_grad():
-            if n_copy:
-                self._copy_pages(torch.from_numpy(src).to(dev),
-                                 torch.from_numpy(dst).to(dev))
-            caches = self._caches(torch.from_numpy(lens).to(dev),
-                                  torch.from_numpy(tables).to(dev))
-            with self._scope(torch.from_numpy(aids).to(dev)):
-                x, _ = self._net.gpt(torch.from_numpy(ids).to(dev),
-                                     caches=caches)
-            h_last = x[torch.arange(n_rows, device=dev),
-                       torch.from_numpy(gidx).to(dev)]
-            rows = [None] * n_rows
-            for req in hits:
-                rows[req.slot] = req
-            toks = self._sample(self._net.lm_head(h_last), rows)
+        with self._deadline("serving.tail_prefill"):
+            faults.fault_point("serving.prefill", n=len(hits))
+            self._check_live()
+            with torch.no_grad():
+                if n_copy:
+                    with span("serving.prefix_copy", n=n_copy):
+                        self._copy_pages(torch.from_numpy(src).to(dev),
+                                         torch.from_numpy(dst).to(dev))
+                    registry().counter(
+                        SERVING_KV_COW_COPIES,
+                        "shared KV pages cloned for a diverging writer"
+                    ).inc(float(n_copy))
+                    flight.record("serving", "page_cow", copies=n_copy,
+                                  requests=",".join(map(str, cow_ids)))
+                t_copy_end = time.perf_counter()
+                with span("serving.tail_prefill", n=len(hits), bucket=tb):
+                    caches = self._caches(torch.from_numpy(lens).to(dev),
+                                          torch.from_numpy(tables).to(dev))
+                    with self._scope(torch.from_numpy(aids).to(dev)):
+                        x, _ = self._net.gpt(torch.from_numpy(ids).to(dev),
+                                             caches=caches)
+                    h_last = x[torch.arange(n_rows, device=dev),
+                               torch.from_numpy(gidx).to(dev)]
+                    rows = [None] * n_rows
+                    for req in hits:
+                        rows[req.slot] = req
+                    toks = self._sample(self._net.lm_head(h_last), rows)
+        t_end = time.perf_counter()
+        registry().histogram(SERVING_BATCH_SECONDS,
+                             "prefill/decode batch wall time").observe(
+            t_end - t0, labels={"phase": "tail_prefill"})
+        cow_set = set(cow_ids)
+        for req in hits:
+            if req.journey is None:
+                continue
+            m = req._prefix_match
+            # paged hits share pages by reference (zero copy) unless a
+            # boundary page was cloned
+            if req.request_id in cow_set:
+                req.journey.phase("prefix_copy", t0, t_copy_end - t0,
+                                  cached_tokens=m)
+            req.journey.phase("tail_prefill", t_copy_end,
+                              t_end - t_copy_end, cached_tokens=m,
+                              tail=int(req.prompt.size - m),
+                              zero_copy=req.request_id not in cow_set)
         with self._lock:
             self._counts["prefill_batches"] += 1
-            self._counts["prefill_seconds"] += time.perf_counter() - t0
+            self._counts["prefill_seconds"] += t_end - t0
             self._counts["page_cow_copies"] += n_copy
             self._counts["tail_prefill_read_groups"] += len(
                 _pa.paged_groups(tb))
@@ -1598,15 +1976,31 @@ class Engine:
         return out
 
     def _emit_first_tokens(self, batch, toks, by_slot: bool = False):
+        """Shared tail of both admission paths: record TTFT and emit each
+        request's first token."""
         now = time.perf_counter()
         finishers = []
+        reg = registry()
+        ttft_hist = reg.histogram(SERVING_TTFT, "time to first token")
         for i, req in enumerate(batch):
             req.ttft_s = now - req.t_submit
             req._t_last_token = now
+            ttft_hist.observe(req.ttft_s)
+            if req.adapter is not None:
+                reg.histogram(
+                    SERVING_ADAPTER_TTFT,
+                    "time to first token, per adapter").observe(
+                    req.ttft_s, labels={"adapter": req.adapter})
             if req.done() or req._torn or req._engine is not self:
                 continue
             token = int(toks[req.slot] if by_slot else toks[i])
+            if req.journey is not None:
+                req.journey.mark_first_token(now)
             finished = self._emit_one(req, token)
+            if req.adapter is not None:
+                reg.counter(SERVING_ADAPTER_TOKENS,
+                            "tokens served, per adapter").inc(
+                    1.0, labels={"adapter": req.adapter})
             with self._lock:
                 self._counts["tokens"] += 1
                 self._lengths[req.slot] = req.prompt.size
@@ -1679,24 +2073,71 @@ class Engine:
             self._counts["decode_graph_reserved_bytes"] += reserved
         return entry
 
+    def _decode_cost(self, lengths) -> dict:
+        """perfscope's cost of one decode step whose rows start at
+        ``lengths``: the GEMMs' operations (2 x the linears' and the tied
+        head's parameters x the rows' tokens) and the paged reads'
+        (``paged_cost`` a layer), the weights read once, the reads' bytes
+        and the logits written."""
+        n_rows, W = self._ids.shape
+        P = self._page_alloc.page_size
+        f_att, b_att = _pa.paged_cost(lengths, W, self._heads,
+                                      self._head_dim, P,
+                                      self._max_pages_per_slot, self._quant)
+        L = len(self._kpools)
+        V = self.model.gpt.config.vocab_size
+        tokens = n_rows * W
+        return {"flops": 2.0 * tokens * self._gemm_params + L * f_att,
+                "bytes accessed": (self._weight_bytes + L * b_att
+                                   + 4.0 * tokens * V),
+                "dtype": "float32"}
+
+    def _register_decode_cost(self, sig):
+        """The signature's cost, as registered once per signature: every
+        lane but the scratch one live at its longest start."""
+        n_rows, W = self._ids.shape
+        full = self._park - W
+        lengths = [full] * (n_rows - 1) + [self._park]
+        _perfscope.register_cost(PROGRAM_DECODE, sig,
+                                 self._decode_cost(lengths))
+
     def _run_decode(self, *inputs):
         """One decode step over ``inputs`` (see :meth:`_stage`): ``(logits
         [n_rows, W, V] on the device, argmax ids [n_rows, W] numpy)``.  On
         the card: replay the step's graph (captured at the first step of a
-        new signature)."""
+        new signature; the capture's (start, seconds) is left in
+        ``_build`` for the step's journeys).
+        With perfscope sampling on, every Nth step's device time is booked
+        against its cost: CUDA events around the replay, read after the
+        step's one device-to-host copy (so sampling adds no wait; the
+        copy's wait goes through ``perfscope.block_ready``)."""
         self._check_live()
         sig = self._decode_signature()
+        sample = (_perfscope.poll_sample(PROGRAM_DECODE)
+                  if _perfscope.sampling_active() else False)
         if self.device.type != "cuda":
+            t0 = time.perf_counter()
             self._stage(*inputs)
             logits, toks = self._decode_forward()
             with self._lock:
+                fresh = sig not in self._sigs["decode"]
                 self._sigs["decode"].add(sig)
+            if fresh:
+                self._register_decode_cost(sig)
+            if sample:
+                _perfscope.block_ready(toks)
+                _perfscope.record_sample(PROGRAM_DECODE, sig,
+                                         time.perf_counter() - t0,
+                                         cost=self._decode_cost(inputs[1]))
             return logits, toks.numpy()
         entry = self._graphs.get(sig)
         if entry is None:
+            t_b0 = time.perf_counter()
             entry = self._capture(sig)
+            self._build = (t_b0, time.perf_counter() - t_b0)
             with self._lock:
                 self._sigs["decode"].add(sig)
+            self._register_decode_cost(sig)
         self._stage(*inputs)
         t0, t1, t2 = self._events
         t0.record()
@@ -1704,13 +2145,20 @@ class Engine:
         t1.record()
         self._toks_host.copy_(entry.toks, non_blocking=True)
         t2.record()
-        t2.synchronize()
+        if sample:
+            _perfscope.block_ready(t2)
+        else:
+            t2.synchronize()
+        device_s = 1e-3 * t0.elapsed_time(t1)
         with self._lock:
             c = self._counts
             c["decode_graph_replays"] += 1
             c["replayed_paged_launches"] += entry.launches["paged"]
             c["replayed_ln_fwd_launches"] += entry.launches["ln_fwd"]
-            c["decode_device_seconds"] += 1e-3 * t0.elapsed_time(t1)
+            c["decode_device_seconds"] += device_s
+        if sample:
+            _perfscope.record_sample(PROGRAM_DECODE, sig, device_s,
+                                     cost=self._decode_cost(inputs[1]))
         return entry.logits, self._toks_host.numpy()
 
     def _decode_step(self) -> bool:
@@ -1738,20 +2186,28 @@ class Engine:
             inputs = (np.array(self._ids), np.array(self._lengths),
                       np.array(self._page_tables), np.array(self._aids))
         lengths = inputs[1]
-        faults.fault_point("serving.decode", active=len(active))
         t0 = time.perf_counter()
-        with torch.no_grad():
-            logits, toks = self._run_decode(*inputs)
-            toks = np.array(toks)
-            for slot, req in active.items():
-                if req.temperature > 0 and not req.done():
-                    toks[slot, 0] = _sample_row(logits[slot, 0],
-                                                req.temperature, req.top_k,
-                                                req._gen)
+        with self._deadline("serving.decode"):
+            faults.fault_point("serving.decode", active=len(active))
+            with torch.no_grad(), span("serving.decode", active=len(active)):
+                logits, toks = self._run_decode(*inputs)
+                toks = np.array(toks)
+                for slot, req in active.items():
+                    if req.temperature > 0 and not req.done():
+                        toks[slot, 0] = _sample_row(
+                            logits[slot, 0], req.temperature, req.top_k,
+                            req._gen)
         now = time.perf_counter()
+        dt = now - t0
+        build, self._build = self._build, None
         with self._lock:
             self._counts["decode_steps"] += 1
-            self._counts["decode_seconds"] += now - t0
+            self._counts["decode_seconds"] += dt
+        registry().histogram(SERVING_BATCH_SECONDS,
+                             "prefill/decode batch wall time").observe(
+            dt, labels={"phase": "decode"})
+        tok_hist = registry().histogram(SERVING_TOKEN_LATENCY,
+                                        "per-token decode latency")
         drafted = accepted = 0
         finishers = []
         for slot, req in active.items():
@@ -1777,7 +2233,30 @@ class Engine:
                 emitted += 1
                 if finished:
                     break
+            # one pool read emitted `emitted` tokens: split the wall time
+            # so the per-token histogram stays sum-preserving
             req.token_latencies_s.extend([lat / emitted] * emitted)
+            for _ in range(emitted):
+                tok_hist.observe(lat / emitted)
+            if req.adapter is not None:
+                registry().counter(
+                    SERVING_ADAPTER_TOKENS,
+                    "tokens served, per adapter").inc(
+                    float(emitted), labels={"adapter": req.adapter})
+            if req.journey is not None:
+                # one phase per batched dispatch the request rode, from
+                # its launch to the end of the token copy; on a cold start
+                # the step's head up to the end of the graph's capture is
+                # a ``build`` phase instead (attributed, not a gap)
+                t_dec = t0
+                if build is not None:
+                    t_dec = build[0] + build[1]
+                    req.journey.phase("build", t0, t_dec - t0)
+                attrs = {"emitted": emitted, "active": len(active)}
+                if d is not None:
+                    attrs["drafted"] = W - 1
+                    attrs["accepted"] = len(run) - 1
+                req.journey.phase("decode", t_dec, now - t_dec, **attrs)
             with self._lock:
                 self._counts["tokens"] += emitted
                 # rejected drafts' K/V past the new length is overwritten
@@ -1793,14 +2272,26 @@ class Engine:
             with self._lock:
                 self._counts["spec_drafted"] += drafted
                 self._counts["spec_accepted"] += accepted
+            reg = registry()
+            reg.counter(SERVING_SPEC_DRAFTED,
+                        "speculative tokens drafted").inc(float(drafted))
+            if accepted:
+                reg.counter(SERVING_SPEC_ACCEPTED,
+                            "speculative tokens accepted").inc(
+                    float(accepted))
+            flight.record("serving", "spec_verify", drafted=drafted,
+                          accepted=accepted, rejected=drafted - accepted)
         for req in finishers:
             req._finish(None)
+        with self._lock:
+            self._gauges_locked()
         return True
 
     def _emit_one(self, req: RequestHandle, token: int) -> bool:
         """Stream one token; returns whether the request is finished."""
         faults.fault_point("serving.stream", request=req.request_id)
         req._emit(token)
+        registry().counter(SERVING_TOKENS, "tokens generated").inc(1.0)
         return (len(req._tokens) >= req.max_new_tokens or
                 (req.eos_token_id is not None and
                  token == req.eos_token_id))
@@ -1845,9 +2336,46 @@ class Engine:
                 self._cached_pages += keep
                 req._pages = None
                 self._counts["prefix_inserts"] += 1
+                flight.record("serving", "prefix_insert", pages=keep,
+                              request=req.request_id, cached_tokens=n)
         self._release_pages_locked(req)
         self._pool.free(req.slot)
         if self._adapters is not None:
             self._unpin_adapter_locked(req)
             self._aids[req.slot] = 0
+        self._evicted_counters_locked(req, outcome)
+
+    def _evicted_counters_locked(self, req: RequestHandle, outcome: str):
         self._counts[outcome] += 1
+        flight.record("serving", "evict", request=req.request_id,
+                      slot=-1 if req.slot is None else req.slot,
+                      outcome=outcome, tokens=len(req._tokens))
+        registry().counter(SERVING_REQUESTS,
+                           "serving requests by outcome").inc(
+            1.0, labels={"outcome": outcome})
+
+    def _gauges_locked(self):
+        reg = registry()
+        if self._ledger_prefix is not None:
+            # the cached pages' bytes: a sub-account of the kv_pool owner
+            self._ledger_prefix.update(self._cached_pages * self._page_bytes)
+        reg.gauge(SERVING_ACTIVE_SLOTS,
+                  "slots currently owned by requests").set(
+            float(self._pool.n_active))
+        reg.gauge(SERVING_QUEUE_DEPTH, "queued, unadmitted requests").set(
+            float(len(self._queue)))
+        if self._adapters is not None:
+            reg.gauge(SERVING_ADAPTERS_RESIDENT,
+                      "adapters resident in the device bank").set(
+                float(self._adapters.n_resident))
+        reg.gauge(SERVING_KV_PAGES_FREE,
+                  "KV pages on the free list").set(
+            float(self._page_alloc.n_free))
+        reg.gauge(SERVING_KV_PAGES_ACTIVE,
+                  "KV pages referenced by in-flight requests "
+                  "(shared pages count once per reference)").set(
+            float(self._active_pages))
+        reg.gauge(SERVING_KV_PAGES_CACHED,
+                  "KV pages referenced by prefix-cache entries "
+                  "(shared pages count once per reference)").set(
+            float(self._cached_pages))

@@ -22,7 +22,12 @@ it:
   its ``redispatch_hook``; the supervisor parks them and re-enqueues the
   same handles in the rebuilt engine, so callers blocked on ``result()``
   never notice.  Requests that streamed tokens fail with
-  ``RequestInterruptedError`` and are never replayed.
+  ``RequestInterruptedError`` and are never replayed.  A re-dispatched
+  request keeps its journey: the death -> rebuilt-engine window is a
+  ``rebuild`` phase on the same journey id.
+* **telemetry**: the JAX supervisor's flight events (``park``,
+  ``stall``, ``teardown``, ``rebuild_failed``, ``giveup``, ``restart``)
+  and ``paddle_tpu_serving_engine_restarts_total{engine}``.
 
 Restarts are budgeted (``max_restarts`` in ``restart_window_s``); past the
 budget the supervisor gives up, fails the parked requests with
@@ -40,11 +45,14 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from ..observability import flight, registry
 from ..testing import faults
 from .engine import (Engine, EngineClosedError, EngineDeadError,
                      EngineStalledError, QueueFullError)
 
-__all__ = ["EngineSupervisor"]
+__all__ = ["EngineSupervisor", "SERVING_RESTARTS"]
+
+SERVING_RESTARTS = "paddle_tpu_serving_engine_restarts_total"
 
 
 class EngineSupervisor:
@@ -104,12 +112,20 @@ class EngineSupervisor:
     def _take_requests(self, requests, cause):
         """Take the zero-token requests still inside their re-dispatch
         budget; they wait here for the rebuilt engine."""
+        now = time.perf_counter()
         with self._lock:
             if self._stop_ev.is_set() or self._failed is not None:
                 return []
             taken = [r for r in requests
                      if r.redispatches < self.max_redispatch]
+            for r in taken:
+                r._park_t0 = now          # the journey's rebuild phase
             self._parked.extend(taken)
+        if taken:
+            flight.record("supervisor", "park", engine=self.name,
+                          n=len(taken), error=type(cause).__name__,
+                          requests=",".join(str(r.request_id)
+                                            for r in taken))
         self._wake_ev.set()
         return taken
 
@@ -125,6 +141,8 @@ class EngineSupervisor:
                   h["scheduler_running"] and h["warm"] and
                   (h["active_slots"] or h["queue_depth"]) and
                   h["progress_age_s"] > self.stall_timeout_s):
+                flight.record("supervisor", "stall", engine=self.name,
+                              progress_age_s=round(h["progress_age_s"], 3))
                 eng.abandon(EngineStalledError(
                     f"engine {self.name!r}: no scheduler progress for "
                     f"{h['progress_age_s']:.2f}s with work pending "
@@ -157,9 +175,18 @@ class EngineSupervisor:
                     self._build_stats.append(old.compile_stats())
         if over_budget:
             cause = old._dead or self._failed
+            flight.record("supervisor", "giveup", engine=self.name,
+                          failed_requests=len(parked),
+                          requests=",".join(str(r.request_id)
+                                            for r in parked),
+                          error=f"{type(cause).__name__}: {cause}")
             for req in parked:
                 req._finish(EngineDeadError(cause))
             return
+        flight.record("supervisor", "teardown", engine=self.name,
+                      error=(None if old._dead is None
+                             else f"{type(old._dead).__name__}: "
+                                  f"{old._dead}"))
         try:
             old.shutdown()
         except Exception:  # noqa: BLE001 — the old engine is expendable
@@ -167,8 +194,11 @@ class EngineSupervisor:
         try:
             faults.fault_point("serving.rebuild", engine=self.name)
             new = self._attach(self.factory())
-        except Exception:  # noqa: BLE001 — the next poll sees the engine
-            with self._lock:  # still dead and retries, within the budget
+        except Exception as e:  # noqa: BLE001 — the next poll sees the
+            # engine still dead and retries, within the budget
+            flight.record("supervisor", "rebuild_failed", engine=self.name,
+                          error=f"{type(e).__name__}: {e}")
+            with self._lock:
                 self._restarting = False
             return
         with self._lock:
@@ -176,20 +206,35 @@ class EngineSupervisor:
             parked, self._parked = self._parked, []
             self._restarting = False
             self._restarts += 1
-        requeued = 0
+            restarts = self._restarts
+        requeued = []
         for req in parked:
             try:
                 new.resubmit(req)
-                requeued += 1
+                requeued.append(req.request_id)
+                if req.journey is not None:
+                    # the death -> rebuilt-engine window: the SAME journey
+                    # id keeps accumulating phases on the fresh build
+                    t_park = req._park_t0 or time.perf_counter()
+                    req.journey.phase(
+                        "rebuild", t_park, time.perf_counter() - t_park,
+                        engine=self.name, restart=restarts)
             except Exception as e:  # noqa: BLE001 — never strand a handle
                 req._finish(e if isinstance(e, EngineDeadError)
                             else EngineDeadError(e))
         with self._lock:
-            self._redispatched += requeued
+            self._redispatched += len(requeued)
         try:
             new.start()
         except Exception:  # noqa: BLE001 — died at once; the next poll
             pass           # retries
+        registry().counter(
+            SERVING_RESTARTS,
+            "engine rebuilds performed by a supervisor").inc(
+            1.0, labels={"engine": self.name})
+        flight.record("supervisor", "restart", engine=self.name,
+                      restarts=restarts, redispatched=len(requeued),
+                      requests=",".join(map(str, requeued)))
 
     # -- engine-shaped surface -----------------------------------------------
     @property
@@ -197,6 +242,10 @@ class EngineSupervisor:
         """The current build (changes across restarts)."""
         with self._lock:
             return self._engine
+
+    @property
+    def tokenizer(self):
+        return self.engine.tokenizer
 
     @property
     def adapter_registry(self):

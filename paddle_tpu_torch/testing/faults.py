@@ -19,7 +19,11 @@ Seams in the port: ``serving.scheduler`` (each scheduler iteration),
 ``serving.prefill`` (before each batched prefill or tail prefill: a crash
 there loses zero-token requests), ``serving.decode`` (before each decode
 step: its requests have streamed their first token), ``serving.stream``
-(each emitted token) and ``serving.rebuild`` (the supervisor's rebuild).
+(each emitted token), ``serving.rebuild`` (the supervisor's rebuild) and
+``gateway.dispatch`` (each pass of the gateway's dispatcher loop, whose
+death must degrade ``/healthz``).  Every triggered fault lands in the
+flight recorder (``kind="fault"``), so a crash dump shows what was
+injected where.
 """
 from __future__ import annotations
 
@@ -100,8 +104,8 @@ def inject(name: str, mode: str = "raise", **kw):
 
 def fault_point(name: str, **ctx):
     """Seam marker: raises or sleeps when a fault is armed for ``name``.
-    ``ctx`` names what the seam was doing (unused; the JAX package's
-    flight recorder reads it)."""
+    ``ctx`` names what the seam was doing (its scalars ride the flight
+    event)."""
     if not _faults:
         return
     with _lock:
@@ -114,6 +118,10 @@ def fault_point(name: str, **ctx):
             return
         if f.times is not None and f.triggered - f.after > f.times:
             return
+    from ..observability import flight
+    flight.record("fault", name, mode=f.mode, hit=f.triggered,
+                  **{k: v for k, v in ctx.items()
+                     if isinstance(v, (str, int, float, bool))})
     if f.mode == "delay":
         time.sleep(f.seconds)
         return
