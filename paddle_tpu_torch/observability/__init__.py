@@ -23,7 +23,9 @@ from import because their cost is per-span, never per-op.
 
 Request journeys (:mod:`journey`), the device perfscope (:mod:`perfscope`:
 CUDA-event device timing of the decode graph's replays and the device
-memory ledger) and traffic capture (:mod:`capture`) sit on top.
+memory ledger), the SLO engine (:mod:`slo`: burn-rate alerts over the
+journey window, incident bundles) and traffic capture (:mod:`capture`)
+sit on top.
 """
 from __future__ import annotations
 
@@ -87,6 +89,9 @@ from . import journey  # noqa: E402,F401
 # device perfscope: sampled CUDA-event device time of the decode graph
 # and the device memory ownership ledger
 from . import perfscope  # noqa: E402,F401
+# SLO engine: objectives + burn-rate alerts + incident bundles,
+# layered over the keyed journey window and the watchdog seam
+from . import slo  # noqa: E402,F401
 # traffic capture: the always-on admission recorder + the trace fit
 from . import capture  # noqa: E402,F401
 

@@ -391,6 +391,12 @@ class _DecodeGraph(NamedTuple):
 # takes a former engine's stream before it makes one.
 _spare_streams: dict = {}
 _spare_lock = threading.Lock()
+# One decode-graph capture at a time in the process, and no graph freed
+# during one: ``torch.cuda.graph`` synchronizes the device and empties the
+# allocator's cache on entry, which must not land inside another engine's
+# capture (an autoscaler's scale-up beside its warm-pool refill, a
+# rollout's build beside a supervisor's rebuild).
+_capture_lock = threading.Lock()
 
 
 def _take_stream(dev) -> "torch.cuda.Stream":
@@ -665,7 +671,10 @@ class Engine:
                         # device seconds of the replays (CUDA events)
                         "decode_device_seconds": 0.0,
                         # device memory the decode-graph captures reserved
-                        "decode_graph_reserved_bytes": 0}
+                        "decode_graph_reserved_bytes": 0,
+                        # host wall of the captures (their two warm-up
+                        # steps included)
+                        "decode_capture_seconds": 0.0}
         self._evicted_wave = 0     # prefix entries one admission evicted
         self._build = None         # the last capture's (start, seconds)
         self._active_pages = 0     # pages referenced by in-flight requests
@@ -1057,9 +1066,10 @@ class Engine:
         and the int8 serving copy."""
         if self._stream is not None:
             self._stream.synchronize()
-        for entry in self._graphs.values():
-            entry.graph.reset()
-        self._graphs.clear()
+        with _capture_lock:
+            for entry in self._graphs.values():
+                entry.graph.reset()
+            self._graphs.clear()
         if self._stream is not None:
             _give_stream(self.device, self._stream)
             self._stream = None
@@ -2050,23 +2060,25 @@ class Engine:
                 np.zeros(self._aids.shape, np.int64))
         self._stage(*park)
         side = self._stream
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._decode_forward()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _kernel_launches()
-        # the graph's private pool: the device memory the capture reserves
-        # (the capture empties the cache first; so does this, so the
-        # warm-up's freed blocks are not counted)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            logits, toks = self._decode_forward()
-        reserved = torch.cuda.memory_reserved(self.device) - reserved
-        launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        with _capture_lock:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._decode_forward()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = _kernel_launches()
+            # the graph's private pool: the device memory the capture
+            # reserves (the capture empties the cache first; so does this,
+            # so the warm-up's freed blocks are not counted)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                logits, toks = self._decode_forward()
+            reserved = torch.cuda.memory_reserved(self.device) - reserved
+            launches = {k: v - before[k]
+                        for k, v in _kernel_launches().items()}
         entry = _DecodeGraph(graph, logits, toks, launches)
         self._graphs[sig] = entry
         with self._lock:
@@ -2137,6 +2149,7 @@ class Engine:
             self._build = (t_b0, time.perf_counter() - t_b0)
             with self._lock:
                 self._sigs["decode"].add(sig)
+                self._counts["decode_capture_seconds"] += self._build[1]
             self._register_decode_cost(sig)
         self._stage(*inputs)
         t0, t1, t2 = self._events

@@ -20,9 +20,12 @@ over N engine replicas that fails over away from DEAD engines::
     ...
     stack.close()
 
-SLO objectives (``start_gateway(slo_objectives=)``), the autoscaler and
-the rollout controller are not ported yet (ROADMAP section 1, module
-entry 9).
+Fleet control sits on the same gateway: ``start_gateway(slo_objectives=
+[...])`` attaches the burn-rate SLO engine (``/debug/slo``,
+``/debug/incidents``), and :class:`~paddle_tpu_torch.serving.Autoscaler`
+and :class:`~paddle_tpu_torch.serving.RolloutController` attach to a
+stack for elastic replica counts and canary-gated upgrades
+(``/debug/fleet``).
 """
 from .admission import (  # noqa: F401
     AdmissionError,

@@ -205,22 +205,86 @@ class Gateway:
         self._drain_retry_after_s = 5.0
         self._dispatcher_error: BaseException | None = None
         self._thread: threading.Thread | None = None
+        self._fleet_lock = threading.Lock()
+        self._autoscaler = None
+        self._slo_engine = None
+        self._rollout = None
         if start:
             self.start()
 
-    # -- fleet state ---------------------------------------------------------
+    # -- fleet elasticity hooks ----------------------------------------------
+    def attach_autoscaler(self, autoscaler):
+        """Register the fleet autoscaler (one per gateway): admission
+        treats a scale-up in flight as capacity-on-the-way (no all-dead
+        503 while the only other replica drains), shed Retry-After is
+        capped at the expected warm-up completion, and ``/debug/fleet``
+        serves its state."""
+        with self._fleet_lock:
+            self._autoscaler = autoscaler
+
+    @property
+    def autoscaler(self):
+        with self._fleet_lock:
+            return self._autoscaler
+
+    def attach_slo_engine(self, engine):
+        """Register the SLO evaluator (one per gateway): its firing set
+        feeds the autoscaler policy input (``firing_alerts``) and
+        ``/debug/slo`` serves its state."""
+        with self._fleet_lock:
+            self._slo_engine = engine
+
+    @property
+    def slo_engine(self):
+        with self._fleet_lock:
+            return self._slo_engine
+
+    def attach_rollout(self, controller):
+        """Register the rolling-upgrade controller (one per gateway): a
+        rollout build in flight counts as capacity-on-the-way (no
+        all-dead 503 mid-upgrade), shed Retry-After is capped at its
+        expected warm-up completion, the reaper feeds it per-engine
+        canary outcomes, and ``/debug/fleet`` serves its state."""
+        with self._fleet_lock:
+            self._rollout = controller
+
+    @property
+    def rollout(self):
+        with self._fleet_lock:
+            return self._rollout
+
     def _fleet_pending(self) -> bool:
-        """Capacity is leaving-but-finishing: some replica is DRAINING
-        (its in-flight work completes; new work must wait, not 503).  The
-        JAX gateway also counts an autoscaler's or a rollout's build in
-        flight, which the port has not yet (ROADMAP section 1, module
-        entry 9)."""
+        """Capacity is leaving-but-finishing or on the way: some replica
+        is DRAINING (its in-flight work completes; new work must wait,
+        not 503), the autoscaler has a scale-up building, or the rollout
+        controller is mid-build of a replacement replica."""
+        a = self.autoscaler
+        if a is not None and a.scale_pending():
+            return True
+        r = self.rollout
+        if r is not None and r.build_pending():
+            return True
         return self.router.any_draining()
+
+    def _scale_eta_s(self) -> float | None:
+        etas = []
+        a = self.autoscaler
+        if a is not None:
+            eta = a.expected_ready_s()
+            if eta is not None:
+                etas.append(eta)
+        r = self.rollout
+        if r is not None:
+            eta = r.expected_ready_s()
+            if eta is not None:
+                etas.append(eta)
+        return min(etas) if etas else None
 
     def fleet_stats(self) -> dict:
         """The ``/debug/fleet`` payload: per-replica state from the
-        router; ``autoscaler`` and ``rollout`` are null (neither is
-        ported yet)."""
+        router plus the autoscaler's view (bounds, desired count,
+        in-flight op, recent scale events) and the rollout's block when
+        they are attached."""
         loads = self.router.loads()
         revs = self.router.revisions()
         out = {
@@ -239,8 +303,10 @@ class Gateway:
                             if ld.get("draining")),
             "total_slots": self.router.total_slots(),
         }
-        out["autoscaler"] = None
-        out["rollout"] = None
+        a = self.autoscaler
+        out["autoscaler"] = a.fleet_stats() if a is not None else None
+        r = self.rollout
+        out["rollout"] = r.stats() if r is not None else None
         return out
 
     # -- lifecycle -----------------------------------------------------------
@@ -401,6 +467,13 @@ class Gateway:
                       "estimated TTFT for a request joining now").set(
                 decision.est_ttft_s)
         if not decision.admit:
+            # scale-aware Retry-After: while a scale-up is building, the
+            # static `est - deadline` horizon is wrong — capacity arrives
+            # at warm-up completion (cold-build EWMA), so shed clients
+            # should return exactly then, not later
+            eta = self._scale_eta_s()
+            if eta is not None and eta < decision.retry_after_s:
+                decision.retry_after_s = max(0.1, round(eta, 2))
             self._count(tenant, "shed")
             self.window.observe_shed("slo_shed", tenant=tenant,
                                      priority=priority)
@@ -599,12 +672,14 @@ class Gateway:
                 name, engine = self.router.pick(exclude=tried,
                                                 adapter=item.adapter)
             except NoEngineAvailableError as e:
-                if not tried and self._fleet_pending():
+                if self._fleet_pending() or (tried and
+                                             self.router.any_alive()):
                     # nothing pickable RIGHT NOW but a replica is
-                    # draining out or a scale-up is building: park the
+                    # draining out, a scale-up is building, or the
+                    # replicas tried were full or restarting: park the
                     # item at the head of its queue — never redispatch
                     # onto a replica that is leaving, never 503 work
-                    # that arriving capacity will absorb
+                    # that live or arriving capacity will absorb
                     self.scheduler.requeue(item)
                     time.sleep(0.002)
                     return False
@@ -708,6 +783,7 @@ class Gateway:
                 self._flush_tokens(item)
                 item.t_first_token = None   # zero tokens reached the client
                 from_engine = item.engine_name or ""
+                self._note_outcome(from_engine, ok=False)
                 t_r0 = time.perf_counter()
                 reg.counter(
                     SERVING_REDISPATCHED,
@@ -742,6 +818,7 @@ class Gateway:
                 # burst of long decodes can no longer starve est_ttft
                 self.shedder.observe_tokens(
                     item.handle.token_latencies_s)
+                gw_ttft = None
                 if item.handle.ttft_s is not None:
                     gw_ttft = (item.t_dispatch - item.t_enqueue) + \
                         item.handle.ttft_s
@@ -749,6 +826,8 @@ class Gateway:
                         GATEWAY_TTFT,
                         "enqueue -> first token, per tenant").observe(
                         gw_ttft, labels={"tenant": item.tenant})
+                self._note_outcome(item.engine_name, ok=True,
+                                   ttft_s=gw_ttft)
                 item.finish(None)
             else:
                 # engine-side failure after dispatch (deadline inside the
@@ -757,8 +836,21 @@ class Gateway:
                 outcome = type(err).__name__
                 self._count(item.tenant, "expired_engine"
                             if "Deadline" in outcome else "failed")
+                self._note_outcome(item.engine_name, ok=False)
                 item.finish(err)
         self._depth_gauges()
+
+    def _note_outcome(self, engine, ok: bool, ttft_s=None):
+        """Feed the rollout controller's per-engine canary window (the
+        reaper is the only place outcomes carry an engine name) —
+        diagnostics, never control flow, so it must not raise into the
+        dispatcher."""
+        ctl = self.rollout
+        if ctl is not None and engine:
+            try:
+                ctl.note_outcome(engine, ok, ttft_s)
+            except Exception:  # noqa: BLE001 — a hook, not the data path
+                pass
 
     def _redispatchable(self, item: GatewayRequest,
                         err: BaseException) -> bool:

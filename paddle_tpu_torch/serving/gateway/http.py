@@ -34,16 +34,21 @@ routes, status codes, headers and JSON bodies.  Endpoints:
   autoscaler feed: windowed TTFT/queue-wait/per-token percentiles,
   shed rate, phase shares).
 * ``GET /debug/fleet`` — ``Gateway.fleet_stats()`` as JSON: per-replica
-  alive/draining/restarting state (``autoscaler`` and ``rollout`` are
-  null: neither is ported yet).
+  alive/draining/restarting state and, with an
+  :class:`~paddle_tpu_torch.serving.autoscaler.Autoscaler` attached, the
+  fleet bounds, desired count, in-flight scale op, cold-build EWMA and
+  recent scale events (``rollout``: a
+  :class:`~paddle_tpu_torch.serving.rollout.RolloutController`'s block).
 * ``GET /debug/perf`` — the perfscope roofline table as JSON: per
   program, dispatch/sample counts, sampled device time (CUDA events),
   MFU and memory-bandwidth fractions.
 * ``GET /debug/memory`` — the device memory ledger as JSON: per-owner
   device bytes, the allocator's ``bytes_in_use``
   (``torch.cuda.memory_allocated``), and the unattributed remainder.
-* ``GET /debug/slo`` and ``GET /debug/incidents[/<id>]`` — 404
-  ``no_slo_engine``, as the JAX server answers without an SLO engine.
+* ``GET /debug/slo`` — the SLO engine's objectives, alert states,
+  firing set and transition tail; ``GET /debug/incidents[/<id>]`` — its
+  incident ring, or one bundle (404 ``no_slo_engine`` without an SLO
+  engine, ``incident_not_found`` for an id the ring no longer holds).
 
 Every completion handler mints a request **journey** — adopting the
 client's ``X-Request-Id`` header when present — threads it through
@@ -221,13 +226,34 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json(200, perfscope.perf_report())
             elif path == "/debug/memory":
                 self._send_json(200, perfscope.memory_report())
-            elif path in ("/debug/slo", "/debug/incidents") or \
+            elif path == "/debug/slo":
+                slo = self.gateway.slo_engine
+                if slo is None:
+                    self._send_json(404, error_body(
+                        "no SLO engine attached to this gateway",
+                        code="no_slo_engine"))
+                else:
+                    self._send_json(200, slo.debug_state())
+            elif path == "/debug/incidents" or \
                     path.startswith("/debug/incidents/"):
-                # no SLO engine is ported: the JAX server's answer when
-                # none is attached
-                self._send_json(404, error_body(
-                    "no SLO engine attached to this gateway",
-                    code="no_slo_engine"))
+                slo = self.gateway.slo_engine
+                if slo is None:
+                    self._send_json(404, error_body(
+                        "no SLO engine attached to this gateway",
+                        code="no_slo_engine"))
+                elif path == "/debug/incidents":
+                    self._send_json(200, {
+                        "incidents": slo.store.list()})
+                else:
+                    inc_id = path[len("/debug/incidents/"):]
+                    bundle = slo.store.get(inc_id)
+                    if bundle is None:
+                        self._send_json(404, error_body(
+                            f"no incident {inc_id!r} (ring holds "
+                            f"{len(slo.store.list())})",
+                            code="incident_not_found"))
+                    else:
+                        self._send_json(200, bundle)
             elif path == "/debug/capture":
                 last = 64
                 tenant = outcome = conversation = None
@@ -508,6 +534,7 @@ class GatewayStack:
         self.server = server
         self.thread = thread
         self.own_engines = own_engines
+        self.slo_engine = None          # set by start_gateway(slo_*)
         self._lock = threading.Lock()
         self._sigterm_ev = threading.Event()
         self._terminated_ev = threading.Event()
@@ -586,6 +613,10 @@ class GatewayStack:
 
     def close(self):
         """Stop accepting, fail queued work, (optionally) stop engines."""
+        # the SLO evaluator thread polls gateway window state: stop it
+        # FIRST so no tick races the teardown below
+        if self.slo_engine is not None:
+            self.slo_engine.shutdown()
         self.server.shutdown()
         self.server.server_close()
         self.gateway.shutdown()
@@ -612,13 +643,20 @@ class GatewayStack:
 
 def start_gateway(engines, host: str = "127.0.0.1", port: int = 0, *,
                   own_engines: bool = False, request_timeout_s: float = 600.0,
-                  slo_objectives=None, **gateway_kwargs) -> GatewayStack:
+                  slo_objectives=None, slo_tick_s: float = 1.0,
+                  slo_incident_dir: str | None = None,
+                  slo_max_incidents: int = 32,
+                  **gateway_kwargs) -> GatewayStack:
     """Boot the full front door: Gateway core + threaded HTTP server on
     ``host:port`` (port 0 = ephemeral; read ``stack.port``).  Extra
     keyword args go to :class:`Gateway`.
 
-    ``slo_objectives`` raises ``NotImplementedError``: the SLO engine is
-    not ported yet (ROADMAP section 1, module entry 9).
+    ``slo_objectives`` (a list of :class:`~paddle_tpu_torch.observability.
+    slo.SloObjective`) attaches an :class:`~paddle_tpu_torch.observability.
+    slo.SloEngine` evaluating them every ``slo_tick_s`` — burn-rate alerts
+    on ``/debug/slo``, incident bundles (ring-bounded at
+    ``slo_max_incidents`` under ``slo_incident_dir``) on
+    ``/debug/incidents``.
 
     Traffic capture rides the passthrough: ``capture_mode=``
     (``shape``/``full``), ``capture_entries=`` and
@@ -626,12 +664,7 @@ def start_gateway(engines, host: str = "127.0.0.1", port: int = 0, *,
     :class:`~paddle_tpu_torch.observability.capture.TrafficCapture` (or
     pass ``capture=`` an instance); with none set the gateway records
     into the process default.  Either way ``GET /debug/capture`` serves
-    the ring and crash bundles gain the ``capture_tail`` section."""
-    if slo_objectives:
-        raise NotImplementedError(
-            "slo_objectives (the SLO engine) is not ported yet: ROADMAP "
-            "section 1, module entry 9 (gateway, fleet control and "
-            "observability)")
+    the ring and incident bundles gain the ``capture_tail`` section."""
     gateway = (engines if isinstance(engines, Gateway)
                else Gateway(engines, **gateway_kwargs))
     server = GatewayHTTPServer((host, port), gateway,
@@ -639,4 +672,11 @@ def start_gateway(engines, host: str = "127.0.0.1", port: int = 0, *,
     thread = threading.Thread(target=server.serve_forever,
                               name="paddle-tpu-gateway-http", daemon=True)
     thread.start()
-    return GatewayStack(gateway, server, thread, own_engines=own_engines)
+    stack = GatewayStack(gateway, server, thread, own_engines=own_engines)
+    if slo_objectives:
+        from ...observability.slo import SloEngine
+        stack.slo_engine = SloEngine(
+            gateway, slo_objectives, tick_s=slo_tick_s,
+            incident_dir=slo_incident_dir,
+            max_incidents=slo_max_incidents)
+    return stack

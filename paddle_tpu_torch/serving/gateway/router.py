@@ -36,7 +36,7 @@ from __future__ import annotations
 import threading
 
 from ...observability import registry
-from ..fleet_metrics import FLEET_ALIVE
+from ..autoscaler import FLEET_ALIVE
 
 __all__ = ["NoEngineAvailableError", "EngineRouter"]
 

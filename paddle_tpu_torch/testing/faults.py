@@ -19,9 +19,13 @@ Seams in the port: ``serving.scheduler`` (each scheduler iteration),
 ``serving.prefill`` (before each batched prefill or tail prefill: a crash
 there loses zero-token requests), ``serving.decode`` (before each decode
 step: its requests have streamed their first token), ``serving.stream``
-(each emitted token), ``serving.rebuild`` (the supervisor's rebuild) and
+(each emitted token), ``serving.rebuild`` (the supervisor's rebuild),
 ``gateway.dispatch`` (each pass of the gateway's dispatcher loop, whose
-death must degrade ``/healthz``).  Every triggered fault lands in the
+death must degrade ``/healthz``), ``scale.up_build`` (before the
+autoscaler's cold build), ``scale.down_drain`` (before a scale-down's
+drain), ``autoscaler.tick`` (each control-loop tick), ``rollout.build``
+(before each rollout build), ``rollout.canary_gate`` (each canary
+judgment) and ``rollout.drain_old`` (each retiring drain).  Every triggered fault lands in the
 flight recorder (``kind="fault"``), so a crash dump shows what was
 injected where.
 """

@@ -87,8 +87,14 @@ def test_spill_round_trip_and_rotation_match_jax(tmp_path):
         cap = mod.TrafficCapture(max_entries=16, mode="full", spill_dir=d,
                                  spill_max_bytes=4096, spill_files=2)
         try:
-            entries = _record_all(cap, arr)
-            assert cap.flush(timeout=60)
+            # the writer batches whatever is pending when it wakes and
+            # rotates after a batch, so where rotations fall depends on
+            # thread timing; flushing after each entry makes every batch
+            # one line in both packages
+            entries = []
+            for a in arr:
+                entries.append(cap.record(**a))
+                assert cap.flush(timeout=60)
         finally:
             cap.close()
         files = sorted(os.listdir(d))

@@ -680,9 +680,17 @@ def test_dispatcher_fault_degrades_healthz(models):
 
 def test_slo_objectives_and_drain(models):
     _, pm = models
+    from paddle_tpu_torch.observability.slo import SloObjective
+
     eng = _engine(pm, max_slots=1)
-    with pytest.raises(NotImplementedError, match="module entry 9"):
-        gw.start_gateway([eng], slo_objectives=["p99 ttft < 1 s"])
+    objective = SloObjective("avail", "availability", 0.9)
+    with gw.start_gateway([eng], slo_objectives=[objective],
+                          slo_tick_s=0.05) as stack:
+        assert stack.gateway.slo_engine is stack.slo_engine
+        status, raw = _get(stack.port, "/debug/slo")
+        assert status == 200
+        assert json.loads(raw)["objectives"][0]["name"] == "avail"
+    assert not stack.slo_engine._thread.is_alive()
     with gw.start_gateway([eng]) as stack:
         assert stack.gateway.drain(deadline_s=30.0)
         status, headers, raw = _post(stack.port, {"prompt": [1]})

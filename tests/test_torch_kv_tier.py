@@ -22,7 +22,7 @@ from paddle_tpu.serving import Engine as JaxEngine
 
 from paddle_tpu_torch.models import build_gpt, load_jax_state
 from paddle_tpu_torch.serving import Engine, HostPrefixTier
-from tools.load_gen import make_conversation_trace
+from paddle_tpu_torch.testing.load_gen import make_conversation_trace
 
 torch.set_num_threads(1)
 
@@ -265,11 +265,11 @@ def test_conversation_namespaces_do_not_share_entries(models):
 
 
 def test_conversation_trace_warm_turns_hit(models):
-    """A seeded multi-turn trace (``tools/load_gen.py``; turn N+1's prompt
-    extends turn N's) served turn by turn through the tiered engine over
-    a pool small enough to evict: every warm turn admits as a hit (on the
-    device or promoted from the host), with the tokens of an engine
-    without any prefix reuse."""
+    """A seeded multi-turn trace (``paddle_tpu_torch.testing.load_gen``;
+    turn N+1's prompt extends turn N's) served turn by turn through the
+    tiered engine over a pool small enough to evict: every warm turn
+    admits as a hit (on the device or promoted from the host), with the
+    tokens of an engine without any prefix reuse."""
     _, pm = models
     trace = make_conversation_trace(40.0, 1.0, seed=3, turns_mean=3.0,
                                     prompt_max=96, out_max=8, vocab=1024)
