@@ -368,7 +368,28 @@ run with a non-zero exit, and nothing is caught):
    under 120 s; printed: each build's construct and capture seconds, the
    cold scale-up and warm route-in against the cold-build EWMA, the
    rollout's wall seconds, the alert times, and host ms a decode step
-   beside phase 4's.
+   beside phase 4's;
+38b. (run after 38) device memory over autoscaled builds with PyTorch's
+   cuBLAS workspaces kept: phase 38's fleet without the tier runs 30
+   scale-up / drain cycles (the parked spare routed in, a request on
+   every replica, one replica drained, the refill build's prewarm
+   capture parked); ``memory_allocated`` after each cycle within 32 MiB
+   of its value after the first, under 30 s;
+39. (run after 38b) the paddle surface on the card at gpt2-small width:
+   an eager attention block written only with surface calls
+   (``paddle.to_tensor(..., place=CUDAPlace(0), stop_gradient=False)``
+   leaves, ``paddle.matmul`` 768 -> 2304 -> 768, ``paddle.reshape`` /
+   ``paddle.transpose``, causal ``F.scaled_dot_product_attention``, a
+   768 -> 3072 -> 768 ``F.gelu`` MLP inside a recompute ``PyLayer``,
+   ``paddle.mean``) at B=16 T=1024 H=12 D=64 in bf16 over f32 leaves,
+   ``loss.backward()`` and ``paddle.grad`` on the same graph; the loss and
+   every leaf's grad against the same block in bare torch with the plain
+   attention (bf16 tolerance, each tensor scaled by its largest |value|),
+   row 1 launched once and row 2's kernels once for each backward pass,
+   every output on ``CUDAPlace(0)``, under 30 s; printed: host µs a call
+   of ``paddle.add`` / ``paddle.matmul`` against ``torch.add`` /
+   ``torch.matmul`` and the block's forward + backward ms through the
+   surface and in bare torch, in turns.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -5781,6 +5802,328 @@ def phase_fleet(dev, seed, serve4, smi):
     return res
 
 
+FLEET_MEM_CYCLES, FLEET_MEM_SLACK = 30, 32 * 2 ** 20
+
+
+def phase_fleet_memory(dev, seed, cycles=FLEET_MEM_CYCLES):
+    """Sub-phase 38b: device memory over autoscaled builds with PyTorch's
+    cuBLAS workspaces kept (never cleared here).  Phase 38's fleet (two
+    supervised replicas of phase 37's engine behind the gateway,
+    ``Autoscaler(min_replicas=2, max_replicas=3, warm_pool=1)`` whose
+    policy never fires on its own) runs ``cycles`` scale-up / drain
+    cycles: route the parked spare in, one short request on every
+    replica, drain one replica down, and wait for the refill build (a
+    cold build with its prewarm capture) to park.  ``memory_allocated``
+    after each cycle must stay within 32 MiB (one workspace) of its value
+    after the first, and the sub-phase under 30 s."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import (Autoscaler, Engine,
+                                          EngineSupervisor, ScalePolicy)
+    from paddle_tpu_torch.serving.gateway import TenantConfig, start_gateway
+
+    tag = "fleet-memory"
+    t_phase = time.perf_counter()
+    model, _ = _gpt2_small(dev, seed, cpu=False)
+    V = model.config.vocab_size
+    builds, sups = [], []
+
+    def factory():
+        def build():
+            e = Engine(model, device=dev, **FLEET_KW)
+            builds.append(e)
+            return e
+        sup = EngineSupervisor(build, name=f"mem-{len(sups)}",
+                               poll_interval_s=0.02)
+        sups.append(sup)
+        return sup
+
+    stack = start_gateway([factory(), factory()], own_engines=True,
+                          names=["mem0", "mem1"],
+                          tenants=[TenantConfig("bench", max_queue=64)])
+    router = stack.gateway.router
+    parked = ScalePolicy(slo_ttft_s=1e6, up_ticks=10 ** 6,
+                         idle_ticks=10 ** 6, cooldown_up_s=3600.0,
+                         cooldown_down_s=3600.0)
+    auto = Autoscaler(stack, factory, min_replicas=2, max_replicas=3,
+                      policy=parked, drain_deadline_s=60.0,
+                      build_s_hint=2.0, warm_pool=1, name_prefix="mem")
+    rs = np.random.RandomState(seed)
+    mem = []
+    try:
+        for _ in range(cycles):
+            _until(lambda: len(auto.fleet_stats()["warm_pool"]["parked"])
+                   == 1, "no spare was parked")
+            auto.trigger("up", reason="smoke")
+            _until(lambda: len(router.names) == 3, "a scale-up never landed")
+            handles = [e.submit(rs.randint(1, V, FLEET_PROMPT).astype(
+                np.int64), max_new_tokens=4) for e in router.engines]
+            for h in handles:
+                h.result(timeout=600)
+            auto.trigger("down", reason="smoke")
+            _until(lambda: len(router.names) == 2,
+                   "a scale-down never completed")
+            _until(lambda: len(auto.fleet_stats()["warm_pool"]["parked"])
+                   == 1, "the refill never parked")
+            gc.collect()
+            torch.cuda.synchronize(dev)
+            mem.append(torch.cuda.memory_allocated(dev))
+    finally:
+        auto.shutdown()
+        stack.close()
+        for s in sups:
+            s.shutdown()
+    phase_s = time.perf_counter() - t_phase
+    growth = [m - mem[0] for m in mem]
+    captures = sum(e.compile_stats()["decode_compiles"] for e in builds)
+    print(f"[{tag}] {cycles} scale-up / drain cycles, {len(builds)} builds "
+          f"({captures} decode-graph captures), workspaces kept: "
+          f"memory_allocated after each cycle - after the first, MiB "
+          f"{[round(g / 2 ** 20, 1) for g in growth]}; {phase_s:.1f} s")
+    if max(abs(g) for g in growth) > FLEET_MEM_SLACK:
+        _fail(f"{tag}: memory_allocated moved {max(growth) / 2 ** 20:.1f} "
+              f"MiB past its value after the first cycle (limit "
+              f"{FLEET_MEM_SLACK / 2 ** 20:.0f} MiB)")
+    if phase_s > 30.0:
+        _fail(f"{tag}: {phase_s:.1f} s (limit 30 s)")
+    return dict(cycles=cycles, builds=len(builds), captures=captures,
+                memory_allocated=mem, growth_bytes=growth, phase_s=phase_s)
+
+
+SURFACE_B, SURFACE_T, SURFACE_H, SURFACE_D = 16, 1024, 12, 64
+SURFACE_FFN = 3072
+
+
+def _host_us(fn, calls=2000):
+    """Host µs a call of ``fn``, enqueue only (no wait inside the window;
+    the device keeps up at these sizes), after a warm-up."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def _surface_block(paddle, F, leaves, recompute):
+    """The eager attention block of phase 39 in surface calls: qkv
+    projection, reshape / transpose to q, k, v role views, causal
+    ``F.scaled_dot_product_attention``, output projection and residual,
+    then the GELU MLP inside ``recompute`` (a PyLayer) and the residual;
+    bf16 over f32 leaves; the loss is ``paddle.mean`` in f32."""
+    B, T, H, D = SURFACE_B, SURFACE_T, SURFACE_H, SURFACE_D
+    x, w_qkv, w_o, w_fc1, w_fc2 = (t.astype("bfloat16") for t in leaves)
+    qkv = paddle.reshape(paddle.matmul(x, w_qkv), [B, T, 3, H, D])
+    qkv = paddle.transpose(qkv, [2, 0, 1, 3, 4])
+    att = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                         is_causal=True)
+    h = x + paddle.matmul(paddle.reshape(att, [B, T, H * D]), w_o)
+    out = h + recompute.apply(h, w_fc1, w_fc2)
+    return paddle.mean(out.astype("float32")), out
+
+
+def _torch_recompute():
+    """The recompute MLP of phase 39 as a bare ``torch.autograd.Function``
+    (the PyLayer's twin)."""
+    import torch
+    import torch.nn.functional as tF
+
+    def mlp(h, w1, w2):
+        return torch.matmul(tF.gelu(torch.matmul(h, w1)), w2)
+
+    class Recompute(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, w1, w2):
+            ctx.save_for_backward(h, w1, w2)
+            return mlp(h, w1, w2)
+
+        @staticmethod
+        def backward(ctx, dout):
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = mlp(*ins)
+            return torch.autograd.grad(out, ins, dout)
+
+    return Recompute
+
+
+def _torch_block(leaves, attention, recompute):
+    """The same block on bare torch tensors, ``attention(q, k, v)`` in
+    place of the surface call."""
+    import torch
+
+    B, T, H, D = SURFACE_B, SURFACE_T, SURFACE_H, SURFACE_D
+    x, w_qkv, w_o, w_fc1, w_fc2 = (t.to(torch.bfloat16) for t in leaves)
+    qkv = torch.matmul(x, w_qkv).reshape(B, T, 3, H, D).permute(2, 0, 1, 3, 4)
+    att = attention(qkv[0], qkv[1], qkv[2])
+    h = x + torch.matmul(att.reshape(B, T, H * D), w_o)
+    out = h + recompute.apply(h, w_fc1, w_fc2)
+    return out.float().mean(), out
+
+
+def phase_surface(dev, seed, smi):
+    """Phase 39: the paddle surface on the card at gpt2-small width.  An
+    eager attention block (``_surface_block``: B=16 T=1024, 12 heads x 64,
+    768 -> 2304 -> 768 and a 768 -> 3072 -> 768 GELU MLP inside a
+    recompute ``PyLayer``) written only with surface calls on
+    ``paddle.to_tensor(..., place=CUDAPlace(0), stop_gradient=False)``
+    leaves, then ``loss.backward(retain_graph=True)`` and ``paddle.grad``
+    on the same graph.  Gates: the loss and every leaf's grad (from
+    ``backward`` and from ``paddle.grad``) match the same block in bare
+    torch with the plain attention (``sdpa_ref``) in place of the kernel,
+    at the bf16 tolerance of ``_max_err`` on each tensor scaled by its
+    largest |value|; row 1 launched once (the forward) and row 2's three
+    kernels twice (``backward`` and ``paddle.grad``), no plain version;
+    every output on ``CUDAPlace(0)``; under 30 s.  Prints the host µs a
+    call of ``paddle.add`` / ``paddle.matmul`` against ``torch.add`` /
+    ``torch.matmul`` on the same CUDA tensors (in turns), and the block's
+    eager forward + backward ms through the surface and in bare torch
+    (both on the kernels), in turns."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels.flash_attention import sdpa_ref
+    from paddle_tpu_torch.nn import functional as F
+
+    tag = "surface"
+    t_phase = time.perf_counter()
+    B, T, H, D = SURFACE_B, SURFACE_T, SURFACE_H, SURFACE_D
+    C = H * D
+    place = paddle.CUDAPlace(dev.index or 0) if dev.type == "cuda" \
+        else paddle.CPUPlace()
+    paddle.set_device(place)
+    rs = np.random.RandomState(seed)
+    host = [rs.standard_normal((B, T, C)).astype(np.float32)] + [
+        (rs.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+        for s in ((C, 3 * C), (C, C), (C, SURFACE_FFN), (SURFACE_FFN, C))]
+
+    class Recompute(paddle.autograd.PyLayer):
+        """The MLP with its activations dropped in the forward and
+        recomputed in the backward."""
+
+        @staticmethod
+        def forward(ctx, h, w1, w2):
+            ctx.save_for_backward(h, w1, w2)
+            return paddle.matmul(F.gelu(paddle.matmul(h, w1)), w2)
+
+        @staticmethod
+        def backward(ctx, dout):
+            h, w1, w2 = (t.detach() for t in ctx.saved_tensor())
+            for t in (h, w1, w2):
+                t.stop_gradient = False
+            with paddle.enable_grad():
+                out = paddle.matmul(F.gelu(paddle.matmul(h, w1)), w2)
+            return paddle.grad(out, [h, w1, w2], dout)
+
+    leaves = [paddle.to_tensor(a, place=place, stop_gradient=False)
+              for a in host]
+    _attention_counters(zero=True)
+    with _no_plain():
+        loss, out = _surface_block(paddle, F, leaves, Recompute)
+        loss.backward(retain_graph=True)
+        grads = paddle.grad(loss, leaves)
+        torch.cuda.synchronize()
+    n = _attention_counters()
+    want_n = dict(fwd=1, fused_fwd=0, bwd_delta=2, bwd_dkv=2, bwd_dq=2,
+                  fused_bwd_delta=0, fused_bwd_dkv=0, fused_bwd_dq=0)
+    if n != want_n:
+        _fail(f"{tag}: launches {n} != {want_n}")
+    places = {str(t.place) for t in [loss, out, *grads]
+              + [t.grad for t in leaves]}
+    if places != {str(place)}:
+        _fail(f"{tag}: outputs on {places}, not {place}")
+    # bare torch with the plain attention, the same leaves
+    ref_leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in host]
+    scale = 1.0 / np.sqrt(D)
+    torch_recompute = _torch_recompute()
+    ref_loss, _ = _torch_block(ref_leaves, lambda q, k, v: sdpa_ref(
+        q, k, v, None, True, scale), torch_recompute)
+    ref_loss.backward()
+    errs = {}
+    for what, got in (("backward", [t.grad.value for t in leaves]),
+                      ("paddle.grad", [g.value for g in grads])):
+        for i, (g, r) in enumerate(zip(got, ref_leaves)):
+            s = float(r.grad.abs().max())
+            errs[f"{what} leaf {i}"] = _max_err(
+                [g / s], [r.grad / s], torch.bfloat16,
+                f"{tag}: {what} grad of leaf {i} (scaled by {s:.3e})")
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    if loss_rel > 1e-2:
+        _fail(f"{tag}: loss {loss.item()} vs {ref_loss.item()} (bare torch, "
+              f"plain attention)")
+    del ref_leaves, ref_loss, grads, out, loss
+    # the wrapper's host cost: the same CUDA tensors, in turns
+    a = paddle.to_tensor(host[0][0, :4, :64], place=place)
+    b = paddle.to_tensor(host[0][1, :4, :64], place=place)
+    m = paddle.to_tensor(host[2][:64, :64], place=place)
+    av, bv, mv = a.value, b.value, m.value
+    us = {}
+    for key, fn in (("torch.add", lambda: torch.add(av, bv)),
+                    ("paddle.add", lambda: paddle.add(a, b)),
+                    ("paddle.add", lambda: paddle.add(a, b)),
+                    ("torch.add", lambda: torch.add(av, bv)),
+                    ("torch.matmul", lambda: torch.matmul(mv, mv)),
+                    ("paddle.matmul", lambda: paddle.matmul(m, m)),
+                    ("paddle.matmul", lambda: paddle.matmul(m, m)),
+                    ("torch.matmul", lambda: torch.matmul(mv, mv))):
+        us.setdefault(key, []).append(_host_us(fn))
+    # the block's eager forward + backward, surface and bare torch (both
+    # on the kernels), in turns
+
+    s_leaves = [paddle.to_tensor(a, place=place, stop_gradient=False)
+                for a in host]
+    t_leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                for a in host]
+
+    def surface_step():
+        loss, _ = _surface_block(paddle, F, s_leaves, Recompute)
+        loss.backward()
+
+    def torch_step():
+        loss, _ = _torch_block(t_leaves, lambda q, k, v:
+                               F.scaled_dot_product_attention(
+                                   q, k, v, is_causal=True), torch_recompute)
+        loss.backward()
+
+    block_ms = {}
+    for key, fn in (("torch", torch_step), ("surface", surface_step),
+                    ("surface", surface_step), ("torch", torch_step)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        block_ms.setdefault(key, []).append(
+            1e3 * (time.perf_counter() - t0) / 3)
+    paddle.set_device("cpu")
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > 30.0:
+        _fail(f"{tag}: {phase_s:.1f} s (limit 30 s)")
+    res = dict(launches=n, grad_max_abs_err_scaled=errs,
+               loss_rel_err=loss_rel, host_us=us, block_ms=block_ms,
+               phase_s=phase_s, device=smi)
+    print(f"[{tag}] B={B} T={T} H={H} D={D} bf16 block through the "
+          f"surface: launches {n}; loss rel err {loss_rel:.2e} and leaf "
+          f"grads (scaled) max err {max(errs.values()):.2e} against bare "
+          f"torch with the plain attention; every output on {place}")
+    print(f"[{tag}] host us a call (in turns): " + ", ".join(
+        f"{k} {'/'.join(f'{v:.2f}' for v in vs)}" for k, vs in us.items())
+        + f"; block fwd+bwd ms: " + ", ".join(
+        f"{k} {'/'.join(f'{v:.3f}' for v in vs)}"
+        for k, vs in block_ms.items()) + f"; {phase_s:.1f} s; {smi}")
+    return res
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5921,6 +6264,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fleet = phase_fleet(dev, args.seed + 11, serve, smi)
     slice_launches["38 fleet"] = fleet["launches"]
+    # sub-phase 38b (device memory over 30 autoscaled builds, cuBLAS
+    # workspaces kept) and the paddle surface (phase 39) follow
+    torch.cuda.empty_cache()
+    fleet_memory = phase_fleet_memory(dev, args.seed + 12)
+    torch.cuda.empty_cache()
+    surface = phase_surface(dev, args.seed + 13, smi)
+    n_surface = surface["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -5977,7 +6327,8 @@ def main(argv=None) -> int:
              launches_by_phase={**{k: v["flash"]
                                    for k, v in slice_launches.items()},
                                 "32 bert": n_bert["fwd"],
-                                "35 svtr": n_svtr["fwd"]},
+                                "35 svtr": n_svtr["fwd"],
+                                "39 surface": n_surface["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
         dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
              route="cuda",
@@ -6029,7 +6380,10 @@ def main(argv=None) -> int:
              launches_by_phase={"32 bert": n_bert["bwd_delta"]
                                 + n_bert["bwd_dkv"] + n_bert["bwd_dq"],
                                 "35 svtr": n_svtr["bwd_delta"]
-                                + n_svtr["bwd_dkv"] + n_svtr["bwd_dq"]}),
+                                + n_svtr["bwd_dkv"] + n_svtr["bwd_dq"],
+                                "39 surface": n_surface["bwd_delta"]
+                                + n_surface["bwd_dkv"]
+                                + n_surface["bwd_dq"]}),
         dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
                   "delta + dk/dv + dq kernels)",
              route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
@@ -6203,7 +6557,9 @@ def main(argv=None) -> int:
                            ppyoloe_train=det, ppyoloe_parity=det_parity,
                            svtr_flash=svtr_cases, svtr_train=svtr,
                            svtr_parity=svtr_parity, crnn=ocr_crnn,
-                           gateway=gateway, fleet=fleet, kernels=kernels,
+                           gateway=gateway, fleet=fleet,
+                           fleet_memory=fleet_memory, surface=surface,
+                           kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

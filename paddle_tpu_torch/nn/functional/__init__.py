@@ -1,4 +1,12 @@
-"""Functionals of the port (``paddle_tpu.nn.functional`` counterparts)."""
+"""Functionals of the port (``paddle_tpu.nn.functional`` counterparts).
+
+Each takes bare ``torch.Tensor``s or the paddle surface's ``Tensor``s
+(``core.op.defop``): torch tensors in, torch tensors out, with nothing
+but an ``isinstance`` scan of the arguments (the models' path); surface
+Tensors in, surface Tensors out, on their values.  The functions the JAX
+package registers as ops are in ``core.op.OP_REGISTRY`` under the same
+names.  ``fused_ln_linear`` takes ``nn.Linear.weight`` (``[M, K]``),
+where the JAX package's takes ``[K, M]``."""
 from .activation import (ACTIVATIONS, celu, elu, gelu, hardshrink,
                          hardsigmoid, hardswish, hardtanh, leaky_relu,
                          log_sigmoid, mish, relu, relu6, selu, sigmoid, silu,

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tF
 
+from ...core.op import defop
+
 __all__ = ["relu", "relu6", "elu", "selu", "celu", "gelu", "sigmoid",
            "log_sigmoid", "hardsigmoid", "hardswish", "hardtanh",
            "hardshrink", "softshrink", "tanhshrink", "leaky_relu",
@@ -16,89 +18,110 @@ __all__ = ["relu", "relu6", "elu", "selu", "celu", "gelu", "sigmoid",
            "ACTIVATIONS"]
 
 
+@defop
 def relu(x, name=None):
     return torch.relu(x)
 
 
+@defop
 def relu6(x, name=None):
     return x.clamp(0.0, 6.0)
 
 
+@defop
 def elu(x, alpha=1.0, name=None):
     return torch.where(x > 0, x, alpha * torch.expm1(x.clamp(max=0.0)))
 
 
+@defop
 def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
     return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
 
 
+@defop
 def celu(x, alpha=1.0, name=None):
     return x.clamp(min=0.0) + alpha * torch.expm1(x.clamp(max=0.0) / alpha)
 
 
+@defop
 def gelu(x, approximate=False, name=None):
     return tF.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@defop
 def sigmoid(x, name=None):
     return torch.sigmoid(x)
 
 
+@defop
 def log_sigmoid(x, name=None):
     return tF.logsigmoid(x)
 
 
+@defop
 def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
     return (slope * x + offset).clamp(0.0, 1.0)
 
 
+@defop
 def hardswish(x, name=None):
     return x * (x + 3.0).clamp(0.0, 6.0) / 6.0
 
 
+@defop
 def hardtanh(x, min=-1.0, max=1.0, name=None):  # noqa: A002
     return x.clamp(min, max)
 
 
+@defop
 def hardshrink(x, threshold=0.5, name=None):
     return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
 
 
+@defop
 def softshrink(x, threshold=0.5, name=None):
     zero = torch.zeros_like(x)
     return torch.where(x > threshold, x - threshold,
                        torch.where(x < -threshold, x + threshold, zero))
 
 
+@defop
 def tanhshrink(x, name=None):
     return x - torch.tanh(x)
 
 
+@defop
 def leaky_relu(x, negative_slope=0.01, name=None):
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+@defop
 def softplus(x, beta=1.0, threshold=20.0, name=None):
     return torch.where(x * beta > threshold, x,
                        torch.log1p(torch.exp(beta * x)) / beta)
 
 
+@defop
 def softsign(x, name=None):
     return x / (1.0 + x.abs())
 
 
+@defop
 def silu(x, name=None):
     return tF.silu(x)
 
 
+@defop
 def swish(x, name=None):
     return tF.silu(x)
 
 
+@defop
 def mish(x, name=None):
     return x * torch.tanh(tF.softplus(x))
 
 
+@defop
 def tanh(x, name=None):
     return torch.tanh(x)
 

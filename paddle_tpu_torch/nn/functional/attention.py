@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from ...core.op import defop
 from ...kernels.flash_attention import (flash_attention_bthd,
                                         flash_attention_qkv_fused, sdpa_ref)
 from ...kernels.ln_matmul import ln_matmul, ln_matmul_ok
@@ -36,6 +37,7 @@ __all__ = ["scaled_dot_product_attention", "fused_qkv_attention",
            "fused_ln_linear", "sdpa_ref"]
 
 
+@defop
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=False, generator=None):
@@ -49,6 +51,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                     dropout_p=dropout_p, generator=generator)
 
 
+@defop
 def fused_qkv_attention(qkv, dropout_p=0.0, is_causal=True, training=True,
                         generator=None):
     """Self-attention on the fused head-major qkv tensor ``[batch, seq,
@@ -65,6 +68,7 @@ def fused_qkv_attention(qkv, dropout_p=0.0, is_causal=True, training=True,
     return out.reshape(b, t, nh * hd)
 
 
+@defop
 def fused_ln_linear(x, ln_weight, ln_bias, weight, bias=None, eps=1e-5):
     """Pre-LN fused into its consuming projection: ``LN(x) @ weight^T
     (+ bias)`` with ``weight`` ``[M, K]`` (``nn.Linear.weight``).  Runs

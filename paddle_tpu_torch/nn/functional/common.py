@@ -33,9 +33,12 @@ import functools
 import numpy as np
 import torch
 
+from ...core.op import defop
+
 __all__ = ["one_hot", "interpolate", "upsample"]
 
 
+@defop(register=False)
 def one_hot(x, num_classes, name=None):
     """``[..., num_classes]`` f32; out-of-range indices give zeros."""
     classes = torch.arange(int(num_classes), device=x.device)
@@ -86,6 +89,7 @@ def _nearest_index(m, n, device):
     return torch.floor(offsets).to(torch.int64)
 
 
+@defop
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, align_mode=0, data_format="NCHW",
                 name=None):
@@ -116,6 +120,7 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
     return x
 
 
+@defop(register=False)
 def upsample(x, size=None, scale_factor=None, mode="nearest",
              align_corners=False, align_mode=0, data_format="NCHW",
              name=None):

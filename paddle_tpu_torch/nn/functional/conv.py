@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tF
 
+from ...core.op import defop
+
 __all__ = ["conv2d", "pointwise_as_dot"]
 
 
@@ -99,6 +101,7 @@ def _pointwise_conv(x, weight, stride, pad, groups, channel_last):
     return out if channel_last else out.movedim(-1, 1)
 
 
+@defop
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     if data_format not in ("NCHW", "NHWC"):

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from ...core.op import defop
 from ...kernels.ln_matmul import _mm_f32
 
 __all__ = ["fused_nll_loss", "fused_linear_nll_loss", "cross_entropy",
@@ -136,6 +137,7 @@ class _FusedLinearNLL(torch.autograd.Function):
         return dh, dw.to(w.dtype), None, None, None
 
 
+@defop(register=False)
 def fused_linear_nll_loss(hidden, weight, labels, ignore_index=-100,
                           transpose_weight=True, chunk_size=8192):
     """The LM head fused into the NLL: per-position f32 losses
@@ -150,6 +152,7 @@ def fused_linear_nll_loss(hidden, weight, labels, ignore_index=-100,
     return nll.reshape(shape)
 
 
+@defop(register=False)
 def fused_nll_loss(logits, labels, ignore_index=-100):
     """Per-position losses ``[...]`` in f32 over the last axis of
     ``logits``; positions whose label is ``ignore_index`` give 0 (through
@@ -157,6 +160,7 @@ def fused_nll_loss(logits, labels, ignore_index=-100):
     return _FusedNLL.apply(logits, labels.long(), int(ignore_index))
 
 
+@defop
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -199,6 +203,7 @@ def _on(vals, device):
     return t.to(device, non_blocking=True)
 
 
+@defop
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None,
                                      name=None):
@@ -211,6 +216,7 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     return _reduce(base, reduction)
 
 
+@defop
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
              reduction="mean", norm_by_times=False, name=None):
     """CTC over ``log_probs`` ``[T, B, C]`` (or batch-first, by the JAX

@@ -25,11 +25,13 @@ from __future__ import annotations
 
 import torch
 
+from ...core.op import defop
 from ...kernels.layer_norm import layer_norm_fused, layer_norm_fused_ok
 
 __all__ = ["layer_norm", "batch_norm", "with_no_grad_update"]
 
 
+@defop
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
@@ -41,6 +43,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
                                           epsilon)
 
 
+@defop(register=False)
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5, data_format="NCHW",
                use_global_stats=None, name=None):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch.nn.functional as tF
 
+from ...core.op import defop
 from .conv import _explicit_pads, _tuplize
 
 __all__ = ["max_pool2d", "adaptive_avg_pool2d"]
@@ -46,6 +47,7 @@ def _back(out, data_format):
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
+@defop
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
     if return_mask:
@@ -73,6 +75,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     return _back(out, data_format)
 
 
+@defop
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     xin = _channel_first(x, data_format)
     size = tuple(s if o is None else o

@@ -1,0 +1,14 @@
+"""Parity sweep of the port's registered ops against the JAX package:
+comparison, logic, reductions, search and sort
+(``paddle_tpu_torch.ops.{logic, reduction, search}``).
+Forward values and dtypes, and gradients where the registry sweep's spec
+marks the op differentiable; f32 to 1e-5 relative (1e-6 absolute)."""
+import pytest
+
+from _torch_op_parity import check, family
+
+
+@pytest.mark.parametrize("name", family("ops.logic", "ops.reduction",
+                                         "ops.search"))
+def test_op_matches_jax(name):
+    check(name)

@@ -1,0 +1,13 @@
+"""Parity sweep of the port's registered ops against the JAX package:
+creation and manipulation
+(``paddle_tpu_torch.ops.{creation, manipulation}``).
+Forward values and dtypes, and gradients where the registry sweep's spec
+marks the op differentiable; f32 to 1e-5 relative (1e-6 absolute)."""
+import pytest
+
+from _torch_op_parity import check, family
+
+
+@pytest.mark.parametrize("name", family("ops.creation", "ops.manipulation"))
+def test_op_matches_jax(name):
+    check(name)
