@@ -278,8 +278,8 @@ run with a non-zero exit, and nothing is caught):
    own.
 34. (phases 34-36 run after 33) PP-YOLOE-s training at
    ``bench_ppyoloe``'s recipe (``bench.py:476-520``), full width and
-   depth: ``PPYOLOE(num_classes=80)`` (8234460 parameters) from torch's
-   seeded generator, batch 8 x 3 x 640^2 with the bench's
+   depth: ``PPYOLOE(num_classes=80)`` (8234460 parameters) from the
+   seeded generators (torch's and the port's), batch 8 x 3 x 640^2 with the bench's
    ``RandomState(0)`` images and two gt boxes an image, Momentum (0.01,
    0.9, L2 5e-4), bf16 over f32 masters, cuDNN autotuning on: one
    warm-up and 5 timed steps (the bench runs 10), one profiled step; step
@@ -389,7 +389,24 @@ run with a non-zero exit, and nothing is caught):
    every output on ``CUDAPlace(0)``, under 30 s; printed: host µs a call
    of ``paddle.add`` / ``paddle.matmul`` against ``torch.add`` /
    ``torch.matmul`` and the block's forward + backward ms through the
-   surface and in bare torch, in turns.
+   surface and in bare torch, in turns;
+40. (run after 39) the paddle Layers: a training script of ``paddle.nn``
+   Layers on surface Tensors (``Embedding`` x 2, ``LayerNorm``,
+   ``TransformerEncoder`` of GELU ``TransformerEncoderLayer``s, a
+   ``Linear`` head, ``CrossEntropyLoss``; ``AdamW`` with
+   ``ClipGradByGlobalNorm(1.0)``; ``backward`` / ``step`` /
+   ``clear_grad``).  First its parity: 2 layers at d_model 256, 4 heads,
+   f32, the CPU model's weights carried in with ``set_state_dict``, 3
+   steps on the card and on the CPU, losses and parameters within 1e-4.
+   Then BERT-base width (12 layers, 768, 12 heads, vocab 30522, dropout
+   0.1) at ``bench_bert``'s 64 x 512, cast to bf16 through
+   ``model.to(dtype="bfloat16")``: 1 warm-up, 5 timed and 1 profiled
+   step with the LayerNorm kernels off and then on; gated on a falling
+   loss, 12 flash forwards and 12 of each backward kernel a step (25
+   LayerNorm forwards and backwards a step when on), no plain version,
+   every tensor on ``CUDAPlace(0)``, ``[in, out]`` Linear weights and 60
+   s; printed: step ms, tokens/s, peak memory, the profile, and the same
+   Layers' step on bare torch tensors against surface Tensors, in turns.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -3909,6 +3926,18 @@ def _timed_steps(step, batch, steps):
             torch.cuda.max_memory_allocated())
 
 
+def _seed_weights(seed):
+    """Seed the generators a model's weights come from: torch's (the
+    models' own ``torch.nn`` modules) and the port's per-device ones (its
+    ``nn`` Layers' initializers)."""
+    import torch
+
+    import paddle_tpu_torch
+
+    torch.manual_seed(seed)
+    paddle_tpu_torch.seed(seed)
+
+
 def _falling(tag, losses):
     import numpy as np
 
@@ -4320,10 +4349,11 @@ def _no_sync(tag, fn):
 def phase_ppyoloe_train(dev, smi, seed, steps=5, batch=8, size=640):
     """Phase 34: ``bench_ppyoloe``'s recipe (``bench.py:476-520``) at full
     width and depth: ``PPYOLOE(num_classes=80)`` (8.23M parameters) from
-    torch's seeded generator on the card, batch 8 x 3 x 640^2, bf16
-    compute over f32 masters, cuDNN autotuning on; one warm-up and 5 timed
-    steps (the bench runs 10), one profiled step and one step under
-    ``set_sync_debug_mode("error")``.  Gates: finite, falling losses, a
+    the seeded generators on the card (``_seed_weights``), batch 8 x 3 x
+    640^2, bf16 compute over f32 masters, cuDNN autotuning on; one
+    warm-up and 5 timed steps (the bench runs 10), one profiled step and
+    one step under ``set_sync_debug_mode("error")``.  Gates: finite,
+    falling losses, a
     non-zero positive count in every step, one step build, no attention
     or LayerNorm kernel launched, no wait for the device in a step.  Peak
     memory is counted above what was allocated when the phase began.
@@ -4336,7 +4366,7 @@ def phase_ppyoloe_train(dev, smi, seed, steps=5, batch=8, size=640):
 
     t0 = time.perf_counter()
     base = torch.cuda.memory_allocated()
-    torch.manual_seed(seed)
+    _seed_weights(seed)
     model = PPYOLOE(num_classes=80, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != PPYOLOE_S_PARAMS:
@@ -4457,7 +4487,7 @@ def phase_ppyoloe_parity(dev, seed, tol=1e-4, steps=3):
     gtl = np.array([[1, 3]] * 2, np.int64)
 
     def build(where):
-        torch.manual_seed(seed)
+        _seed_weights(seed)
         return PPYOLOE(num_classes=80, width=(16, 32, 64, 128, 256),
                        device=where)
 
@@ -4509,7 +4539,7 @@ def phase_svtr_train(dev, smi, seed, steps=5, batch=128):
     """Phase 35: PP-OCRv3's recognizer at its published width:
     ``ppocrv3_rec(6625)`` (``ppocr_keys_v1``'s 6623 characters, space and
     blank; 3.48M parameters; the JAX defaults ``dims=(64, 128, 256)``,
-    ``depths=(3, 6, 3)``, 8 heads) from torch's seeded generator on the
+    ``depths=(3, 6, 3)``, 8 heads) from the seeded generators on the
     card, PP-OCRv3's ``rec_image_shape`` 3 x 48 x 320 (T = 80), batch 128
     (PaddleOCR's ``batch_size_per_card``), labels of 25 from
     ``RandomState(seed)``, Adam lr 1e-3, bf16 compute over f32 masters:
@@ -4529,7 +4559,7 @@ def phase_svtr_train(dev, smi, seed, steps=5, batch=128):
 
     t0 = time.perf_counter()
     base = torch.cuda.memory_allocated()
-    torch.manual_seed(seed)
+    _seed_weights(seed)
     model = ppocrv3_rec(6625, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != PPOCRV3_REC_PARAMS:
@@ -4593,7 +4623,7 @@ def phase_svtr_parity(dev, seed, tol=1e-4, steps=3):
     from paddle_tpu_torch.vision.models import ppocrv3_rec
 
     def build(where):
-        torch.manual_seed(seed)
+        _seed_weights(seed)
         return ppocrv3_rec(6625, device=where)
 
     def run(model):
@@ -4627,7 +4657,7 @@ def phase_crnn(dev, smi, seed, steps=5, batch=128):
     from paddle_tpu_torch.vision.models import crnn, ctc_greedy_decode
 
     base = torch.cuda.memory_allocated()
-    torch.manual_seed(seed)
+    _seed_weights(seed)
     model = crnn(11, in_channels=1, hidden_size=32, channels=(8, 16, 32),
                  device=dev)
     step = _ocr_step(model, 5e-3)
@@ -6125,6 +6155,263 @@ def phase_surface(dev, seed, smi):
     return res
 
 
+# phase 40: BERT-base width through paddle.nn Layers at bench_bert's batch
+PL_VOCAB, PL_T, PL_B = 30522, 512, 64
+PL_D, PL_H, PL_FFN, PL_LAYERS = 768, 12, 3072, 12
+
+
+def _paddle_encoder(paddle, layers, d, heads, ffn, vocab=PL_VOCAB,
+                    max_len=PL_T, dropout=0.1):
+    """Phase 40's model, built only from ``paddle.nn`` Layers: word and
+    position ``Embedding``s, ``LayerNorm``, a ``TransformerEncoder`` of
+    GELU ``TransformerEncoderLayer``s (attention dropout 0), a ``Linear``
+    head and ``CrossEntropyLoss``; ``forward(ids, pos, labels)`` is the
+    loss."""
+    nn = paddle.nn
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(vocab, d)
+            self.pos = nn.Embedding(max_len, d)
+            self.norm = nn.LayerNorm(d)
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                d, heads, ffn, dropout=dropout, activation="gelu",
+                attn_dropout=0.0), layers)
+            self.head = nn.Linear(d, vocab)
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, ids, pos, labels):
+            h = self.norm(self.word(ids) + self.pos(pos))
+            return self.loss(self.head(self.encoder(h)), labels)
+
+    return Encoder()
+
+
+def _paddle_batch(paddle, seed, batch, seq, vocab, place):
+    """(ids, position ids, next-token labels) as surface Tensors on
+    ``place``, from ``RandomState(seed)``."""
+    import numpy as np
+
+    ids = np.random.RandomState(seed).randint(0, vocab, (batch, seq))
+    pos = np.tile(np.arange(seq), (batch, 1))
+    return [paddle.to_tensor(a.astype(np.int64), place=place)
+            for a in (ids, pos, np.roll(ids, -1, axis=1))]
+
+
+def _paddle_step(model, opt, data):
+    """One paddle-style step: the loss, ``backward``, ``step``,
+    ``clear_grad``; returns the loss."""
+    loss = model(*data)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def _paddle_parity(paddle, dev, seed, tol=1e-4, steps=3):
+    """Phase 40 (a): the script at 2 layers, d_model 256, 4 heads (D=64),
+    f32, dropout 0, B=2 T=128: the CPU model's weights carried into the
+    card's with ``set_state_dict``, 3 AdamW steps on each; losses within
+    1e-4 relative and every parameter within 1e-4 of the model's largest
+    |value| (AdamW's epsilon 1e-6, see below); rows 1 and 2 launched 2 a
+    step on the card."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    places = {"card": paddle.CUDAPlace(dev.index or 0),
+              "cpu": paddle.CPUPlace()}
+    models, losses = {}, {}
+    for where in ("cpu", "card"):
+        paddle.set_device(places[where])
+        models[where] = _paddle_encoder(paddle, 2, 256, 4, 1024,
+                                        dropout=0.0)
+    cpu, card = models["cpu"], models["card"]
+    if card.set_state_dict(cpu.state_dict()) != ([], []):
+        _fail("paddle-layers parity: the state dicts do not match")
+    for where in ("card", "cpu"):
+        model = models[where]
+        paddle.set_device(places[where])
+        # epsilon 1e-6: Adam moves a weight by +-lr whatever its
+        # gradient's size, so an entry whose terms cancel to rounding
+        # level (summed in another order on the card) would flip its
+        # 2 lr step with epsilon 1e-8
+        opt = paddle.optimizer.AdamW(
+            learning_rate=1e-3, epsilon=1e-6, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        data = _paddle_batch(paddle, seed + 1, 2, 128, PL_VOCAB,
+                             places[where])
+        if where == "card":
+            _attention_counters(zero=True)
+            with _no_plain():
+                losses["card"] = [float(_paddle_step(model, opt, data))
+                                  for _ in range(steps)]
+            n_card = _attention_counters()
+        else:
+            losses["cpu"] = [float(_paddle_step(model, opt, data))
+                             for _ in range(steps)]
+    want_n = {k: 0 for k in n_card}
+    want_n.update({k: 2 * steps for k in ("fwd", "bwd_delta", "bwd_dkv",
+                                           "bwd_dq")})
+    if n_card != want_n:
+        _fail(f"paddle-layers parity: launches {n_card} != {want_n}")
+    c, g = np.array(losses["cpu"]), np.array(losses["card"])
+    rel = float(np.max(np.abs(g - c) / np.abs(c)))
+    if not rel <= tol:
+        _fail(f"paddle-layers parity: card {g.tolist()} and CPU "
+              f"{c.tolist()} losses differ by {rel} > {tol}")
+    err = 0.0
+    csd = {k: v.value.detach() for k, v in cpu.state_dict().items()}
+    # every tensor over the model's largest |value| (the LayerNorm
+    # weights, ~1): a bias that starts at 0 holds only 3 steps of updates
+    s = max(float(v.abs().max()) for v in csd.values())
+    for k, v in card.state_dict().items():
+        err = max(err, _max_err([v.value.detach().cpu() / s], [csd[k] / s],
+                                torch.float32,
+                                f"paddle-layers parity: {k} (scaled by "
+                                f"{s:.3e})"))
+    print(f"[paddle-layers-parity] 2 layers d_model 256 f32 B=2 T=128: "
+          f"card {g.tolist()}, cpu {c.tolist()}, max rel diff {rel:.3e}, "
+          f"parameters max scaled err {err:.3e} (tol {tol}), launches "
+          f"{n_card}, {time.perf_counter() - t0:.1f} s")
+    return dict(card=g.tolist(), cpu=c.tolist(), max_rel_diff=rel,
+                param_max_scaled_err=err, tol=tol, launches=n_card)
+
+
+def phase_paddle_layers(dev, seed, smi, steps=5):
+    """Phase 40: a paddle-style training script on surface Tensors through
+    ``paddle.nn`` Layers.  (a) ``_paddle_parity``.  (b) BERT-base width
+    (vocab 30522, 12 layers, d_model 768, 12 heads, FFN 3072, dropout 0.1,
+    attention dropout 0) at ``bench_bert``'s batch 64 x 512, built on
+    ``CUDAPlace(0)``, cast to bf16 with ``model.to(dtype="bfloat16")``,
+    ``AdamW(1e-4, parameters=model.parameters(), grad_clip=
+    ClipGradByGlobalNorm(1.0))``, one fixed batch: 1 warm-up step, 5 timed
+    and 1 profiled, with the LayerNorm kernels off and then (from the same
+    starting weights) on.  Gates: the loss falls from the first step to the
+    last in each run; a step launches row 1 12 times and row 2's kernels
+    12 + 12 + 12 times, no plain version; with the LayerNorm kernels on
+    rows 9 and 10 launch 25 times a step each (off: 0); every parameter,
+    gradient and output on ``CUDAPlace(0)``; every ``Linear`` weight
+    paddle's ``[in, out]``; the phase under 60 s.  Printed: step ms,
+    tokens/s, peak memory, the profiled step's busy share and top device
+    operations, and the same Layers' step on bare torch tensors against
+    surface Tensors, in turns (the boundary's cost a step)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    tag = "paddle-layers"
+    t_phase = time.perf_counter()
+    parity = _paddle_parity(paddle, dev, seed)
+    place = paddle.CUDAPlace(dev.index or 0)
+    paddle.set_device(place)
+    paddle.seed(seed)
+    t0 = time.perf_counter()
+    model = _paddle_encoder(paddle, PL_LAYERS, PL_D, PL_H, PL_FFN)
+    model.to(dtype="bfloat16")
+    model.train()
+    build_s = time.perf_counter() - t0
+    linears = [l for l in model.sublayers() if isinstance(l, paddle.nn.Linear)]
+    bad = [(l.full_name(), l.weight.shape) for l in linears
+           if l.weight.shape != [l._in_features, l._out_features]]
+    ffn0 = model.encoder.layers[0].linear1.weight.shape
+    if bad or ffn0 != [PL_D, PL_FFN] or len(linears) != 6 * PL_LAYERS + 1:
+        _fail(f"{tag}: Linear weights not [in, out]: {bad}, linear1 {ffn0}")
+    start = {k: v.value.clone() for k, v in model.state_dict().items()}
+    data = _paddle_batch(paddle, seed + 2, PL_B, PL_T, PL_VOCAB, place)
+    runs = {}
+    for mode in ("off", "full"):
+        model.set_state_dict(start)
+        opt = paddle.optimizer.AdamW(
+            learning_rate=1e-4, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        with _toggles(mode):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _attention_counters(zero=True)
+            _ln_counters(zero=True)
+            with _no_plain():
+                loss = _paddle_step(model, opt, data)        # warm-up
+                losses = [float(loss)]
+                t0 = time.perf_counter()
+                outs = [_paddle_step(model, opt, data) for _ in range(steps)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n = {**_attention_counters(), **_ln_counters()}
+            peak = torch.cuda.max_memory_allocated()
+            places = {str(t.place) for t in outs}
+            with _no_plain():
+                last = model(*data)
+                last.backward()
+                places |= {str(last.place)} | {
+                    str(p.grad.place) for p in model.parameters()}
+                opt.step()
+                opt.clear_grad()
+                prof = _device_profile(lambda: _paddle_step(model, opt,
+                                                            data))
+        losses += [float(v) for v in outs] + [float(last)]
+        places |= {str(p.place) for p in model.parameters()}
+        if places != {str(place)}:
+            _fail(f"{tag} ({mode}): tensors on {places}, not {place}")
+        _falling(f"{tag} ({mode})", losses)
+        want = {k: 0 for k in n}
+        want.update({k: PL_LAYERS * (steps + 1)
+                     for k in ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")})
+        if mode == "full":
+            want.update({k: (2 * PL_LAYERS + 1) * (steps + 1)
+                         for k in ("ln_fwd", "ln_bwd", "ln_bwd_reduce")})
+        if n != want:
+            _fail(f"{tag} ({mode}): launches {n} != {want}")
+        prof.pop("all_kernels_ms")
+        runs[mode] = dict(losses=losses, step_ms=1e3 * wall / steps,
+                          tokens_per_s=steps * PL_B * PL_T / wall,
+                          peak_memory_bytes=peak, launches=n,
+                          launches_per_step={k: v // (steps + 1)
+                                             for k, v in n.items()},
+                          profile=prof)
+        print(f"[{tag}] LayerNorm kernels {mode}: losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}; "
+              f"{runs[mode]['step_ms']:.3f} ms a step, "
+              f"{runs[mode]['tokens_per_s']:.1f} tokens/s, peak memory "
+              f"{peak} bytes, launches a step "
+              f"{runs[mode]['launches_per_step']} on {smi}")
+        _print_profile(f"{tag}-profile", f"one step, LayerNorm kernels "
+                       f"{mode}", prof)
+    # the boundary: the same Layers on bare torch tensors, in turns
+    raw = [t.value for t in data]
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    boundary = {}
+    for key in ("torch", "surface", "surface", "torch"):
+        args = raw if key == "torch" else data
+        out = _paddle_step(model, opt, args)
+        if (type(out) is torch.Tensor) != (key == "torch"):
+            _fail(f"{tag}: {key} inputs gave a {type(out).__name__}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _paddle_step(model, opt, args)
+        torch.cuda.synchronize()
+        boundary.setdefault(key, []).append(
+            1e3 * (time.perf_counter() - t0) / 3)
+    del model, opt, start, data, raw
+    paddle.set_device("cpu")
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > 60.0:
+        _fail(f"{tag}: {phase_s:.1f} s (limit 60 s)")
+    cost = [s - t for s, t in zip(boundary["surface"], boundary["torch"])]
+    print(f"[{tag}] step ms on the same Layers (in turns): " + ", ".join(
+        f"{k} {'/'.join(f'{v:.3f}' for v in vs)}"
+        for k, vs in boundary.items()) + f"; the surface boundary "
+        f"{'/'.join(f'{v:.3f}' for v in cost)} ms a step; built in "
+        f"{build_s:.1f} s; phase {phase_s:.1f} s; {smi}")
+    return dict(parity=parity, runs=runs, boundary_step_ms=boundary,
+                boundary_ms=cost, build_s=build_s, phase_s=phase_s,
+                launches=runs["full"]["launches"], device=smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -6271,6 +6558,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     surface = phase_surface(dev, args.seed + 13, smi)
     n_surface = surface["launches"]
+    # the paddle Layers (phase 40) follow
+    torch.cuda.empty_cache()
+    layers = phase_paddle_layers(dev, args.seed + 14, smi)
+    n_layers = layers["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -6328,7 +6619,8 @@ def main(argv=None) -> int:
                                    for k, v in slice_launches.items()},
                                 "32 bert": n_bert["fwd"],
                                 "35 svtr": n_svtr["fwd"],
-                                "39 surface": n_surface["fwd"]},
+                                "39 surface": n_surface["fwd"],
+                                "40 paddle layers": n_layers["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
         dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
              route="cuda",
@@ -6383,7 +6675,10 @@ def main(argv=None) -> int:
                                 + n_svtr["bwd_dkv"] + n_svtr["bwd_dq"],
                                 "39 surface": n_surface["bwd_delta"]
                                 + n_surface["bwd_dkv"]
-                                + n_surface["bwd_dq"]}),
+                                + n_surface["bwd_dq"],
+                                "40 paddle layers": n_layers["bwd_delta"]
+                                + n_layers["bwd_dkv"]
+                                + n_layers["bwd_dq"]}),
         dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
                   "delta + dk/dv + dq kernels)",
              route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
@@ -6488,6 +6783,9 @@ def main(argv=None) -> int:
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
+            launches_by_phase={"40 paddle layers": n_layers["ln_fwd"]
+                               if part == "fwd" else n_layers["ln_bwd"]
+                               + n_layers["ln_bwd_reduce"]},
             shape="N=16384 C=768 bfloat16"))
     n_cb = conv_model["launches"]
     cb_src = "paddle_tpu_torch/kernels/csrc/conv_wgmma.cuh"
@@ -6559,6 +6857,7 @@ def main(argv=None) -> int:
                            svtr_parity=svtr_parity, crnn=ocr_crnn,
                            gateway=gateway, fleet=fleet,
                            fleet_memory=fleet_memory, surface=surface,
+                           paddle_layers=layers,
                            kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)

@@ -45,6 +45,7 @@ from . import autograd, device, tensor  # noqa: F401,E402
 from . import (distributed, incubate, models, nn,  # noqa: F401,E402
                optimizer, regularizer, vision)
 from .device import resolve_device  # noqa: F401,E402
+from .nn import ParamAttr  # noqa: F401,E402
 
 bool = bool_  # noqa: A001 — the reference exports `paddle.bool`
 dtype = _torch.dtype

@@ -92,7 +92,7 @@ class ShardedTrainStep:
         self.loss_fn = loss_fn
         self.compute_dtype = compute_dtype
         self.num_labels = num_labels
-        self.device = next(model.parameters()).device
+        self.device = next(torch.nn.Module.parameters(model)).device
         optimizer.name_parameters(model)
         self._plans: dict = {}
         self._step = 0          # the train state's step (JAX TrainState)
@@ -110,7 +110,7 @@ class ShardedTrainStep:
         else:
             values = {n: (p.to(self.compute_dtype)
                           if p.is_floating_point() else p)
-                      for n, p in self.model.named_parameters()}
+                      for n, p in torch.nn.Module.named_parameters(self.model)}
             out = torch.func.functional_call(self.model, values, tuple(x))
         loss = out if self.loss_fn is None else self.loss_fn(
             out, *(batch[i] for i in plan.y_idx))
@@ -148,7 +148,7 @@ class ShardedTrainStep:
         """(trainable parameters, everything else in the state dict): the
         JAX step's ``params`` and ``buffers``.  A parameter's second name
         (BERT's tied ``cls.decoder_weight``) is neither."""
-        params = {n: p for n, p in self.model.named_parameters()
+        params = {n: p for n, p in torch.nn.Module.named_parameters(self.model)
                   if p.requires_grad}
         trained = {id(p) for p in params.values()}
         buffers = {n: t.detach()

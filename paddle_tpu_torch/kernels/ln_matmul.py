@@ -11,9 +11,10 @@ as it landed, with f32 accumulation.  f32: one CUDA-core kernel with FMAs
 and the statistics in a prologue.  The output is in x's type; the
 projection's bias is added outside, as in the reference.
 
-Layout: the weight is the port's ``nn.Linear.weight``, ``[M, K]`` (the
-JAX package takes ``[K, M]``); the kernel reads it in place, with no
-transposed copy.
+Layout: the weight is ``[M, K]`` (a ``torch.nn.Linear.weight``; the JAX
+kernel takes ``[K, M]``); the kernel reads it in place, with no
+transposed copy.  ``F.fused_ln_linear`` takes the JAX package's ``[K, M]``
+and hands this function its ``.t()`` view.
 
 The backward is the reference's ``_bwd`` (``ln_matmul.py:128-152``; plain
 code outside any Pallas kernel there too) on the port's kernels: the

@@ -299,7 +299,7 @@ def _init_weights(model: nn.Module, config: BertConfig, seed: int):
     biases, unit LayerNorms: the JAX model's recipe, drawn in place from a
     ``torch.Generator`` on the model's device (the values differ from
     JAX's; parity runs load the JAX weights instead)."""
-    dev = next(model.parameters()).device
+    dev = next(nn.Module.parameters(model)).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     std = config.initializer_range
     out_std = std / math.sqrt(2.0 * config.num_layers)

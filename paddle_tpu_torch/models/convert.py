@@ -106,7 +106,7 @@ def load_jax_state(model: nn.Module, np_state: dict,
     ``qkv_layout`` markers is read as ``markerless_qkv_layout``
     (``"head_major"``, the JAX default, or ``"role_major"``)."""
     layout = _Layout(model, np_state, markerless_qkv_layout)
-    own = model.state_dict()
+    own = nn.Module.state_dict(model)
     markers = {k for k in own if k.endswith("qkv_layout")}
     missing = sorted(set(own) - set(np_state) - markers)
     unexpected = sorted(set(np_state) - set(own))
@@ -132,7 +132,7 @@ def to_jax_state(model: nn.Module) -> dict:
     qkv with its marker)."""
     layout = _Layout(model, {}, "head_major")
     return {name: layout.to_jax(name, t)
-            for name, t in model.state_dict().items()}
+            for name, t in nn.Module.state_dict(model).items()}
 
 
 def load_jax_train_state(step, np_state: dict,

@@ -200,8 +200,9 @@ class GPTSelfAttention(nn.Module):
         b, t = x.shape[0], x.shape[1]
         if pre_norm is not None:
             # the pre-LN fused into the qkv projection (kernels/ln_matmul.py)
+            ln = pre_norm._parameters
             qkv = F.fused_ln_linear(
-                x, pre_norm.weight, pre_norm.bias, self.qkv_proj.weight,
+                x, ln["weight"], ln["bias"], self.qkv_proj.weight.t(),
                 self.qkv_proj.bias, eps=pre_norm._epsilon)
         else:
             qkv = self.qkv_proj(x)
@@ -319,8 +320,9 @@ class GPTMLP(nn.Module):
 
     def forward(self, x, pre_norm=None):
         if pre_norm is not None:
-            h = F.fused_ln_linear(x, pre_norm.weight, pre_norm.bias,
-                                  self.fc0.weight, self.fc0.bias,
+            ln = pre_norm._parameters
+            h = F.fused_ln_linear(x, ln["weight"], ln["bias"],
+                                  self.fc0.weight.t(), self.fc0.bias,
                                   eps=pre_norm._epsilon)
         else:
             h = self.fc0(x)
@@ -597,7 +599,7 @@ def _init_weights(model: nn.Module, config: GPTConfig, seed: int):
     model's init recipe, drawn in place from a ``torch.Generator`` on the
     model's device (the values differ from JAX's; parity runs load the JAX
     weights instead)."""
-    dev = next(model.parameters()).device
+    dev = next(nn.Module.parameters(model)).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     std = config.initializer_range
     out_std = std / math.sqrt(2.0 * config.num_layers)

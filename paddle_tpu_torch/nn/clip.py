@@ -3,8 +3,10 @@
 ``clip_grad_norm_``.
 
 A clip object is called on ``[(param, grad), ...]`` and returns the pairs
-with clipped copies of the gradients (``None`` passes through), as the
-JAX package's clips return new arrays; ``clip_list(grads, in_place=True)``
+with clipped copies of the gradients (``None``, and the gradient of a
+parameter whose ``need_clip`` is False, pass through and stay out of the
+global norm), as the JAX package's clips return new arrays;
+``clip_list(grads, in_place=True)``
 scales a list of gradients in place, which is how the train step and the
 optimizers apply it.  Norms come from ``torch._foreach_norm`` and scales
 from ``torch._foreach_mul_``; every coefficient stays a device tensor, so
@@ -24,15 +26,35 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import Tensor
+from .layer_base import param_attrs
+
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "clip_grad_norm_"]
 
 
+def need_clip(p) -> bool:
+    """The parameter's ``need_clip`` (a surface ``Parameter`` or its torch
+    leaf; True unless set False through ``ParamAttr``)."""
+    if isinstance(p, Tensor):
+        p = p._value
+    attrs = param_attrs(p)
+    return True if attrs is None else bool(attrs["need_clip"])
+
+
 class ClipGradBase:
     def __call__(self, params_grads):
-        grads = [g for _, g in params_grads if g is not None]
+        """``[(param, grad)]`` with the gradients of the parameters that
+        need clipping clipped (copies); the others, and None, pass
+        through."""
+        grads = [g._value if isinstance(g, Tensor) else g
+                 for p, g in params_grads if g is not None and need_clip(p)]
         clipped = iter(self.clip_list(grads, in_place=False))
-        return [(p, None if g is None else next(clipped))
+
+        def back(g):
+            out = next(clipped)
+            return Tensor._wrap(out) if isinstance(g, Tensor) else out
+        return [(p, back(g) if g is not None and need_clip(p) else g)
                 for p, g in params_grads]
 
     def clip_list(self, grads, in_place=False):
@@ -102,16 +124,22 @@ class ClipGradByGlobalNorm(ClipGradBase):
 
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
                     error_if_nonfinite=False):
-    """Scale the parameters' gradients in place by ``min(max_norm /
-    (total + 1e-6), 1)`` and return ``total``, the ``norm_type`` norm of
-    all of them (``inf``: the largest magnitude).  ``error_if_nonfinite``
-    reads ``total`` on the host (one sync) and raises if it is not
-    finite."""
-    params = [parameters] if torch.is_tensor(parameters) else \
-        list(parameters)
+    """Scale the parameters' gradients (torch leaves or surface
+    Parameters) in place by ``min(max_norm / (total + 1e-6), 1)`` and
+    return ``total`` (a Tensor for surface parameters), the ``norm_type``
+    norm of all of them (``inf``: the largest magnitude).
+    ``error_if_nonfinite`` reads ``total`` on the host (one sync) and
+    raises if it is not finite."""
+    surface = isinstance(parameters, Tensor) or (
+        not torch.is_tensor(parameters) and any(
+            isinstance(p, Tensor) for p in parameters))
+    params = [parameters] if torch.is_tensor(parameters) or \
+        isinstance(parameters, Tensor) else list(parameters)
+    params = [p._value if isinstance(p, Tensor) else p for p in params]
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
-        return torch.zeros(())
+        total = torch.zeros(())
+        return Tensor._wrap(total) if surface else total
     norm_type = float(norm_type)
     total = torch.linalg.vector_norm(
         torch.stack(torch._foreach_norm(grads, norm_type)), norm_type)
@@ -119,4 +147,4 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
         raise RuntimeError(f"the total {norm_type} norm of the gradients is "
                            f"{float(total)}: not finite")
     _scale_(grads, (max_norm / (total + 1e-6)).clamp(max=1.0))
-    return total
+    return Tensor._wrap(total) if surface else total

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tF
 
+from ...core import random as rnd
+from ...core.dtype import convert_dtype
 from ...core.op import defop
 
 __all__ = ["relu", "relu6", "elu", "selu", "celu", "gelu", "sigmoid",
@@ -127,3 +129,81 @@ def tanh(x, name=None):
 
 
 ACTIVATIONS = frozenset(__all__) - {"ACTIVATIONS"}
+
+__all__ += ["relu_", "prelu", "rrelu", "softmax", "log_softmax",
+            "gumbel_softmax", "maxout", "glu", "temperature_scaled_softmax"]
+
+
+@defop
+def relu_(x, name=None):
+    return torch.relu(x)
+
+
+@defop
+def prelu(x, weight, data_format="NCHW", name=None):
+    w = weight
+    if w.dim() == 1 and w.shape[0] > 1 and x.dim() > 1:
+        ch_axis = 1 if data_format[1] == "C" else x.dim() - 1
+        shape = [1] * x.dim()
+        shape[ch_axis] = w.shape[0]
+        w = w.reshape(shape)
+    return torch.where(x >= 0, x, w * x)
+
+
+@defop
+def rrelu(x, lower=0.125, upper=0.3333333333333333, training=False,
+          name=None):
+    if training:
+        slope = torch.empty_like(x).uniform_(
+            lower, upper, generator=rnd.generator(x.device))
+    else:
+        slope = (lower + upper) / 2.0
+    return torch.where(x >= 0, x, slope * x)
+
+
+@defop
+def softmax(x, axis=-1, dtype=None, name=None):
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
+    return torch.softmax(x, dim=int(axis))
+
+
+@defop
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
+    return torch.log_softmax(x, dim=int(axis))
+
+
+@defop(register=False)
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
+    """Softmax of ``(x + g) / temperature``, g Gumbel noise from the
+    port's generator; ``hard`` gives the one-hot of the argmax with the
+    soft gradient."""
+    u = torch.empty_like(x).uniform_(1e-20, 1.0,
+                                     generator=rnd.generator(x.device))
+    y = torch.softmax((x - torch.log(-torch.log(u))) / temperature, dim=axis)
+    if hard:
+        onehot = torch.zeros_like(y).scatter_(
+            axis, y.argmax(dim=axis, keepdim=True), 1.0)
+        y = onehot + y - y.detach()
+    return y
+
+
+@defop
+def maxout(x, groups, axis=1, name=None):
+    axis = int(axis) % x.dim()
+    c = x.shape[axis]
+    shape = x.shape[:axis] + (c // groups, groups) + x.shape[axis + 1:]
+    return x.reshape(shape).amax(dim=axis + 1)
+
+
+@defop
+def glu(x, axis=-1, name=None):
+    a, b = torch.chunk(x, 2, dim=int(axis))
+    return a * torch.sigmoid(b)
+
+
+@defop
+def temperature_scaled_softmax(x, temperature=1.0, axis=-1, name=None):
+    return torch.softmax(x / temperature, dim=axis)

@@ -11,7 +11,9 @@ dropout in training keep the plain math (:func:`sdpa_ref`), which is what
 ``T >= 128`` routing threshold was a TPU tiling choice and is not ported:
 on the card every such call launches the kernel.
 
-``fused_ln_linear`` is ``LN(x) @ weight^T (+ bias)``: with the opt-in
+``fused_ln_linear`` is ``LN(x) @ weight (+ bias)`` with the JAX
+package's ``[K, M]`` weight (paddle's ``Linear.weight``; the models pass
+their ``torch.nn.Linear.weight.t()``, a view): with the opt-in
 ``kernels.ln_matmul.enable_ln_matmul(True)`` and K and M multiples of 128
 it runs ``ln_matmul`` (the CUDA kernel for CUDA tensors, its plain
 version for CPU tensors), otherwise the plain composition in torch ops.
@@ -70,17 +72,20 @@ def fused_qkv_attention(qkv, dropout_p=0.0, is_causal=True, training=True,
 
 @defop
 def fused_ln_linear(x, ln_weight, ln_bias, weight, bias=None, eps=1e-5):
-    """Pre-LN fused into its consuming projection: ``LN(x) @ weight^T
-    (+ bias)`` with ``weight`` ``[M, K]`` (``nn.Linear.weight``).  Runs
-    :func:`ln_matmul` when ``ln_matmul_ok``; otherwise the plain
-    composition (statistics in f32, or f64 for f64 inputs; the normalised
-    rows rounded to x's type before the product)."""
-    if ln_matmul_ok(x, weight, mesh_free=True):
-        return ln_matmul(x, ln_weight, ln_bias, weight, bias, eps)
+    """Pre-LN fused into its consuming projection: ``LN(x) @ weight
+    (+ bias)`` with ``weight`` ``[K, M]``.  Runs :func:`ln_matmul` on the
+    ``[M, K]`` view ``weight.t()`` when ``ln_matmul_ok`` (no copy when
+    ``weight`` is itself the transpose of a contiguous ``[M, K]``
+    ``torch.nn.Linear.weight``); otherwise the plain composition
+    (statistics in f32, or f64 for f64 inputs; the normalised rows
+    rounded to x's type before the product)."""
+    w_mk = weight.t()
+    if ln_matmul_ok(x, w_mk, mesh_free=True):
+        return ln_matmul(x, ln_weight, ln_bias, w_mk, bias, eps)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mu = xf.mean(dim=-1, keepdim=True)
     d = xf - mu
     var = (d * d).mean(dim=-1, keepdim=True)
     xln = (d * torch.rsqrt(var + eps) * ln_weight + ln_bias).to(x.dtype)
-    y = torch.matmul(xln, weight.t())
+    y = torch.matmul(xln, weight)
     return y if bias is None else y + bias

@@ -1,15 +1,19 @@
 """Convolution functionals (``paddle_tpu.nn.functional.conv``
-counterparts): ``conv2d`` and the ``pointwise_as_dot`` toggle.
+counterparts): ``conv1d`` / ``conv2d`` / ``conv3d``, the three
+transposed convs and the ``pointwise_as_dot`` toggle.
 
 The JAX package runs its convolutions through ``lax.conv_general_dilated``
 (XLA's own kernels, outside any Pallas kernel); the port runs them through
-``torch.nn.functional.conv2d`` (cuDNN on the card).  The padding forms are
+``torch.nn.functional.conv{1,2,3}d`` / ``conv_transpose{1,2,3}d`` (cuDNN
+on the card).  The padding forms are
 the reference's (``_norm_padding``): an int, one int per spatial dim, a
 ``[lo, hi]`` pair per dim (flat or nested, with or without the batch and
 channel dims) or ``"SAME"`` / ``"VALID"``.  Symmetric pads go to
-``conv2d``'s own ``padding``; others are padded with zeros first.  Weights
-are paddle's ``[out_c, in_c / groups, kh, kw]``; ``data_format`` is
-``"NCHW"`` or ``"NHWC"``.
+the convolution's own ``padding``; others are padded with zeros first.  Weights
+are paddle's ``[out_c, in_c / groups, *k]`` (transposed: ``[in_c, out_c /
+groups, *k]``); ``data_format`` is channel-first or channel-last
+(``"NCL"`` / ``"NLC"``, ``"NCHW"`` / ``"NHWC"``, ``"NCDHW"`` /
+``"NDHWC"``).
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch.nn.functional as tF
 
 from ...core.op import defop
 
-__all__ = ["conv2d", "pointwise_as_dot"]
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose", "pointwise_as_dot"]
 
 
 def _tuplize(v, n):
@@ -101,31 +106,123 @@ def _pointwise_conv(x, weight, stride, pad, groups, channel_last):
     return out if channel_last else out.movedim(-1, 1)
 
 
+_FORMATS = {1: ("NCL", "NLC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
+_CONV = {1: tF.conv1d, 2: tF.conv2d, 3: tF.conv3d}
+_CONV_T = {1: tF.conv_transpose1d, 2: tF.conv_transpose2d,
+           3: tF.conv_transpose3d}
+
+
+def _layout(x, data_format, n, what):
+    """``(channel_last, x channel-first)``; other formats raise."""
+    if data_format not in _FORMATS[n]:
+        raise ValueError(f"{what} data_format must be one of "
+                         f"{_FORMATS[n]}, got {data_format!r}")
+    channel_last = data_format == _FORMATS[n][1]
+    return channel_last, (x.movedim(-1, 1) if channel_last else x)
+
+
+def _finish(out, bias, channel_last, n):
+    if channel_last:
+        out = out.movedim(1, -1)
+    if bias is not None:
+        out = out + (bias.reshape((1,) * (n + 1) + (-1,)) if channel_last
+                     else bias.reshape((1, -1) + (1,) * n))
+    return out
+
+
+def _flat_pads(pads):
+    """``[(lo, hi)]`` per spatial dim -> torch's ``F.pad`` list (last dim
+    first)."""
+    return [v for lo_hi in reversed(pads) for v in lo_hi]
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, n,
+             data_format, what):
+    channel_last, xin = _layout(x, data_format, n, what)
+    stride = _tuplize(stride, n)
+    dilation = _tuplize(dilation, n)
+    pad = _norm_padding(padding, n)
+    out = _pointwise_conv(xin, weight, stride, pad, groups, False)
+    if out is not None:
+        return _finish(out, bias, channel_last, n)
+    pads = _explicit_pads(pad, xin.shape[2:], weight.shape[2:], stride,
+                          dilation)
+    if all(lo == hi and lo >= 0 for lo, hi in pads):
+        sym = tuple(lo for lo, _ in pads)
+    else:
+        xin = tF.pad(xin, _flat_pads(pads))
+        sym = (0,) * n
+    out = _CONV[n](xin, weight, None, stride, sym, dilation, groups)
+    return _finish(out, bias, channel_last, n)
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       groups, dilation, n, data_format, what):
+    """The JAX package's transposed conv (the gradient of a conv: the
+    flipped kernel over the stride-dilated input, padded ``(k - 1) d -
+    lo`` before and ``(k - 1) d - hi + output_padding`` after): torch's
+    unpadded transposed conv, then that output cropped by ``lo`` before
+    and by ``hi - output_padding`` after (a negative crop pads zeros).
+    ``output_size`` is accepted and not read, as there."""
+    channel_last, xin = _layout(x, data_format, n, what)
+    stride = _tuplize(stride, n)
+    dilation = _tuplize(dilation, n)
+    opad = _tuplize(output_padding, n)
+    k = weight.shape[2:]
+    pad = _norm_padding(padding, n)
+    if isinstance(pad, str):
+        pad = [(0, 0)] * n if pad == "VALID" else \
+            [((k[i] - 1) // 2,) * 2 for i in range(n)]
+    out = _CONV_T[n](xin, weight, None, stride, 0, 0, groups, dilation)
+    crop = [(-lo, -hi + op) for (lo, hi), op in zip(pad, opad)]
+    if any(c != (0, 0) for c in crop):
+        out = tF.pad(out, _flat_pads(crop))
+    return _finish(out, bias, channel_last, n)
+
+
+@defop
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    data_format, "conv1d")
+
+
 @defop
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
-    if data_format not in ("NCHW", "NHWC"):
-        raise ValueError(f"conv2d data_format must be NCHW or NHWC, got "
-                         f"{data_format!r}")
-    channel_last = data_format == "NHWC"
-    stride = _tuplize(stride, 2)
-    dilation = _tuplize(dilation, 2)
-    pad = _norm_padding(padding, 2)
-    out = _pointwise_conv(x, weight, stride, pad, groups, channel_last)
-    if out is None:
-        xin = x.permute(0, 3, 1, 2) if channel_last else x
-        pads = _explicit_pads(pad, xin.shape[2:], weight.shape[2:], stride,
-                              dilation)
-        if all(lo == hi and lo >= 0 for lo, hi in pads):
-            sym = tuple(lo for lo, _ in pads)
-        else:
-            (ht, hb), (wl, wr) = pads
-            xin = tF.pad(xin, (wl, wr, ht, hb))
-            sym = (0, 0)
-        out = tF.conv2d(xin, weight, None, stride, sym, dilation, groups)
-        if channel_last:
-            out = out.permute(0, 2, 3, 1)
-    if bias is not None:
-        out = out + (bias.reshape(1, 1, 1, -1) if channel_last
-                     else bias.reshape(1, -1, 1, 1))
-    return out
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format, "conv2d")
+
+
+@defop
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    data_format, "conv3d")
+
+
+@defop
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, groups, dilation, 1,
+                              data_format, "conv1d_transpose")
+
+
+@defop
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, groups, dilation, 2,
+                              data_format, "conv2d_transpose")
+
+
+@defop
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, groups, dilation, 3,
+                              data_format, "conv3d_transpose")

@@ -11,6 +11,13 @@ the bf16 logits are 1.65 GB and their f32 upcast 3.3 GB.
 in one pass over vocab chunks (``_FusedLinearNLL``), so the ``[N, V]``
 logits never exist, in any type.
 
+``cross_entropy`` has every option of the JAX function (see there), and
+the other losses are its arithmetic literally (``nll_loss``'s plain
+``"mean"`` counts the ignored positions, as there).  ``hinge_embedding_loss``
+and ``cosine_embedding_loss`` are not in the op registry: their label
+only selects (``label == 1``), so torch gives it no gradient where the
+JAX tape gives it zeros.
+
 ``binary_cross_entropy_with_logits`` is the JAX package's arithmetic:
 ``max(z, 0) - z y + log1p(exp(-|z|))``, times ``(pos_weight - 1) y + 1``
 and ``weight`` where given.
@@ -35,10 +42,16 @@ import math
 import torch
 
 from ...core.op import defop
+from ...core.tensor import Tensor
 from ...kernels.ln_matmul import _mm_f32
 
 __all__ = ["fused_nll_loss", "fused_linear_nll_loss", "cross_entropy",
-           "binary_cross_entropy_with_logits", "ctc_loss"]
+           "softmax_with_cross_entropy", "nll_loss", "mse_loss", "l1_loss",
+           "smooth_l1_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "kl_div",
+           "margin_ranking_loss", "hinge_embedding_loss",
+           "cosine_embedding_loss", "triplet_margin_loss",
+           "sigmoid_focal_loss", "square_error_cost", "log_loss", "ctc_loss"]
 
 
 def _reduce(val, reduction):
@@ -163,26 +176,192 @@ def fused_nll_loss(logits, labels, ignore_index=-100):
 @defop
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
-    """The hard-label subset: softmax cross entropy over the last axis
-    with ``reduction="mean"`` over the positions whose label is not
-    ``ignore_index``.  The other options raise ``NotImplementedError``."""
-    unported = [name for name, off in (
-        ("weight", weight is None), ("reduction", reduction == "mean"),
-        ("soft_label", not soft_label),
-        ("axis", axis in (-1, input.dim() - 1)),
-        ("use_softmax", use_softmax), ("label_smoothing",
-                                       not label_smoothing)) if not off]
-    if unported:
-        raise NotImplementedError(
-            f"cross_entropy {', '.join(unported)}: the port has the "
-            f"hard-label mean over the last axis; the rest of "
-            f"nn/functional/loss.py is ROADMAP module item 3")
-    if label.dim() == input.dim():
-        label = label.squeeze(-1)
-    loss = fused_nll_loss(input, label, ignore_index)
-    n = (label != ignore_index).sum().clamp(min=1)
-    return loss.sum() / n
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Softmax cross entropy over ``axis``, the JAX function's options
+    and arithmetic: hard labels (``ignore_index`` positions give 0 and
+    leave the mean's count; with ``weight`` the mean divides by the
+    valid positions' weights) or ``soft_label`` distributions;
+    ``label_smoothing`` mixes in the uniform distribution;
+    ``use_softmax=False`` reads ``input`` as probabilities (``log``
+    of them clipped to [1e-15, 1]).  The hard-label mean over the last
+    axis with none of the options runs ``fused_nll_loss`` (f32, the
+    logits never upcast whole): the models' path."""
+    if (weight is None and reduction == "mean" and not soft_label
+            and use_softmax and not label_smoothing
+            and axis in (-1, input.dim() - 1)):
+        if label.dim() == input.dim():
+            label = label.squeeze(-1)
+        loss = fused_nll_loss(input, label, ignore_index)
+        n = (label != ignore_index).sum().clamp(min=1)
+        return loss.sum() / n
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=axis)
+    else:
+        logp = torch.log(input.clamp(1e-15, 1.0))
+    if soft_label:
+        lbl = label
+        if label_smoothing > 0.0:
+            lbl = (1 - label_smoothing) * lbl \
+                + label_smoothing / input.shape[axis]
+        loss = -(lbl * logp).sum(dim=axis)
+        if weight is not None:
+            loss = loss * (lbl * weight).sum(dim=axis)
+        return _reduce(loss, reduction)
+    lbl = label.squeeze(axis) if label.dim() == logp.dim() else label
+    lbl = lbl.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    picked = logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    if label_smoothing > 0.0:
+        picked = (1 - label_smoothing) * picked \
+            + label_smoothing * logp.mean(dim=axis)
+    loss = -picked
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    if weight is not None:
+        w = weight[safe]
+        loss = loss * w
+        if reduction == "mean":
+            denom = torch.where(valid, w, zero).sum()
+            return torch.where(valid, loss, zero).sum() / denom.clamp(
+                min=1e-12)
+    loss = torch.where(valid, loss, zero)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().to(loss.dtype).clamp(min=1.0)
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """Per-position losses with the class axis kept (size 1), and the
+    softmax with ``return_softmax``."""
+    from .activation import softmax
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis)
+    from ...ops.manipulation import unsqueeze
+    loss = unsqueeze(loss, axis) if isinstance(loss, Tensor) else \
+        loss.unsqueeze(axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+@defop
+def nll_loss(input, label, weight=None, ignore_index=-100,  # noqa: A002
+             reduction="mean", name=None):
+    lbl = label.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    loss = -input.gather(1, safe.unsqueeze(1)).squeeze(1)
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    if weight is not None:
+        w = weight[safe]
+        loss = loss * w
+        if reduction == "mean":
+            return torch.where(valid, loss, zero).sum() / torch.where(
+                valid, w, zero).sum().clamp(min=1e-12)
+    return _reduce(torch.where(valid, loss, zero), reduction)
+
+
+@defop
+def mse_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    return _reduce((input - label) ** 2, reduction)
+
+
+@defop
+def l1_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    return _reduce((input - label).abs(), reduction)
+
+
+@defop
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0,  # noqa: A002
+                   name=None):
+    d = input - label
+    loss = torch.where(d.abs() < delta, 0.5 * d * d,
+                       delta * (d.abs() - 0.5 * delta))
+    return _reduce(loss, reduction)
+
+
+@defop
+def binary_cross_entropy(input, label, weight=None,  # noqa: A002
+                         reduction="mean", name=None):
+    x = input.clamp(1e-12, 1.0 - 1e-12)
+    loss = -(label * torch.log(x) + (1 - label) * torch.log1p(-x))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@defop
+def kl_div(input, label, reduction="mean", name=None):  # noqa: A002
+    loss = label * (torch.log(label.clamp(min=1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+@defop
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean", name=None):
+    return _reduce((-label * (input - other) + margin).clamp(min=0.0),
+                   reduction)
+
+
+@defop(register=False)
+def hinge_embedding_loss(input, label, margin=1.0,  # noqa: A002
+                         reduction="mean", name=None):
+    loss = torch.where(label == 1, input, (margin - input).clamp(min=0.0))
+    return _reduce(loss, reduction)
+
+
+@defop(register=False)
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    norms = torch.linalg.vector_norm(input1, dim=-1) \
+        * torch.linalg.vector_norm(input2, dim=-1)
+    cos = (input1 * input2).sum(dim=-1) / norms.clamp(min=1e-12)
+    loss = torch.where(label == 1, 1 - cos, (cos - margin).clamp(min=0.0))
+    return _reduce(loss, reduction)
+
+
+@defop
+def triplet_margin_loss(input, positive, negative, margin=1.0,  # noqa: A002
+                        p=2.0, epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    def pdist(a, b):
+        return torch.pow(torch.pow((a - b).abs() + epsilon, p).sum(dim=-1),
+                         1.0 / p)
+    dp = pdist(input, positive)
+    dn = pdist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, pdist(positive, negative))
+    return _reduce((dp - dn + margin).clamp(min=0.0), reduction)
+
+
+@defop
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    p = torch.sigmoid(logit)
+    ce = logit.clamp(min=0) - logit * label \
+        + torch.log1p(torch.exp(-logit.abs()))
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    loss = a_t * torch.pow(1 - p_t, gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+@defop
+def square_error_cost(input, label, name=None):  # noqa: A002
+    return (input - label) ** 2
+
+
+@defop
+def log_loss(input, label, epsilon=1e-4, name=None):  # noqa: A002
+    return -label * torch.log(input + epsilon) \
+        - (1 - label) * torch.log(1 - input + epsilon)
 
 
 def _host_ints(x):

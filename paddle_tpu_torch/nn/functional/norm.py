@@ -28,7 +28,8 @@ import torch
 from ...core.op import defop
 from ...kernels.layer_norm import layer_norm_fused, layer_norm_fused_ok
 
-__all__ = ["layer_norm", "batch_norm", "with_no_grad_update"]
+__all__ = ["layer_norm", "batch_norm", "with_no_grad_update", "group_norm",
+           "instance_norm", "local_response_norm", "spectral_norm"]
 
 
 @defop
@@ -87,3 +88,74 @@ def with_no_grad_update(running_mean, running_var, mean, var, momentum):
                            * mean.to(running_mean.dtype))
         running_var.copy_(momentum * running_var + (1 - momentum)
                           * var.to(running_var.dtype))
+
+
+def _var(x, dims):
+    return x.var(dim=dims, correction=0, keepdim=True)
+
+
+@defop
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    if data_format == "NCHW" or x.dim() <= 2:
+        n, c = x.shape[0], x.shape[1]
+        rest = tuple(x.shape[2:])
+        g = x.reshape((n, num_groups, c // num_groups) + rest)
+        dims = tuple(range(2, g.dim()))
+        shape = (1, c) + (1,) * len(rest)
+    else:
+        n, c = x.shape[0], x.shape[-1]
+        rest = tuple(x.shape[1:-1])
+        g = x.reshape((n,) + rest + (num_groups, c // num_groups))
+        dims = tuple(range(1, g.dim() - 2)) + (g.dim() - 1,)
+        shape = (1,) * (1 + len(rest)) + (c,)
+    mean = g.mean(dim=dims, keepdim=True)
+    out = ((g - mean) * torch.rsqrt(_var(g, dims) + epsilon)).reshape(
+        x.shape)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+@defop
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    channel_first = data_format.startswith("NC")
+    dims = tuple(range(2, x.dim())) if channel_first \
+        else tuple(range(1, x.dim() - 1))
+    mean = x.mean(dim=dims, keepdim=True)
+    out = (x - mean) * torch.rsqrt(_var(x, dims) + eps)
+    shape = [1] * x.dim()
+    ch = 1 if channel_first else x.dim() - 1
+    shape[ch] = x.shape[ch]
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+@defop
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    sq = (x * x).movedim(ch, -1)
+    half = size // 2
+    padded = torch.nn.functional.pad(sq, (half, size - half - 1))
+    summed = padded.unfold(-1, size, 1).sum(dim=-1).movedim(-1, ch)
+    return x / torch.pow(k + alpha * summed, beta)
+
+
+@defop
+def spectral_norm(weight, u, v, dim=0, power_iters=1, eps=1e-12, name=None):
+    w = weight.movedim(dim, 0).reshape(weight.shape[dim], -1)
+    for _ in range(power_iters):
+        v = w.T @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = w @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ w @ v
+    return weight / sigma

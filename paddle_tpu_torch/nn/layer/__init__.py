@@ -1,16 +1,11 @@
 """Layers of the port (``paddle_tpu.nn.layer`` counterparts)."""
-from .activation import GELU, LeakyReLU, ReLU, Sigmoid, Swish
-from .common import Flatten, Linear, Upsample, UpsamplingNearest2D
-from .container import LayerList, Sequential
-from .conv import Conv2D
-from .loss import BCEWithLogitsLoss, CrossEntropyLoss, CTCLoss
-from .norm import BatchNorm2D, LayerNorm
-from .pooling import AdaptiveAvgPool2D, MaxPool2D
-from .rnn import LSTM
-from .transformer import MultiHeadAttention
-
-__all__ = ["LayerNorm", "BatchNorm2D", "Conv2D", "MaxPool2D",
-           "AdaptiveAvgPool2D", "ReLU", "GELU", "Sigmoid", "LeakyReLU",
-           "Swish", "Linear", "Flatten", "Upsample", "UpsamplingNearest2D",
-           "Sequential", "LayerList", "CrossEntropyLoss",
-           "BCEWithLogitsLoss", "CTCLoss", "LSTM", "MultiHeadAttention"]
+from . import loss  # noqa: F401
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .rnn import LSTM  # noqa: F401
+from .transformer import *  # noqa: F401,F403

@@ -1,16 +1,155 @@
 """Containers (``paddle_tpu.nn.layer.container`` counterparts):
-``Sequential`` is torch's ``nn.Sequential``, which names its children
-``"0"``, ``"1"``, ... as paddle does (or by the keys of an
-``OrderedDict``); ``LayerList`` is an ``nn.ModuleList`` under paddle's
-constructor, whose children are ``"0"``, ``"1"``, ... too, so the state
-dicts of both carry the JAX layer's names."""
+``Sequential``, ``LayerList``, ``ParameterList`` and ``LayerDict``, each a
+``Layer``.  ``Sequential`` and ``LayerList`` name their children ``"0"``,
+``"1"``, ... (or ``Sequential`` by the keys of an ``OrderedDict`` or of
+``(name, layer)`` pairs), ``ParameterList`` its parameters the same way,
+so the state dicts carry the JAX layers' names.  Children may be any
+``torch.nn.Module``."""
 from __future__ import annotations
 
-from torch.nn import ModuleList, Sequential
+from collections import OrderedDict
 
-__all__ = ["Sequential", "LayerList"]
+from ..layer_base import Layer
+
+__all__ = ["Sequential", "LayerList", "ParameterList", "LayerDict"]
 
 
-class LayerList(ModuleList):
+class Sequential(Layer):
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], OrderedDict):
+            for name, layer in layers[0].items():
+                self.add_sublayer(name, layer)
+        else:
+            for i, layer in enumerate(layers):
+                if isinstance(layer, tuple):
+                    self.add_sublayer(layer[0], layer[1])
+                else:
+                    self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return Sequential(*list(self._modules.values())[idx])
+        if isinstance(idx, str):
+            return self._modules[idx]
+        return list(self._modules.values())[idx]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def forward(self, x):
+        for layer in self._modules.values():
+            x = layer(x)
+        return x
+
+
+# each child keeps its own boundary (a child may be a user's Layer)
+Sequential._torch_forward = False
+
+
+class LayerList(Layer):
     def __init__(self, sublayers=None):
-        super().__init__(sublayers)
+        super().__init__()
+        if sublayers is not None:
+            for i, layer in enumerate(sublayers):
+                self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._modules.values())[idx])
+        return self._modules[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __setitem__(self, idx, layer):
+        self.add_sublayer(str(idx if idx >= 0 else len(self) + idx), layer)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, sub in enumerate(layers):
+            self.add_sublayer(str(i), sub)
+
+    def extend(self, layers):
+        for sub in layers:
+            self.append(sub)
+        return self
+
+
+class ParameterList(Layer):
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            for i, p in enumerate(parameters):
+                self.add_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return getattr(self, str(idx if idx >= 0 else len(self) + idx))
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter([getattr(self, k) for k in self._parameters])
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self)), parameter)
+        return self
+
+
+class LayerDict(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._modules[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def clear(self):
+        self._modules.clear()
+
+    def pop(self, key):
+        return self._modules.pop(key)
+
+    def keys(self):
+        return self._modules.keys()
+
+    def items(self):
+        return self._modules.items()
+
+    def values(self):
+        return self._modules.values()
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(sublayers, dict) \
+            else sublayers
+        for key, layer in items:
+            self.add_sublayer(key, layer)

@@ -1,17 +1,24 @@
-"""Loss layers (``paddle_tpu.nn.layer.loss`` counterparts):
-``CrossEntropyLoss`` over ``F.cross_entropy`` (the hard-label mean; the
-other options raise there), ``BCEWithLogitsLoss`` and ``CTCLoss`` over
-their functionals."""
+"""Loss layers (``paddle_tpu.nn.layer.loss`` counterparts): the 13 the JAX
+package's file has, each over its ``F`` functional with the layer's
+settings.  A ``weight`` / ``pos_weight`` given as a surface Tensor is
+read as its torch value."""
 from __future__ import annotations
 
-from torch import nn
-
+from ...core.tensor import Tensor
 from .. import functional as F
+from ..layer_base import Layer
 
-__all__ = ["CrossEntropyLoss", "BCEWithLogitsLoss", "CTCLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss", "CTCLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+def _raw(t):
+    return t._value if isinstance(t, Tensor) else t
+
+
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -25,7 +32,7 @@ class CrossEntropyLoss(nn.Module):
         self.label_smoothing = label_smoothing
 
     def forward(self, input, label):  # noqa: A002
-        return F.cross_entropy(input, label, weight=self.weight,
+        return F.cross_entropy(input, label, weight=_raw(self.weight),
                                ignore_index=self.ignore_index,
                                reduction=self.reduction,
                                soft_label=self.soft_label, axis=self.axis,
@@ -33,7 +40,49 @@ class CrossEntropyLoss(nn.Module):
                                label_smoothing=self.label_smoothing)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.l1_loss(input, label, self.reduction)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.nll_loss(input, label, _raw(self.weight), self.ignore_index,
+                          self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.binary_cross_entropy(input, label, _raw(self.weight),
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -43,10 +92,73 @@ class BCEWithLogitsLoss(nn.Module):
 
     def forward(self, logit, label):
         return F.binary_cross_entropy_with_logits(
-            logit, label, self.weight, self.reduction, self.pos_weight)
+            logit, label, _raw(self.weight), self.reduction,
+            _raw(self.pos_weight))
 
 
-class CTCLoss(nn.Module):
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.kl_div(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):  # noqa: A002
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):  # noqa: A002
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.args = (margin, p, epsilon, swap, reduction)
+
+    def forward(self, input, positive, negative):  # noqa: A002
+        return F.triplet_margin_loss(input, positive, negative, *self.args)
+
+
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         self.blank = blank

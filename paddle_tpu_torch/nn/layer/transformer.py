@@ -1,7 +1,11 @@
-"""``MultiHeadAttention`` (``paddle_tpu.nn.layer.transformer``'s): the
-projections ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj`` are the
-port's ``Linear`` (``[out, in]`` weights; ``models.convert`` transposes
-the JAX package's ``[in, out]``), heads are ``[B, T, num_heads,
+"""Transformer layers (``paddle_tpu.nn.layer.transformer`` counterparts):
+``MultiHeadAttention``, ``TransformerEncoderLayer``,
+``TransformerEncoder``, ``TransformerDecoderLayer``, ``TransformerDecoder``
+and ``Transformer``.
+
+``MultiHeadAttention``: the projections ``q_proj``, ``k_proj``,
+``v_proj`` and ``out_proj`` are the port's ``Linear`` (paddle's ``[in,
+out]`` weights, as in the JAX package), heads are ``[B, T, num_heads,
 head_dim]``.
 
 * Without ``need_weights`` the heads go through
@@ -19,22 +23,36 @@ head_dim]``.
   and values and comes back as it was.
 
 The return is ``out``, or the tuple ``(out[, weights][, cache])``.
+
+The encoder and decoder layers are the JAX layers' (post-norm unless
+``normalize_before``; ``attn_dropout`` / ``act_dropout`` default to
+``dropout``; the activation is ``F.<activation>``).  ``TransformerEncoder``
+and ``TransformerDecoder`` hold the given layer and ``num_layers - 1``
+deep copies of it (no parameter shared).  An encoder layer's
+self-attention with no mask and no attention dropout in training reaches
+the flash kernels through ``F.scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
 import collections
+import copy
 import math
 
 import torch
-from torch import nn
 
+from ...core.tensor import Tensor
 from .. import functional as F
-from .common import Linear
+from ..layer_base import Layer, _map, _to_surface, _unwrap
+from .common import Dropout, Linear
+from .container import LayerList
+from .norm import LayerNorm
 
-__all__ = ["MultiHeadAttention"]
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
@@ -62,14 +80,20 @@ class MultiHeadAttention(nn.Module):
                          self.head_dim)
 
     def gen_cache(self, key, value=None, type=Cache):  # noqa: A002
+        """An empty ``Cache``, or a ``StaticCache`` of ``key``'s and
+        ``value``'s projections; surface Tensors for a surface ``key``."""
+        surface = isinstance(key, Tensor)
+        key, value = _unwrap(key), _unwrap(value)
         if type == MultiHeadAttention.StaticCache:
             k = self._reshape_heads(self.k_proj(key))
             v = self._reshape_heads(self.v_proj(
                 value if value is not None else key))
-            return self.StaticCache(k, v)
-        k = torch.zeros(key.shape[0], 0, self.num_heads, self.head_dim,
-                        device=key.device)
-        return self.Cache(k, k)
+            cache = self.StaticCache(k, v)
+        else:
+            k = torch.zeros(key.shape[0], 0, self.num_heads, self.head_dim,
+                            device=key.device)
+            cache = self.Cache(k, k)
+        return _map(cache, _to_surface) if surface else cache
 
     def _weights_path(self, q, k, v, mask):
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -117,3 +141,225 @@ class MultiHeadAttention(nn.Module):
         if cache is not None:
             outs.append(new_cache)
         return out if len(outs) == 1 else tuple(outs)
+
+
+class TransformerEncoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead,
+                                            dropout=attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, incremental_cache = self.self_attn(src, src, src, src_mask,
+                                                    cache)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src if cache is None else (src, incremental_cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src)
+
+
+def _clones(layer, num_layers):
+    return LayerList([layer] + [copy.deepcopy(layer)
+                                for _ in range(num_layers - 1)])
+
+
+class TransformerEncoder(Layer):
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(encoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output = src
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, new_cache = mod(output, src_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead,
+                                            dropout=attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(d_model, nhead,
+                                             dropout=attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.norm3 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incremental_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                                    cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+        else:
+            tgt, static_cache = self.cross_attn(tgt, memory, memory,
+                                                memory_mask, cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental_cache,
+                                                static_cache))
+
+    def gen_cache(self, memory):
+        incremental = self.self_attn.gen_cache(memory)
+        static = self.cross_attn.gen_cache(memory, memory,
+                                           MultiHeadAttention.StaticCache)
+        return incremental, static
+
+
+class TransformerDecoder(Layer):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(decoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, new_cache = mod(output, memory, tgt_mask,
+                                        memory_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        if do_zip:
+            cache = list(zip(*cache))
+        return cache
+
+
+class Transformer(Layer):
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            enc_norm = LayerNorm(d_model) if normalize_before else None
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
+                                              enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            dec_norm = LayerNorm(d_model) if normalize_before else None
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
+                                              dec_norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    def generate_square_subsequent_mask(self, length):
+        """``[length, length]`` f32: -inf above the diagonal, 0 elsewhere
+        (a surface Tensor on the current place)."""
+        from ...core.tensor import Tensor
+        mask = torch.triu(torch.full((length, length), float("-inf")),
+                          diagonal=1)
+        return Tensor(mask.numpy())

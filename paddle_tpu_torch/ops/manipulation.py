@@ -375,6 +375,8 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):  # n
     flat = [w for lo_hi in reversed(widths) for w in lo_hi]
     while flat and flat[-2:] == [0, 0]:
         flat = flat[:-2]
+    if not flat:        # nothing to pad (an int pad covers no dim, as in JAX)
+        return x
     tmode = {"constant": "constant", "reflect": "reflect",
              "replicate": "replicate", "circular": "circular"}[mode]
     if tmode == "constant":

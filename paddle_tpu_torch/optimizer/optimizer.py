@@ -24,10 +24,17 @@ drops it: ROADMAP section 3), and is AdamW's decoupled coefficient ``c``
 each parameter's learning rate, decay included (the JAX step's
 per-parameter ``optimize_attr["learning_rate"]``).
 
-Parameters are named by their state-dict names: pass a module (its
-``named_parameters()``) or ``(name, tensor)`` pairs; bare tensors are
-named ``param_<i>`` until :func:`name_parameters` (which the train step
-calls) gives them their model's names.  ``apply_decay_param_fun``,
+Parameters are named by their state-dict names: pass a module or a
+``Layer`` (its ``named_parameters()``) or ``(name, tensor)`` pairs;
+surface ``Parameter``s (``layer.parameters()``) and Tensors go by their
+``name``, bare torch tensors by ``param_<i>``, until
+:func:`name_parameters` (which the train step calls) gives them their
+model's names.  The optimizer updates the torch leaves in place.  As in
+the JAX package, a parameter's ``optimize_attr["learning_rate"]``
+scales its learning rate, its ``regularizer`` replaces the optimizer's
+L2 coefficient for it (Momentum, Adam), and ``need_clip=False`` keeps
+its gradient out of ``grad_clip`` (``nn.ParamAttr``; the fields live on
+the leaf, ``nn.layer_base.param_attrs``).  ``apply_decay_param_fun``,
 ``lr_ratio`` and ``state_dict()`` use those names; the slots are
 ``moment1`` / ``moment2`` (Adam, AdamW) and ``velocity`` (Momentum), as in
 the JAX package.
@@ -37,6 +44,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core.tensor import Tensor
+from ..nn.clip import need_clip
+from ..nn.layer_base import param_attrs
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "L1Decay", "L2Decay"]
@@ -83,10 +93,19 @@ class Optimizer:
             return [], []
         if isinstance(parameters, nn.Module):
             parameters = parameters.named_parameters()
+        items = []
+        for item in parameters:
+            # a paddle parameter group {"params": [...], ...}
+            items.extend(item["params"] if isinstance(item, dict)
+                         else [item])
         names, params = [], []
-        for i, item in enumerate(parameters):
-            name, p = item if isinstance(item, tuple) else (f"param_{i}",
-                                                            item)
+        for i, item in enumerate(items):
+            name, p = item if isinstance(item, tuple) else (None, item)
+            if isinstance(p, Tensor):
+                name, p = name or p.name, p._value
+            name = name or f"param_{i}"
+            if name in names:       # slots are kept by name: keep it unique
+                name = f"{name}_{i}"
             names.append(name)
             params.append(p)
         return names, params
@@ -95,7 +114,7 @@ class Optimizer:
         """Give each parameter that belongs to ``model`` its state-dict
         name there (the names ``apply_decay_param_fun`` and
         ``state_dict()`` use)."""
-        by_id = {id(p): n for n, p in model.named_parameters()}
+        by_id = {id(p): n for n, p in nn.Module.named_parameters(model)}
         if self._slots:
             raise RuntimeError("name the parameters before the first step")
         self._names = [by_id.get(id(p), n)
@@ -116,9 +135,13 @@ class Optimizer:
         self._lr = scheduler
 
     # -- the update (per optimizer) -----------------------------------------
-    def _decay_coeff(self, name: str) -> float:
-        """The L2 coefficient folded into the gradient."""
+    def _decay_coeff(self, name: str, p=None) -> float:
+        """The L2 coefficient folded into the gradient (the parameter's
+        own regularizer first)."""
         wd = self._weight_decay
+        attrs = None if p is None else param_attrs(p)
+        if attrs is not None and attrs["regularizer"] is not None:
+            wd = attrs["regularizer"]
         if isinstance(wd, L2Decay):
             return wd.coeff
         return float(wd) if isinstance(wd, (int, float)) else 0.0
@@ -174,11 +197,19 @@ class Optimizer:
         params = [p for _, p in live]
         grads = [p.grad.to(p.dtype) for p in params]
         if self._grad_clip is not None:
-            grads = self._grad_clip.clip_list(grads, in_place=clip_in_place)
+            clip = [i for i, p in enumerate(params) if need_clip(p)]
+            if len(clip) == len(grads):
+                grads = self._grad_clip.clip_list(grads,
+                                                  in_place=clip_in_place)
+            elif clip:
+                done = self._grad_clip.clip_list(
+                    [grads[i] for i in clip], in_place=clip_in_place)
+                for i, g in zip(clip, done):
+                    grads[i] = g
         lr = self.get_lr()
         self._update(params, grads, [self._slots[n] for n, _ in live],
-                     [lr * self._lr_scale(n) for n, _ in live], t,
-                     [self._decay_coeff(n) for n, _ in live])
+                     [lr * self._lr_scale(n) * _attr_lr(p) for n, p in live],
+                     t, [self._decay_coeff(n, p) for n, p in live])
 
     def clear_grad(self):
         for p in self._parameters:
@@ -241,6 +272,13 @@ class Optimizer:
                                      f"does not fit {tuple(dst.shape)}")
                 dst.copy_(v)
             self._slots[name] = slots
+
+
+def _attr_lr(p) -> float:
+    """The parameter's ``optimize_attr["learning_rate"]`` (1 unset)."""
+    attrs = param_attrs(p)
+    return 1.0 if attrs is None else float(
+        attrs["optimize_attr"].get("learning_rate", 1.0))
 
 
 class Momentum(Optimizer):
@@ -315,7 +353,7 @@ class AdamW(Adam):
         self._lr_ratio = lr_ratio
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _decay_coeff(self, name: str) -> float:
+    def _decay_coeff(self, name: str, p=None) -> float:
         if self._apply_decay_param_fun is not None and \
                 not self._apply_decay_param_fun(name):
             return 0.0

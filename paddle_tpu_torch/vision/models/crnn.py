@@ -29,18 +29,19 @@ class CRNN(tnn.Module):
         if img_h % 8 != 0:
             raise ValueError("img_h must be divisible by 8")
         dev = resolve_device(device)
-        c1, c2, c3 = channels
-        self.convs = nn.Sequential(
-            nn.Conv2D(in_channels, c1, 3, padding=1), nn.BatchNorm2D(c1),
-            nn.ReLU(), nn.MaxPool2D(2, 2),
-            nn.Conv2D(c1, c2, 3, padding=1), nn.BatchNorm2D(c2),
-            nn.ReLU(), nn.MaxPool2D(2, 2),
-            nn.Conv2D(c2, c3, 3, padding=1), nn.BatchNorm2D(c3),
-            nn.ReLU(), nn.MaxPool2D(kernel_size=(2, 1), stride=(2, 1)))
-        self.img_h = img_h
-        self.lstm = nn.LSTM(c3 * (img_h // 8), hidden_size,
-                            direction="bidirect")
-        self.fc = nn.Linear(2 * hidden_size, num_classes)
+        with dev:   # the Layers create their parameters there
+            c1, c2, c3 = channels
+            self.convs = nn.Sequential(
+                nn.Conv2D(in_channels, c1, 3, padding=1), nn.BatchNorm2D(c1),
+                nn.ReLU(), nn.MaxPool2D(2, 2),
+                nn.Conv2D(c1, c2, 3, padding=1), nn.BatchNorm2D(c2),
+                nn.ReLU(), nn.MaxPool2D(2, 2),
+                nn.Conv2D(c2, c3, 3, padding=1), nn.BatchNorm2D(c3),
+                nn.ReLU(), nn.MaxPool2D(kernel_size=(2, 1), stride=(2, 1)))
+            self.img_h = img_h
+            self.lstm = nn.LSTM(c3 * (img_h // 8), hidden_size,
+                                direction="bidirect")
+            self.fc = nn.Linear(2 * hidden_size, num_classes)
         self.to(dev)
 
     def forward(self, x):

@@ -18,17 +18,18 @@ def conv_flops(model, height=224, width=224) -> float:
     total = [0.0]
 
     def conv_hook(mod, inp, out):
-        k = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
+        w = mod._parameters["weight"]
+        k = w.shape[1] * w.shape[2] * w.shape[3]
         total[0] += 2.0 * out[0].numel() * k
 
     def fc_hook(mod, inp, out):
-        total[0] += 2.0 * mod.in_features * mod.out_features
+        total[0] += 2.0 * mod._in_features * mod._out_features
 
     hooks = [m.register_forward_hook(conv_hook if isinstance(m, nn.Conv2D)
                                      else fc_hook)
              for m in model.modules() if isinstance(m, (nn.Conv2D, nn.Linear))]
     was_training = model.training
-    p = next(model.parameters())
+    p = next(torch.nn.Module.parameters(model))
     try:
         model.eval()
         with torch.no_grad():

@@ -88,24 +88,25 @@ class SVTRRec(tnn.Module):
                  depths=(3, 6, 3), num_heads=8, max_width=320, device=None):
         super().__init__()
         dev = resolve_device(device)
-        self.stem = nn.Sequential(
-            _ConvBNAct(in_channels, dims[0] // 2, 3, stride=2),
-            _ConvBNAct(dims[0] // 2, dims[0], 3, stride=2))
-        self.pool_h = nn.AdaptiveAvgPool2D((1, None))
-        blocks = []
-        dim = dims[0]
-        for si, (d, depth) in enumerate(zip(dims, depths)):
-            if d != dim:
-                blocks.append(nn.Linear(dim, d))
-                dim = d
-            for bi in range(depth):
-                if si == 0 or bi % 2 == 0:
-                    blocks.append(LocalMixBlock(d))
-                else:
-                    blocks.append(GlobalMixBlock(d, num_heads))
-        self.blocks = nn.LayerList(blocks)
-        self.norm = nn.LayerNorm(dims[-1])
-        self.head = nn.Linear(dims[-1], num_classes)
+        with dev:   # the Layers create their parameters there
+            self.stem = nn.Sequential(
+                _ConvBNAct(in_channels, dims[0] // 2, 3, stride=2),
+                _ConvBNAct(dims[0] // 2, dims[0], 3, stride=2))
+            self.pool_h = nn.AdaptiveAvgPool2D((1, None))
+            blocks = []
+            dim = dims[0]
+            for si, (d, depth) in enumerate(zip(dims, depths)):
+                if d != dim:
+                    blocks.append(nn.Linear(dim, d))
+                    dim = d
+                for bi in range(depth):
+                    if si == 0 or bi % 2 == 0:
+                        blocks.append(LocalMixBlock(d))
+                    else:
+                        blocks.append(GlobalMixBlock(d, num_heads))
+            self.blocks = nn.LayerList(blocks)
+            self.norm = nn.LayerNorm(dims[-1])
+            self.head = nn.Linear(dims[-1], num_classes)
         self.to(dev)
 
     def forward(self, x):

@@ -77,10 +77,11 @@ class ConvBN(tnn.Module):
 def _bn_fold(conv, bn):
     """The conv's weight and a bias with the batch norm's running
     statistics folded in (eps 1e-5), in f32."""
-    std = torch.sqrt(bn._variance.float() + 1e-5)
-    scale = bn.weight.float() / std
-    return (conv.weight.float() * scale[:, None, None, None],
-            bn.bias.float() - bn._mean.float() * scale)
+    p, b = bn._parameters, bn._buffers
+    std = torch.sqrt(b["_variance"].float() + 1e-5)
+    scale = p["weight"].float() / std
+    return (conv._parameters["weight"].float() * scale[:, None, None, None],
+            p["bias"].float() - b["_mean"].float() * scale)
 
 
 class RepConvBlock(tnn.Module):
@@ -104,11 +105,12 @@ class RepConvBlock(tnn.Module):
         w3, b3 = _bn_fold(self.conv3.conv, self.conv3.bn)
         w1, b1 = _bn_fold(self.conv1.conv, self.conv1.bn)
         w1 = torch.nn.functional.pad(w1, (1, 1, 1, 1))
-        fused = nn.Conv2D(w3.shape[1], w3.shape[0], 3, padding=1)
-        ref = self.conv3.conv.weight
-        fused.to(device=ref.device, dtype=ref.dtype)
-        fused.weight.copy_(w3 + w1)
-        fused.bias.copy_(b3 + b1)
+        ref = self.conv3.conv._parameters["weight"]
+        with ref.device:
+            fused = nn.Conv2D(w3.shape[1], w3.shape[0], 3, padding=1)
+        fused.to(dtype=ref.dtype)
+        fused._parameters["weight"].copy_(w3 + w1)
+        fused._parameters["bias"].copy_(b3 + b1)
         self._fused = fused
         return self
 
@@ -214,7 +216,7 @@ class PPYOLOEHead(tnn.Module):
         prior = float(-math.log((1 - 0.01) / 0.01))
         with torch.no_grad():
             for h in self.cls_heads:
-                h.bias.fill_(prior)
+                h._parameters["bias"].fill_(prior)
 
     def forward(self, feats):
         cls_list, reg_list = [], []
@@ -281,11 +283,13 @@ class PPYOLOE(tnn.Module):
                  depth=(1, 2, 2, 1), reg_max=16, in_channels=3, device=None):
         super().__init__()
         dev = resolve_device(device)
-        self.backbone = CSPRepResNet(width, depth, in_channels)
-        self.neck = CSPPAN(self.backbone.out_channels)
-        self.head = PPYOLOEHead(self.neck.out_channels, num_classes, reg_max)
-        self.num_classes = num_classes
-        self.reg_max = reg_max
+        with dev:   # the Layers create their parameters there
+            self.backbone = CSPRepResNet(width, depth, in_channels)
+            self.neck = CSPPAN(self.backbone.out_channels)
+            self.head = PPYOLOEHead(self.neck.out_channels, num_classes,
+                                    reg_max)
+            self.num_classes = num_classes
+            self.reg_max = reg_max
         self.to(dev)
 
     def forward(self, x):

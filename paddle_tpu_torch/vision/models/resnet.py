@@ -114,31 +114,32 @@ class ResNet(tnn.Module):
                  with_pool=True, groups=1, stem_s2d=False, device=None):
         super().__init__()
         dev = resolve_device(device)
-        self.stem_s2d = bool(stem_s2d)
-        if block is None:
-            block, layers = self._spec[depth]
-        else:
-            layers = self._spec[depth][1]
-        self.groups = groups
-        self.base_width = width
-        self.num_classes = num_classes
-        self.with_pool = with_pool
-        self.inplanes = 64
-        self.dilation = 1
+        with dev:   # the Layers create their parameters there
+            self.stem_s2d = bool(stem_s2d)
+            if block is None:
+                block, layers = self._spec[depth]
+            else:
+                layers = self._spec[depth][1]
+            self.groups = groups
+            self.base_width = width
+            self.num_classes = num_classes
+            self.with_pool = with_pool
+            self.inplanes = 64
+            self.dilation = 1
 
-        self.conv1 = nn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
-                               bias_attr=False)
-        self.bn1 = nn.BatchNorm2D(self.inplanes)
-        self.relu = nn.ReLU()
-        self.maxpool = nn.MaxPool2D(kernel_size=3, stride=2, padding=1)
-        self.layer1 = self._make_layer(block, 64, layers[0])
-        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
-        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
-        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
-        if with_pool:
-            self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
-        if num_classes > 0:
-            self.fc = nn.Linear(512 * block.expansion, num_classes)
+            self.conv1 = nn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                                   bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(self.inplanes)
+            self.relu = nn.ReLU()
+            self.maxpool = nn.MaxPool2D(kernel_size=3, stride=2, padding=1)
+            self.layer1 = self._make_layer(block, 64, layers[0])
+            self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+            self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+            self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+            if with_pool:
+                self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+            if num_classes > 0:
+                self.fc = nn.Linear(512 * block.expansion, num_classes)
         self.to(dev)
 
     def _make_layer(self, block, planes, blocks, stride=1):
@@ -160,7 +161,7 @@ class ResNet(tnn.Module):
         """conv1 as a 4x4 / stride-1 conv on the 2x2-packed input (the
         kernel padded one row and column at the front so the stride-2
         taps line up with the packing)."""
-        w = self.conv1.weight      # [64, 3, 7, 7]
+        w = self.conv1._parameters["weight"]      # [64, 3, 7, 7]
         b, c, h, wd = x.shape
         xp = x.reshape(b, c, h // 2, 2, wd // 2, 2).permute(
             0, 1, 3, 5, 2, 4).reshape(b, c * 4, h // 2, wd // 2)

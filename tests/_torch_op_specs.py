@@ -53,16 +53,10 @@ def inputs(name):
     return SPECS[name][0]()
 
 # arguments the port takes in another layout than the JAX package, with
-# the reason: fused_ln_linear's weight is nn.Linear.weight ([M, K]) in the
-# port (what its models pass), [K, M] in the JAX package
-PORT_ARGS = {
-    "fused_ln_linear": lambda a: (*a[:3], np.ascontiguousarray(a[3].T),
-                                  *a[4:]),
-}
+# the reason (none since F.fused_ln_linear takes the JAX [K, M] weight)
+PORT_ARGS = {}
 # ... and their gradients back in the JAX package's layout
-PORT_GRADS = {
-    "fused_ln_linear": lambda g: [*g[:3], g[3].T, *g[4:]],
-}
+PORT_GRADS = {}
 
 
 def _sign_normalized_svd(outs):

@@ -1724,7 +1724,11 @@ def test_multi_head_attention_head_size_16(cuda, dtype):
     torch.manual_seed(0)
     mha = pnn.MultiHeadAttention(128, 8).to(cuda, dtype)
     ref = pnn.MultiHeadAttention(128, 8).to(cuda)
-    ref.load_state_dict({k: v.float() for k, v in mha.state_dict().items()})
+    # torch's view of the Layers' registries (their paddle face returns
+    # surface Tensors)
+    module = torch.nn.Module
+    ref.load_state_dict({k: v.float()
+                         for k, v in module.state_dict(mha).items()})
     x = torch.from_numpy(np.random.RandomState(1).randn(
         4, 80, 128).astype(np.float32)).to(cuda)
     xs = [x.to(dtype).requires_grad_(), x.to(dtype).float().requires_grad_()]
@@ -1749,9 +1753,9 @@ def test_multi_head_attention_head_size_16(cuda, dtype):
     torch.testing.assert_close(xs[0].grad.float(), xs[1].grad,
                                **(tol if dtype == torch.float32 else
                                   dict(rtol=2e-2, atol=2e-2)))
-    top = max(float(r.grad.abs().max()) for r in ref.parameters())
-    for (name, p), (_, r) in zip(mha.named_parameters(),
-                                 ref.named_parameters()):
+    top = max(float(r.grad.abs().max()) for r in module.parameters(ref))
+    for (name, p), (_, r) in zip(module.named_parameters(mha),
+                                 module.named_parameters(ref)):
         # the key bias's gradient is 0 in exact arithmetic (softmax ignores
         # a per-query constant): what both sides hold is rounding noise,
         # so it is held to the layer's largest gradient element

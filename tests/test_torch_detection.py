@@ -53,6 +53,7 @@ from paddle_tpu_torch.vision.models import (PPYOLOE, PPYOLOELoss, conv_flops,
                                             ppyoloe_s, resnet18,
                                             resnet_conv_flops)
 from paddle_tpu_torch.vision.models.ppyoloe import _boxes, _flat
+from _torch_cpu_place import cpu_place  # noqa: F401,E402
 
 torch.set_num_threads(1)
 

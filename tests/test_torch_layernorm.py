@@ -55,6 +55,7 @@ from paddle_tpu_torch.models import (GPTPretrainingCriterion, build_gpt,
                                      load_jax_state, to_jax_state)
 from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.optimizer import AdamW
+from _torch_cpu_place import cpu_place  # noqa: F401,E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -314,7 +315,7 @@ def test_fused_ln_linear_matches_jax(on, monkeypatch):
                                 for a in (x, g, b, w_km, bias)), eps=EPS)
     before = lnmm.ln_matmul.launches
     spy = _Spy(monkeypatch)
-    got = F.fused_ln_linear(_t(x), _t(g), _t(b), _t(w_km.T), _t(bias),
+    got = F.fused_ln_linear(_t(x), _t(g), _t(b), _t(w_km), _t(bias),
                             eps=EPS)
     assert lnmm.ln_matmul.launches == before      # CPU: no kernel launch
     assert spy.n["ln_matmul"] == int(on)
@@ -355,7 +356,7 @@ def test_layer_norm_module_default_path_is_torch():
     ours, ref = LayerNorm(128, epsilon=1e-5), torch.nn.LayerNorm(128,
                                                                  eps=1e-5)
     with torch.no_grad():
-        for p, q in zip(ours.parameters(), ref.parameters()):
+        for p, q in zip(torch.nn.Module.parameters(ours), ref.parameters()):
             p.copy_(torch.randn(p.shape, generator=torch.Generator()
                                 .manual_seed(p.numel())))
             q.copy_(p)

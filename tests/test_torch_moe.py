@@ -62,6 +62,7 @@ from paddle_tpu_torch.models import (GPTMoEMLP, GPTMoEPretrainingCriterion,
                                      to_jax_train_state)
 from paddle_tpu_torch.models.convert import _linear_weights
 from paddle_tpu_torch.optimizer import AdamW
+from _torch_cpu_place import cpu_place  # noqa: F401,E402
 
 torch.set_num_threads(1)
 

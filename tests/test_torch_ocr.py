@@ -51,6 +51,7 @@ from paddle_tpu_torch.vision.models import (CTCHeadLoss,
                                             crnn, ctc_greedy_decode,
                                             ppocrv3_rec)
 from paddle_tpu_torch.vision.models.ppocr import GlobalMixBlock
+from _torch_cpu_place import cpu_place  # noqa: F401,E402
 
 torch.set_num_threads(1)
 

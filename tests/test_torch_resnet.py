@@ -61,6 +61,7 @@ from paddle_tpu_torch.models import load_jax_state, to_jax_state
 from paddle_tpu_torch.nn.functional import conv as pconv
 from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.vision import models as pmodels
+from _torch_cpu_place import cpu_place  # noqa: F401,E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -298,7 +299,7 @@ def test_resnet_state_round_trip_and_torch_state_refused():
     assert set(back) == set(state)
     for k, v in state.items():
         assert back[k].shape == v.shape and np.array_equal(back[k], v), k
-    assert pm.fc.weight.shape == (10, 512)            # [out, in] in torch
+    assert pm.fc.weight.shape == [512, 10]            # paddle's [in, out]
     assert not any("num_batches_tracked" in k for k in pm.state_dict())
     torch_style = dict(state, **{"bn1.num_batches_tracked": np.int64(0)})
     with pytest.raises(KeyError, match="num_batches_tracked"):

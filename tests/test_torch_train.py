@@ -203,11 +203,18 @@ def test_cross_entropy_matches_jax_and_refuses_the_rest():
                             paddle.to_tensor(labels))
     got = F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(float(got), float(want._value), rtol=1e-6)
-    for kw in (dict(soft_label=True), dict(reduction="sum"),
-               dict(label_smoothing=0.1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            F.cross_entropy(torch.from_numpy(logits),
-                            torch.from_numpy(labels), **kw)
+    # the other options are ported: each against the JAX function
+    soft = np.random.RandomState(3).rand(*logits.shape).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    for lab, kw in ((soft, dict(soft_label=True)),
+                    (labels, dict(reduction="sum")),
+                    (labels, dict(label_smoothing=0.1))):
+        want = JF.cross_entropy(paddle.to_tensor(logits),
+                                paddle.to_tensor(lab), **kw)
+        got = F.cross_entropy(torch.from_numpy(logits),
+                              torch.from_numpy(lab), **kw)
+        np.testing.assert_allclose(float(got), float(want._value),
+                                   rtol=1e-6)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["mean", "loss_mask"])
