@@ -406,7 +406,31 @@ run with a non-zero exit, and nothing is caught):
    LayerNorm forwards and backwards a step when on), no plain version,
    every tensor on ``CUDAPlace(0)``, ``[in, out]`` Linear weights and 60
    s; printed: step ms, tokens/s, peak memory, the profile, and the same
-   Layers' step on bare torch tensors against surface Tensors, in turns.
+   Layers' step on bare torch tensors against surface Tensors, in turns;
+41. (run after 40) mixed precision and the rest of ``nn`` on the card.
+   First the card against the CPU, same weights, f32 (1e-4 + 1e-4|ref|):
+   ``LSTM``, ``GRU`` and ``SimpleRNN`` (tanh, relu), 2 layers
+   bidirectional at 256 -> 512, B=16 T=32 (outputs, final states, the
+   input's and every weight's gradient), ``RNN(LSTMCell)`` and
+   ``BiRNN(GRUCell)``; ``BeamSearchDecoder`` with ``dynamic_decode`` over
+   a ``GRUCell`` (vocab 64, beam 4, batch 8, 12 steps; token ids equal,
+   scores within 1e-4; the CPU run's top-k margins over 1e-4);
+   ``F.sparse_attention`` at B=2 H=4 L=256 D=64 on a banded + random CSR
+   pattern; a ResNet basic block (3x3 convs, batch norm, ReLU, the
+   residual) built NHWC under ``nn.channels_last()`` against the NCHW
+   block on the CPU (outputs, input and weight gradients, running
+   statistics).  Then phase 40's script with the model kept in f32
+   (f32 parameters and AdamW slots) and each step under
+   ``paddle.amp.auto_cast(level="O1", dtype="bfloat16")`` with
+   ``paddle.amp.GradScaler``: 1 warm-up, 5 timed and 1 profiled step,
+   LayerNorm kernels off and then on; gated on a falling loss, 12 flash
+   forwards and 12 of each backward kernel a step all on bf16 queries (the
+   white list's products and attention), 25 LayerNorm forwards and
+   backwards a step on f32 rows when on (the black list) and none off, no
+   plain version, every parameter f32 on ``CUDAPlace(0)``, the scaler's
+   state after its rules (no non-finite step: the scale kept, one good
+   step counted a step) and 60 s; printed: step ms, tokens/s, peak
+   memory, the profile, and phase 40's bf16-parameter step beside.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -1310,6 +1334,7 @@ def _ln_counters(zero=False):
     if zero:
         for fn, attr, _ in slots:
             setattr(fn, attr, 0)
+        ln.layer_norm_fused.launches_by_dtype = {}
     return {key: getattr(fn, attr) for fn, attr, key in slots}
 
 
@@ -1338,6 +1363,7 @@ def _attention_counters(zero=False):
         for fn, attr, _ in slots:
             setattr(fn, attr, 0)
             fn.launches_by_head_size = {}
+            fn.launches_by_dtype = {}
     return {key: getattr(fn, attr) for fn, attr, key in slots}
 
 
@@ -6412,6 +6438,392 @@ def phase_paddle_layers(dev, seed, smi, steps=5):
                 launches=runs["full"]["launches"], device=smi)
 
 
+# phase 41: amp at the op boundary, and the rest of nn on the card
+AMP_RNN = dict(B=16, T=32, C=256, H=512)
+
+
+def _card_and_cpu(paddle, dev, build, seed):
+    """The same Layer on the CPU (built from ``seed``) and on the card
+    (the CPU one's state carried in): ``{"cpu": layer, "card": layer}``."""
+    places = {"cpu": paddle.CPUPlace(), "card": paddle.CUDAPlace(
+        dev.index or 0)}
+    layers = {}
+    for where in ("cpu", "card"):
+        paddle.set_device(places[where])
+        paddle.seed(seed)
+        layers[where] = build()
+    if layers["card"].set_state_dict(layers["cpu"].state_dict()) != ([], []):
+        _fail(f"card and CPU layers differ in their state dicts: "
+              f"{type(layers['cpu']).__name__}")
+    return layers, places
+
+
+def _run_both(paddle, layers, places, arrays, call):
+    """``call(layer, tensors)`` on each side with the same numpy inputs (as
+    differentiable Tensors), then backward of sum(out * proj) over its
+    float outputs: {where: (outputs, input grads, parameter grads)} as
+    CPU torch tensors."""
+    import numpy as np
+
+    res = {}
+    for where in ("cpu", "card"):
+        paddle.set_device(places[where])
+        ts = [paddle.to_tensor(a, stop_gradient=not np.issubdtype(
+            a.dtype, np.floating)) for a in arrays]
+        out = call(layers[where], ts)
+        outs = [o for o in _flatten(out) if o.dtype.is_floating_point]
+        rs = np.random.RandomState(3)
+        loss = None
+        for o in outs:
+            proj = paddle.to_tensor(rs.standard_normal(o.shape).astype(
+                np.float32))
+            s = (o * proj).sum()
+            loss = s if loss is None else loss + s
+        loss.backward()
+        res[where] = ([o.value.detach().float().cpu() for o in outs],
+                      [t.grad.value.cpu() for t in ts
+                       if not t.stop_gradient],
+                      [p.grad.value.cpu() for p in
+                       layers[where].parameters()])
+    return res
+
+
+def _flatten(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flatten(o)]
+    return [out]
+
+
+def _hold(tag, res):
+    """The card's outputs and gradients against the CPU's (f32
+    tolerance); the largest error."""
+    import torch
+
+    err = 0.0
+    for i, what in enumerate(("outputs", "input grads", "weight grads")):
+        got, want = res["card"][i], res["cpu"][i]
+        if len(got) != len(want):
+            _fail(f"{tag}: {len(got)} {what} on the card, {len(want)} on "
+                  f"the CPU")
+        err = max(err, _max_err(got, want, torch.float32, f"{tag} {what}"))
+    return err
+
+
+def _amp_rnn_checks(paddle, dev, seed):
+    """The RNN family at 256 -> 512 (2 layers, bidirectional), the cell
+    wrappers, card against CPU."""
+    import numpy as np
+
+    nn = paddle.nn
+    B, T, C, H = (AMP_RNN[k] for k in ("B", "T", "C", "H"))
+    x = np.random.RandomState(seed).standard_normal((B, T, C)).astype(
+        np.float32)
+    builds = {
+        "LSTM": lambda: nn.LSTM(C, H, num_layers=2, direction="bidirect"),
+        "GRU": lambda: nn.GRU(C, H, num_layers=2, direction="bidirect"),
+        "SimpleRNN-tanh": lambda: nn.SimpleRNN(C, H, num_layers=2,
+                                               direction="bidirect"),
+        "SimpleRNN-relu": lambda: nn.SimpleRNN(
+            C, H, num_layers=2, direction="bidirect", activation="relu"),
+        "RNN(LSTMCell)": lambda: nn.RNN(nn.LSTMCell(C, C)),
+        "BiRNN(GRUCell)": lambda: nn.BiRNN(nn.GRUCell(C, C),
+                                           nn.GRUCell(C, C))}
+    errs = {}
+    for name, build in builds.items():
+        layers, places = _card_and_cpu(paddle, dev, build, seed)
+        errs[name] = _hold(f"paddle-amp rnn {name}", _run_both(
+            paddle, layers, places, [x], lambda layer, ts: layer(ts[0])))
+    return errs
+
+
+def _amp_beam_check(paddle, dev, seed, V=64, E=64, H=128, k=4, b=8,
+                    steps=12):
+    """``BeamSearchDecoder`` + ``dynamic_decode`` over a ``GRUCell`` with an
+    embedding and an output projection (scaled x4), card against CPU."""
+    import numpy as np
+
+    nn = paddle.nn
+    parts, places = {}, None
+    for name, build in (("emb", lambda: nn.Embedding(V, E)),
+                        ("cell", lambda: nn.GRUCell(E, H)),
+                        ("out", lambda: nn.Linear(H, V))):
+        layers, places = _card_and_cpu(paddle, dev, build, seed)
+        if name == "out":
+            sd = {n: t.value.cpu() * 4.0
+                  for n, t in layers["cpu"].state_dict().items()}
+            for layer in layers.values():
+                layer.set_state_dict(sd)
+        parts[name] = layers
+    margins, res = [], {}
+    for where in ("cpu", "card"):
+        paddle.set_device(places[where])
+        dec = nn.BeamSearchDecoder(
+            parts["cell"][where], start_token=1, end_token=0, beam_size=k,
+            embedding_fn=parts["emb"][where], output_fn=parts["out"][where])
+        if where == "cpu":
+            step = dec.step
+
+            def watched(tokens, states, step=step):
+                logp, new = step(tokens, states)
+                top = -np.sort(-logp, axis=-1)[:, :k + 1]
+                margins.append(float(np.min(top[:, :-1] - top[:, 1:])))
+                return logp, new
+            dec.step = watched
+        inits = paddle.to_tensor(np.zeros((b * k, H), np.float32))
+        ids, scores, lengths = nn.dynamic_decode(
+            dec, inits, max_step_num=steps, batch_size=b, return_length=True)
+        res[where] = (ids.numpy(), scores.numpy(), lengths.numpy(),
+                      str(ids.place))
+    if not min(margins) > 1e-4:
+        _fail(f"paddle-amp beam: CPU top-k margins down to {min(margins)}: "
+              f"the comparison would hang on rounding")
+    (ci, cs, cl, _), (gi, gs, gl, gplace) = res["cpu"], res["card"]
+    if not (np.array_equal(ci, gi) and np.array_equal(cl, gl)):
+        _fail("paddle-amp beam: the card's token ids differ from the CPU's")
+    if gplace != str(places["card"]) or not np.allclose(gs, cs, rtol=1e-4,
+                                                        atol=1e-4):
+        _fail(f"paddle-amp beam: scores {gs} on {gplace} against {cs}")
+    return dict(ids_shape=list(gi.shape), min_margin=min(margins),
+                max_score_err=float(np.abs(gs - cs).max()))
+
+
+def _amp_sparse_attention_check(paddle, dev, seed, B=2, H=4, L=256, D=64):
+    """``F.sparse_attention`` on a banded (32 back) + random (16) CSR
+    pattern, card against CPU."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    q, k, v = (rs.standard_normal((B, H, L, D)).astype(np.float32)
+               for _ in range(3))
+    offs = np.zeros((B, H, L + 1), np.int64)
+    cols = []
+    for bi in range(B):
+        for hi in range(H):
+            row_cols = []
+            for r in range(L):
+                c = set(range(max(0, r - 31), r + 1)) | set(
+                    rs.randint(0, L, 16).tolist())
+                row_cols.append(sorted(c))
+            lens = [len(c) for c in row_cols]
+            offs[bi, hi, 1:] = np.cumsum(lens)
+            cols.append(np.concatenate(row_cols))
+    nnz = max(len(c) for c in cols)
+    col_arr = np.zeros((B, H, nnz), np.int64)
+    for i, c in enumerate(cols):
+        col_arr[i // H, i % H, :len(c)] = c
+    outs = {}
+    for where, place in (("cpu", paddle.CPUPlace()),
+                         ("card", paddle.CUDAPlace(dev.index or 0))):
+        paddle.set_device(place)
+        t = [paddle.to_tensor(a) for a in (q, k, v, offs, col_arr)]
+        outs[where] = paddle.nn.functional.sparse_attention(*t).value.cpu()
+    return _max_err([outs["card"]], [outs["cpu"]], torch.float32,
+                    "paddle-amp sparse_attention")
+
+
+def _amp_channels_last_check(paddle, dev, seed, N=8, C=64, S=56):
+    """A ResNet basic block built NHWC under ``nn.channels_last()`` on
+    the card against the NCHW block on the CPU, training mode."""
+    import numpy as np
+    import torch
+
+    nn = paddle.nn
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2D(C, C, 3, padding=1, bias_attr=False)
+            self.bn1 = nn.BatchNorm2D(C)
+            self.conv2 = nn.Conv2D(C, C, 3, padding=1, bias_attr=False)
+            self.bn2 = nn.BatchNorm2D(C)
+            self.relu = nn.ReLU()
+
+        def forward(self, x):
+            h = self.relu(self.bn1(self.conv1(x)))
+            return self.relu(x + self.bn2(self.conv2(h)))
+
+    paddle.set_device("cpu")
+    paddle.seed(seed)
+    cpu = Block()
+    paddle.set_device(paddle.CUDAPlace(dev.index or 0))
+    with nn.channels_last():
+        card = Block()
+    if card.bn1._data_format != "NHWC" or card.conv1._data_format != "NHWC":
+        _fail("paddle-amp channels_last: the block was not built NHWC")
+    card.set_state_dict(cpu.state_dict())
+    x = np.random.RandomState(seed).standard_normal((N, C, S, S)).astype(
+        np.float32)
+    got, want = [], []
+    for layer, arr, place, sink in (
+            (cpu, x, paddle.CPUPlace(), want),
+            (card, np.ascontiguousarray(x.transpose(0, 2, 3, 1)),
+             paddle.CUDAPlace(dev.index or 0), got)):
+        paddle.set_device(place)
+        xt = paddle.to_tensor(arr, stop_gradient=False)
+        out = layer(xt)
+        (out * out).mean().backward()
+        o, g = out.value.detach(), xt.grad.value
+        if layer is card:
+            o, g = o.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        sink += [o.cpu(), g.cpu()] + [p.grad.value.cpu()
+                                      for p in layer.parameters()] + [
+            b.value.cpu() for b in layer.buffers()]
+    return _max_err(got, want, torch.float32, "paddle-amp channels_last")
+
+
+def _launches_by_dtype():
+    """Flash and LayerNorm launches since their counters were set to 0,
+    by kernel and dtype: ``{"<key>_<dtype>": n}``."""
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    out = {f"{key}_{dt}": n for fn, attr, key in _attention_slots()
+           for (what, dt), n in sorted(fn.launches_by_dtype.items())
+           if what == attr}
+    names = {"launches_fwd": "ln_fwd", "launches_bwd": "ln_bwd",
+             "launches_bwd_reduce": "ln_bwd_reduce"}
+    out.update({f"{names[what]}_{dt}": n for (what, dt), n in
+                sorted(ln.layer_norm_fused.launches_by_dtype.items())})
+    return out
+
+
+def _amp_step(paddle, model, opt, scaler, data):
+    """One mixed-precision step: the loss under ``auto_cast`` O1 bf16,
+    the scaled ``backward``, ``scaler.step``, ``clear_grad``."""
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = model(*data)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    opt.clear_grad()
+    return loss
+
+
+def phase_paddle_amp(dev, seed, smi, layers, steps=5):
+    """Phase 41 (see the module docstring): the card checks of the rest of
+    ``nn``, then phase 40's script in f32 under ``auto_cast`` with a
+    ``GradScaler``, LayerNorm kernels off and then on."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    tag = "paddle-amp"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    checks = dict(rnn_max_err=_amp_rnn_checks(paddle, dev, seed),
+                  beam=_amp_beam_check(paddle, dev, seed + 1),
+                  sparse_attention_max_err=_amp_sparse_attention_check(
+                      paddle, dev, seed + 2),
+                  channels_last_max_err=_amp_channels_last_check(
+                      paddle, dev, seed + 3))
+    checks["s"] = time.perf_counter() - t0
+    print(f"[{tag}] card against CPU (f32): RNN family max err "
+          f"{checks['rnn_max_err']}; beam search {checks['beam']}; "
+          f"sparse_attention {checks['sparse_attention_max_err']:.3e}; "
+          f"channels-last ResNet block "
+          f"{checks['channels_last_max_err']:.3e}; {checks['s']:.1f} s")
+    place = paddle.CUDAPlace(dev.index or 0)
+    paddle.set_device(place)
+    paddle.seed(seed)
+    t0 = time.perf_counter()
+    model = _paddle_encoder(paddle, PL_LAYERS, PL_D, PL_H, PL_FFN)
+    model.train()
+    build_s = time.perf_counter() - t0
+    start = {k: v.value.clone() for k, v in model.state_dict().items()}
+    data = _paddle_batch(paddle, seed + 2, PL_B, PL_T, PL_VOCAB, place)
+    scale0 = 2.0 ** 15
+    runs = {}
+    for mode in ("off", "full"):
+        model.set_state_dict(start)
+        opt = paddle.optimizer.AdamW(
+            learning_rate=1e-4, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        scaler = paddle.amp.GradScaler(init_loss_scaling=scale0)
+        with _toggles(mode):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _attention_counters(zero=True)
+            _ln_counters(zero=True)
+            with _no_plain():
+                loss = _amp_step(paddle, model, opt, scaler, data)  # warm-up
+                losses = [float(loss)]
+                t0 = time.perf_counter()
+                outs = [_amp_step(paddle, model, opt, scaler, data)
+                        for _ in range(steps)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n = {**_attention_counters(), **_ln_counters()}
+            by_dtype = _launches_by_dtype()
+            peak = torch.cuda.max_memory_allocated()
+            with _no_plain():
+                with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                    last = model(*data)
+                scaler.scale(last).backward()
+                grads = {(str(p.grad.dtype), str(p.grad.place))
+                         for p in model.parameters()}
+                scaler.step(opt)
+                opt.clear_grad()
+                prof = _device_profile(lambda: _amp_step(
+                    paddle, model, opt, scaler, data))
+        losses += [float(v) for v in outs] + [float(last)]
+        params = {(str(p.dtype), str(p.place)) for p in model.parameters()}
+        want_p = {(str(torch.float32), str(place))}
+        if params != want_p or grads != want_p:
+            _fail(f"{tag} ({mode}): parameters {params}, gradients {grads}, "
+                  f"not {want_p}")
+        _falling(f"{tag} ({mode})", losses)
+        want = {k: 0 for k in n}
+        k_att = PL_LAYERS * (steps + 1)
+        want.update({k: k_att for k in ("fwd", "bwd_delta", "bwd_dkv",
+                                        "bwd_dq")})
+        want_dt = {f"{k}_bfloat16": k_att
+                   for k in ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")}
+        if mode == "full":
+            k_ln = (2 * PL_LAYERS + 1) * (steps + 1)
+            want.update({k: k_ln for k in ("ln_fwd", "ln_bwd",
+                                           "ln_bwd_reduce")})
+            want_dt.update({f"{k}_float32": k_ln for k in (
+                "ln_fwd", "ln_bwd", "ln_bwd_reduce")})
+        if n != want or by_dtype != want_dt:
+            _fail(f"{tag} ({mode}): launches {n} by dtype {by_dtype} != "
+                  f"{want} by dtype {want_dt}")
+        n_steps = steps + 3
+        want_sc = {"scale": scale0, "incr_ratio": 2.0, "decr_ratio": 0.5,
+                   "incr_count": n_steps, "decr_count": 0}
+        if scaler.state_dict() != want_sc:
+            _fail(f"{tag} ({mode}): scaler state {scaler.state_dict()} != "
+                  f"{want_sc} after {n_steps} finite steps")
+        prof.pop("all_kernels_ms")
+        runs[mode] = dict(losses=losses, step_ms=1e3 * wall / steps,
+                          tokens_per_s=steps * PL_B * PL_T / wall,
+                          peak_memory_bytes=peak, launches=n,
+                          launches_by_dtype=by_dtype,
+                          launches_per_step={k: v // (steps + 1)
+                                             for k, v in n.items()},
+                          scaler=scaler.state_dict(), profile=prof)
+        bf16_ms = layers["runs"][mode]["step_ms"]
+        print(f"[{tag}] LayerNorm kernels {mode}: losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}; "
+              f"{runs[mode]['step_ms']:.3f} ms a step (phase 40's bf16 "
+              f"parameters, same call: {bf16_ms:.3f} ms), "
+              f"{runs[mode]['tokens_per_s']:.1f} tokens/s, peak memory "
+              f"{peak} bytes, launches a step "
+              f"{runs[mode]['launches_per_step']}, by dtype {by_dtype}, "
+              f"scaler {scaler.state_dict()} on {smi}")
+        _print_profile(f"{tag}-profile", f"one amp step, LayerNorm kernels "
+                       f"{mode}", prof)
+    del model, opt, start, data
+    paddle.set_device("cpu")
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > 60.0:
+        _fail(f"{tag}: {phase_s:.1f} s (limit 60 s)")
+    print(f"[{tag}] built in {build_s:.1f} s; phase {phase_s:.1f} s; {smi}")
+    return dict(checks=checks, runs=runs, build_s=build_s, phase_s=phase_s,
+                launches=runs["full"]["launches"],
+                bf16_param_step_ms={m: layers["runs"][m]["step_ms"]
+                                    for m in ("off", "full")}, device=smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -6562,6 +6974,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     layers = phase_paddle_layers(dev, args.seed + 14, smi)
     n_layers = layers["launches"]
+    # amp and the rest of nn (phase 41) follow
+    torch.cuda.empty_cache()
+    amp = phase_paddle_amp(dev, args.seed + 15, smi, layers)
+    n_amp = amp["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -6620,7 +7036,8 @@ def main(argv=None) -> int:
                                 "32 bert": n_bert["fwd"],
                                 "35 svtr": n_svtr["fwd"],
                                 "39 surface": n_surface["fwd"],
-                                "40 paddle layers": n_layers["fwd"]},
+                                "40 paddle layers": n_layers["fwd"],
+                                "41 paddle amp": n_amp["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
         dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
              route="cuda",
@@ -6678,7 +7095,9 @@ def main(argv=None) -> int:
                                 + n_surface["bwd_dq"],
                                 "40 paddle layers": n_layers["bwd_delta"]
                                 + n_layers["bwd_dkv"]
-                                + n_layers["bwd_dq"]}),
+                                + n_layers["bwd_dq"],
+                                "41 paddle amp": n_amp["bwd_delta"]
+                                + n_amp["bwd_dkv"] + n_amp["bwd_dq"]}),
         dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
                   "delta + dk/dv + dq kernels)",
              route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
@@ -6783,9 +7202,11 @@ def main(argv=None) -> int:
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
-            launches_by_phase={"40 paddle layers": n_layers["ln_fwd"]
-                               if part == "fwd" else n_layers["ln_bwd"]
-                               + n_layers["ln_bwd_reduce"]},
+            launches_by_phase={
+                f"{k} paddle {what}": n["ln_fwd"] if part == "fwd"
+                else n["ln_bwd"] + n["ln_bwd_reduce"]
+                for k, what, n in (("40", "layers", n_layers),
+                                   ("41", "amp", n_amp))},
             shape="N=16384 C=768 bfloat16"))
     n_cb = conv_model["launches"]
     cb_src = "paddle_tpu_torch/kernels/csrc/conv_wgmma.cuh"
@@ -6857,7 +7278,7 @@ def main(argv=None) -> int:
                            svtr_parity=svtr_parity, crnn=ocr_crnn,
                            gateway=gateway, fleet=fleet,
                            fleet_memory=fleet_memory, surface=surface,
-                           paddle_layers=layers,
+                           paddle_layers=layers, paddle_amp=amp,
                            kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)

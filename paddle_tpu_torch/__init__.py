@@ -10,9 +10,11 @@ torch: ``Tensor`` and ``to_tensor``, the dtypes (``paddle.float32 is
 torch.float32``), the places (``CPUPlace``, ``CUDAPlace``,
 ``CUDAPinnedPlace``, ``set_device``), ``seed``, ``grad``, ``no_grad``,
 the ops of ``paddle.tensor`` (creation, math, manipulation, linalg,
-logic, reduction, search, random) at the top level and as ``Tensor``
-methods, ``paddle.autograd`` (``PyLayer``, ``backward``) and
-``paddle.device``.  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
+logic, reduction, search, random, the long tail of ``extended`` and
+``compat_surface``) at the top level and as ``Tensor`` methods,
+``paddle.autograd`` (``PyLayer``, ``backward``), ``paddle.device``,
+``paddle.nn`` and ``paddle.amp`` (``auto_cast`` decides each op's dtype
+by its name at the op boundary; ``GradScaler``).  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
 autograd is torch's.  Without a card the default place raises: CPU
 scripts call ``paddle.set_device("cpu")`` first.
 
@@ -41,7 +43,7 @@ from .core import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,  # noqa: F401
                    set_device, set_grad_enabled, set_rng_state, to_tensor,
                    uint8)
 from .ops import *  # noqa: F401,F403,E402
-from . import autograd, device, tensor  # noqa: F401,E402
+from . import amp, autograd, device, tensor  # noqa: F401,E402
 from . import (distributed, incubate, models, nn,  # noqa: F401,E402
                optimizer, regularizer, vision)
 from .device import resolve_device  # noqa: F401,E402

@@ -19,6 +19,8 @@ package (:func:`result_type`, :func:`inexact`):
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,7 +28,8 @@ __all__ = ["bool_", "uint8", "int8", "int16", "int32", "int64", "float16",
            "bfloat16", "float32", "float64", "complex64", "complex128",
            "convert_dtype", "dtype_name", "is_floating_point", "is_integer",
            "set_default_dtype", "get_default_dtype", "promote_types",
-           "result_type", "inexact", "operands", "as_inexact"]
+           "result_type", "inexact", "operands", "as_inexact",
+           "half_in_single"]
 
 bool_ = torch.bool
 uint8 = torch.uint8
@@ -187,3 +190,29 @@ def as_inexact(x):
     """``x`` as the dtype a float function computes in."""
     d = inexact(x.dtype)
     return x if d == x.dtype else x.to(d)
+
+
+def half_in_single(fn):
+    """``fn`` (a torch op with no bfloat16 / float16 implementation:
+    LU-based linalg, quantiles, 3-D average pooling on the CPU) taking
+    half-precision tensors: they are computed in float32 and the floating
+    results come back in the half dtype, the dtype the JAX package
+    computes and returns them in."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        half = next((a.dtype for a in args if isinstance(a, torch.Tensor)
+                     and a.dtype in (float16, bfloat16)), None)
+        if half is None:
+            return fn(*args, **kwargs)
+        out = fn(*[a.float() if isinstance(a, torch.Tensor)
+                   and a.dtype == half else a for a in args], **kwargs)
+
+        def back(o):
+            if isinstance(o, torch.Tensor) and o.dtype == float32:
+                return o.to(half)
+            if isinstance(o, (tuple, list)):
+                return type(o)(back(v) for v in o)
+            return o
+
+        return back(out)
+    return run

@@ -11,9 +11,18 @@ wrapping.  Autograd needs nothing here: torch records the operations on
 package's, name for name) and ``op.raw`` is the function itself.
 
 ``CHECK_NAN_INF`` is ``FLAGS_check_nan_inf``: every op's floating
-outputs are scanned and a NaN or Inf raises.  ``TELEMETRY`` and the amp
-cast of the JAX package's ``apply_op`` are not ported yet (ROADMAP module
-entries 9 and 2): the flag is read by nothing.
+outputs are scanned and a NaN or Inf raises.
+
+Mixed precision (``amp.auto_cast``) acts here, on both branches, as the
+JAX package's ``apply_op`` does: inside a scope, the op's name picks the
+dtype its float arguments are cast to (``amp.auto_cast.should_cast``),
+whether they came as surface Tensors or as bare torch tensors (a Layer's
+forward calls ``nn.functional`` on unwrapped values, a nested op on its
+callers').  The cast is a torch op, so gradients return to the leaves in
+their own dtype.  Outside a scope the hook is one thread-local read.
+
+``TELEMETRY`` (op-dispatch timing) is not ported yet (ROADMAP module
+entry 9): the flag is read by nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..amp.auto_cast import _state as _AMP
+from ..amp.auto_cast import should_cast
 from .tensor import Tensor
 
 __all__ = ["OP_REGISTRY", "CHECK_NAN_INF", "TELEMETRY", "apply_op", "defop",
@@ -104,18 +115,52 @@ def _wrap(out):
     return out
 
 
+def _amp_cast(name, args, kwargs):
+    """The arguments with their float tensors cast as the active
+    ``auto_cast`` scope decides for op ``name`` (unchanged without a
+    decision)."""
+    mode = should_cast(name)
+    if mode is None:
+        return args, kwargs
+    if mode == "low":
+        low = _AMP.dtype
+
+        def cast(v):
+            return v.to(low) if v.dtype == torch.float32 else v
+    else:
+        def cast(v):
+            return v.float() if v.dtype in (torch.float16, torch.bfloat16) \
+                else v
+
+    def each(a):
+        if isinstance(a, torch.Tensor):
+            return cast(a)
+        if isinstance(a, _SEQ) and any(isinstance(b, torch.Tensor)
+                                       for b in a):
+            return type(a)(cast(b) if isinstance(b, torch.Tensor) else b
+                           for b in a)
+        return a
+
+    return [each(a) for a in args], {k: each(v) for k, v in kwargs.items()}
+
+
 def apply_op(fn, name, args, kwargs):
     """Run ``fn`` on the arguments' values; Tensors in give Tensors out."""
     first = _first_tensor(args, kwargs)
     if first is None:
+        if _AMP.enabled:
+            args, kwargs = _amp_cast(name, args, kwargs)
         out = fn(*args, **kwargs)
         if CHECK_NAN_INF:
             _scan_nan_inf(name, out)
         return out
     raw = [a._value if isinstance(a, Tensor) else _unwrap(a, first)
            for a in args]
-    out = fn(*raw, **{k: _unwrap(v, first) for k, v in kwargs.items()}) \
-        if kwargs else fn(*raw)
+    if kwargs:
+        kwargs = {k: _unwrap(v, first) for k, v in kwargs.items()}
+    if _AMP.enabled:
+        raw, kwargs = _amp_cast(name, raw, kwargs)
+    out = fn(*raw, **kwargs) if kwargs else fn(*raw)
     if CHECK_NAN_INF:
         _scan_nan_inf(name, out)
     return _wrap(out)

@@ -43,7 +43,9 @@ kernels do.  Launch counters: ``flash_attention_bthd.launches`` and
 (separate operands) and :func:`flash_attention_qkv_fused_bwd` (fused
 operand); ``launches_dead`` on ``flash_attention_bthd`` and
 :func:`flash_attention_bwd` counts the pass over causal rows with no live
-key (Tq > Tk), which the fused operand (Tq = Tk) never runs.
+key (Tq > Tk), which the fused operand (Tq = Tk) never runs.  Each
+wrapper also counts its launches by head size and by the queries' dtype
+(``launches_by_head_size``, ``launches_by_dtype``).
 """
 from __future__ import annotations
 
@@ -385,7 +387,7 @@ def _launch_fwd(q, k, v, out, causal, scale):
             _stride_array((v, "v"), (out, "out")), B, Tq, Tk, H, D, code,
             stream)
         _build.check(err, "flash_attention_dead_fwd")
-        _count(flash_attention_bthd, "launches_dead", D)
+        _count(flash_attention_bthd, "launches_dead", q)
     return lse
 
 
@@ -414,7 +416,7 @@ def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
         out.data_ptr(), do.data_ptr(), delta.data_ptr(),
         _stride_array((out, "out"), (do, "dO")), B, Tq, H, D, code, stream)
     _build.check(err, "flash_attention_bwd_delta")
-    _count(counter, "launches_delta", D)
+    _count(counter, "launches_delta", q)
     common = (st, B, Tq, Tk, H, D, ctypes.c_float(scale), int(bool(causal)),
               code, stream)
     err = lib.paddle_flash_attention_bwd_dkv(
@@ -422,27 +424,32 @@ def _launch_bwd(counter, q, k, v, out, lse, do, dq, dk, dv, causal, scale):
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *common)
     _build.check(err, "flash_attention_bwd_dkv")
-    _count(counter, "launches_dkv", D)
+    _count(counter, "launches_dkv", q)
     err = lib.paddle_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common)
     _build.check(err, "flash_attention_bwd_dq")
-    _count(counter, "launches_dq", D)
+    _count(counter, "launches_dq", q)
     if causal and Tq > Tk:      # rows with no live key: the reference's
         err = lib.paddle_flash_attention_dead_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), st,
             B, Tq, Tk, H, D, ctypes.c_float(scale), code, stream)
         _build.check(err, "flash_attention_dead_bwd")
-        _count(counter, "launches_dead", D)
+        _count(counter, "launches_dead", q)
 
 
-def _count(fn, what, D):
-    """One launch of ``fn``'s kernel ``what``: adds one to ``fn.<what>``
-    and to ``fn.launches_by_head_size[(what, D)]``."""
+def _count(fn, what, q):
+    """One launch of ``fn``'s kernel ``what`` on queries ``q``: adds one to
+    ``fn.<what>``, to ``fn.launches_by_head_size[(what, D)]`` and to
+    ``fn.launches_by_dtype[(what, dtype name)]``."""
     setattr(fn, what, getattr(fn, what) + 1)
     by = fn.launches_by_head_size
-    by[what, D] = by.get((what, D), 0) + 1
+    key = (what, q.shape[-1])
+    by[key] = by.get(key, 0) + 1
+    by = fn.launches_by_dtype
+    key = (what, str(q.dtype).replace("torch.", ""))
+    by[key] = by.get(key, 0) + 1
 
 
 def _on_card(x, what):
@@ -467,7 +474,7 @@ def _bthd_fwd(q, k, v, causal, scale):
                                      return_lse=True)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = _launch_fwd(q, k, v, out, causal, scale)
-    _count(flash_attention_bthd, "launches", q.shape[-1])
+    _count(flash_attention_bthd, "launches", q)
     return out, lse
 
 
@@ -536,7 +543,7 @@ def _fused_fwd(qkv, causal, scale):
     B, T, nh, hd = q.shape
     out = torch.empty(B, T, nh * hd, dtype=qkv.dtype, device=qkv.device)
     lse = _launch_fwd(q, k, v, out.view(B, T, nh, hd), causal, scale)
-    _count(flash_attention_qkv_fused, "launches", hd)
+    _count(flash_attention_qkv_fused, "launches", q)
     return out, lse
 
 
@@ -611,3 +618,8 @@ flash_attention_bthd.launches_by_head_size = {}
 flash_attention_qkv_fused.launches_by_head_size = {}
 flash_attention_bwd.launches_by_head_size = {}
 flash_attention_qkv_fused_bwd.launches_by_head_size = {}
+# (counter name, dtype name) -> launches
+flash_attention_bthd.launches_by_dtype = {}
+flash_attention_qkv_fused.launches_by_dtype = {}
+flash_attention_bwd.launches_by_dtype = {}
+flash_attention_qkv_fused_bwd.launches_by_dtype = {}

@@ -27,7 +27,8 @@ predicate of ``nn.functional.layer_norm``.
 Every wrapper picks the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  Launch counters:
 ``layer_norm_fused.launches_fwd``, ``.launches_bwd`` (the dx kernel) and
-``.launches_bwd_reduce`` (the dw/db column sum).
+``.launches_bwd_reduce`` (the dw/db column sum), and each by the rows'
+dtype in ``.launches_by_dtype``.
 """
 from __future__ import annotations
 
@@ -171,8 +172,18 @@ def layer_norm_fwd(x2, w, b, eps):
         _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[b.dtype],
         _stream(x2))
     _build.check(err, "layer_norm_fwd")
-    layer_norm_fused.launches_fwd += 1
+    _count("launches_fwd", x2)
     return y, mu, rs
+
+
+def _count(what, x2):
+    """One launch of kernel ``what`` on rows ``x2``: adds one to
+    ``layer_norm_fused.<what>`` and to ``layer_norm_fused.
+    launches_by_dtype[(what, x's dtype name)]``."""
+    setattr(layer_norm_fused, what, getattr(layer_norm_fused, what) + 1)
+    by = layer_norm_fused.launches_by_dtype
+    key = (what, str(x2.dtype).replace("torch.", ""))
+    by[key] = by.get(key, 0) + 1
 
 
 def layer_norm_bwd(x2, w, mu, rs, dy):
@@ -215,11 +226,11 @@ def layer_norm_bwd(x2, w, mu, rs, dy):
         _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[dy.dtype],
         stream)
     _build.check(err, "layer_norm_bwd")
-    layer_norm_fused.launches_bwd += 1
+    _count("launches_bwd", x2)
     err = lib.paddle_layer_norm_bwd_reduce(part.data_ptr(), dwb.data_ptr(),
                                            nblk, C, stream)
     _build.check(err, "layer_norm_bwd_reduce")
-    layer_norm_fused.launches_bwd_reduce += 1
+    _count("launches_bwd_reduce", x2)
     return dx, dwb[0], dwb[1]
 
 
@@ -279,3 +290,4 @@ def layer_norm_fused_ok(x, axes, weight, bias) -> bool:
 layer_norm_fused.launches_fwd = 0
 layer_norm_fused.launches_bwd = 0
 layer_norm_fused.launches_bwd_reduce = 0
+layer_norm_fused.launches_by_dtype = {}

@@ -88,9 +88,12 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as tF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..amp.auto_cast import _state as _AMP
+from ..core.op import apply_op
 from ..device import resolve_device
 from ..incubate.distributed.models.moe import MoELayer
 from ..kernels.ln_matmul import ln_matmul_enabled
@@ -177,6 +180,15 @@ def gpt_config(name: str, **overrides) -> GPTConfig:
     return GPTConfig(**base)
 
 
+def _linear(lin, x):
+    """``lin(x)``; inside an ``amp.auto_cast`` scope a ``torch.nn.Linear``
+    runs as the op ``"linear"`` (the JAX GPT's projections are ``F.linear``
+    ops), so the scope casts it.  Outside a scope this is one flag read."""
+    if _AMP.enabled and type(lin) is nn.Linear:
+        return apply_op(tF.linear, "linear", (x, lin.weight, lin.bias), {})
+    return lin(x)
+
+
 class GPTSelfAttention(nn.Module):
     """Causal self-attention: fused head-major qkv projection, the fused
     flash kernel without a cache, the flash kernel for static prefill, the
@@ -205,7 +217,7 @@ class GPTSelfAttention(nn.Module):
                 x, ln["weight"], ln["bias"], self.qkv_proj.weight.t(),
                 self.qkv_proj.bias, eps=pre_norm._epsilon)
         else:
-            qkv = self.qkv_proj(x)
+            qkv = _linear(self.qkv_proj, x)
         scope = _lora_active() if cache is not None else None
         if scope is not None:
             # the serving engine's batched adapters: each row's low-rank
@@ -214,7 +226,7 @@ class GPTSelfAttention(nn.Module):
             qkv = qkv + scope.delta_qkv(x)
         qkv = qkv.view(b, t, self.num_heads, 3, self.head_dim)
         if cache is None:
-            return self.out_proj(F.fused_qkv_attention(
+            return _linear(self.out_proj, F.fused_qkv_attention(
                 qkv, dropout_p=self.attn_dropout_prob, is_causal=True,
                 training=self.training))
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
@@ -238,7 +250,8 @@ class GPTSelfAttention(nn.Module):
                 f"a {len(cache)}-tuple cache: the port takes the static "
                 f"prefill 3-tuple and the paged 4/6-tuples, each paged one "
                 f"with or without SPARE_PAGE (ROADMAP module entry 4)")
-        out = self.out_proj(out.reshape(b, t, self.num_heads * self.head_dim))
+        out = _linear(self.out_proj,
+                      out.reshape(b, t, self.num_heads * self.head_dim))
         return out, new_cache
 
     @staticmethod
@@ -325,8 +338,8 @@ class GPTMLP(nn.Module):
                                   self.fc0.weight.t(), self.fc0.bias,
                                   eps=pre_norm._epsilon)
         else:
-            h = self.fc0(x)
-        return self.fc1(self.act(h))
+            h = _linear(self.fc0, x)
+        return _linear(self.fc1, self.act(h))
 
 
 class GPTMoEMLP(nn.Module):
@@ -518,8 +531,12 @@ class GPTForPretraining(nn.Module):
         return self.lm_head(x)
 
     def lm_head(self, hidden_states):
-        return torch.matmul(hidden_states,
-                            self.gpt.embeddings.word_embeddings.weight.t())
+        w = self.gpt.embeddings.word_embeddings.weight
+        if _AMP.enabled:
+            # the JAX head is the op "matmul", which auto_cast casts
+            return apply_op(lambda h, e: torch.matmul(h, e.t()), "matmul",
+                            (hidden_states, w), {})
+        return torch.matmul(hidden_states, w.t())
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -1,10 +1,12 @@
 """``paddle.nn`` of the port: ``Layer``, ``Parameter``, ``ParamAttr``,
 the initializers, ``functional_call``, the clips, every layer of the JAX
-package's ``nn/layer/{common,container,activation,norm,loss,transformer,
-conv,pooling}.py`` and ``LSTM``, over ``nn.functional``.  The rest of
-``rnn.py``, ``extra.py``, ``utils.py``, ``layout.py``, ``meta.py`` and
-``quant.py`` is not ported yet (``ROADMAP.md``, module entry 7)."""
-from . import clip, functional, initializer  # noqa: F401
+package's ``nn/layer/`` (``common``, ``container``, ``activation``,
+``norm``, ``loss``, ``transformer``, ``conv``, ``pooling``, ``rnn``,
+``extra``) over ``nn.functional``, ``nn.utils``, channels-last
+construction (``nn.layout``) and abstract construction (``nn.meta``).
+``quant.py`` waits for the quantization package (ROADMAP module entry
+12)."""
+from . import clip, functional, initializer, layout, meta, utils  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue, clip_grad_norm_)
 from .functional_call import (functional_call, module_fn,  # noqa: F401
@@ -13,3 +15,6 @@ from .layer import *  # noqa: F401,F403
 from .layer import loss  # noqa: F401  (the reference exports nn.loss)
 from .layer_base import (HookRemoveHelper, Layer,  # noqa: F401
                          Parameter, ParamAttr)
+from .layout import channels_last, is_channels_last  # noqa: F401
+from .meta import abstract_init, is_abstract_init  # noqa: F401
+from .utils import spectral_norm  # noqa: F401

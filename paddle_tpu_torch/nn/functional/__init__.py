@@ -6,7 +6,9 @@ but an ``isinstance`` scan of the arguments (the models' path); surface
 Tensors in, surface Tensors out, on their values.  The functions the JAX
 package registers as ops are in ``core.op.OP_REGISTRY`` under the same
 names (the random ``gumbel_softmax`` is not registered: its draws are not
-the JAX package's)."""
+the JAX package's).  As in the JAX package, six ops of ``ops.extended``
+are also functionals here (``affine_grid``, ``diag_embed``,
+``gather_tree``, ``grid_sample``, ``max_unpool2d``, ``temporal_shift``)."""
 from .activation import *  # noqa: F401,F403
 from .activation import ACTIVATIONS  # noqa: F401
 from .attention import (fused_ln_linear, fused_qkv_attention,  # noqa: F401
@@ -16,3 +18,7 @@ from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
+from .extra import *  # noqa: F401,F403
+from ...ops.extended import (affine_grid, diag_embed,  # noqa: F401
+                             gather_tree, grid_sample, max_unpool2d,
+                             temporal_shift)

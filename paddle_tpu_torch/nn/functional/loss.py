@@ -399,7 +399,8 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
              reduction="mean", norm_by_times=False, name=None):
     """CTC over ``log_probs`` ``[T, B, C]`` (or batch-first, by the JAX
-    layout rule) and padded ``labels`` ``[B, L]``; f32 losses."""
+    layout rule) and padded ``labels`` ``[B, L]``; the losses are computed
+    in f32 and given in ``log_probs``' dtype."""
     if log_probs.dim() == 3 and log_probs.shape[0] != labels.shape[0]:
         lp = log_probs
     else:
@@ -424,4 +425,4 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
     fits = in_len >= lab_len + repeats
     loss = torch.where(fits, loss, torch.full_like(loss, 1e30))
     loss = loss - math.log(2.0) * (lab_len == 0).to(loss.dtype)
-    return _reduce(loss, reduction)
+    return _reduce(loss, reduction).to(log_probs.dtype)

@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as tF
 
+from ...core.dtype import half_in_single
 from ...core.op import defop
 from .conv import _explicit_pads, _flat_pads, _layout, _tuplize
 
@@ -174,6 +175,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 
 @defop
+@half_in_single
 def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCDHW",
                name=None):

@@ -15,7 +15,7 @@ import inspect
 
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import Layer
+from ..layer_base import Layer, param
 
 __all__ = ["ReLU", "ReLU6", "ELU", "SELU", "CELU", "GELU", "Sigmoid",
            "LogSigmoid", "Hardsigmoid", "Hardswish", "Hardtanh",
@@ -84,5 +84,5 @@ class PReLU(Layer):
             default_initializer=I.Constant(init))
 
     def forward(self, x):
-        return F.prelu(x, self._parameters["weight"],
+        return F.prelu(x, param(self, "weight"),
                        data_format=self.data_format)

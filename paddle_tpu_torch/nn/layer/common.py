@@ -17,7 +17,8 @@ from __future__ import annotations
 
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import Layer
+from ..layer_base import Layer, param
+from ..layout import resolve_data_format
 
 __all__ = ["Linear", "Identity", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Embedding", "Flatten", "Unflatten", "Upsample",
@@ -43,7 +44,7 @@ class Linear(Layer):
 
     def forward(self, x):
         p = self._parameters
-        return F.linear(x, p["weight"], p.get("bias"))
+        return F.linear(x, param(self, "weight"), p.get("bias"))
 
     def extra_repr(self):
         return (f"in_features={self._in_features}, "
@@ -77,7 +78,7 @@ class Dropout2D(Layer):
     def __init__(self, p=0.5, data_format="NCHW", name=None):
         super().__init__()
         self.p = p
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.dropout2d(x, p=self.p, training=self.training,
@@ -88,7 +89,7 @@ class Dropout3D(Layer):
     def __init__(self, p=0.5, data_format="NCDHW", name=None):
         super().__init__()
         self.p = p
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.dropout3d(x, p=self.p, training=self.training,
@@ -120,7 +121,7 @@ class Embedding(Layer):
             self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self._parameters["weight"],
+        return F.embedding(x, param(self, "weight"),
                            padding_idx=self._padding_idx)
 
     def extra_repr(self):
@@ -159,7 +160,7 @@ class Upsample(Layer):
         self.mode = mode
         self.align_corners = align_corners
         self.align_mode = align_mode
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.interpolate(x, self.size, self.scale_factor, self.mode,
@@ -185,7 +186,7 @@ class PixelShuffle(Layer):
     def __init__(self, upscale_factor, data_format="NCHW", name=None):
         super().__init__()
         self.upscale_factor = upscale_factor
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
@@ -195,7 +196,7 @@ class PixelUnshuffle(Layer):
     def __init__(self, downscale_factor, data_format="NCHW", name=None):
         super().__init__()
         self.downscale_factor = downscale_factor
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
@@ -205,7 +206,7 @@ class ChannelShuffle(Layer):
     def __init__(self, groups, data_format="NCHW", name=None):
         super().__init__()
         self.groups = groups
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.channel_shuffle(x, self.groups, self.data_format)
@@ -235,7 +236,7 @@ class Bilinear(Layer):
 
     def forward(self, x1, x2):
         p = self._parameters
-        return F.bilinear(x1, x2, p["weight"], p.get("bias"))
+        return F.bilinear(x1, x2, param(self, "weight"), p.get("bias"))
 
 
 class _PadNd(Layer):
@@ -244,7 +245,7 @@ class _PadNd(Layer):
         self.padding = padding
         self.mode = mode
         self.value = value
-        self.data_format = data_format
+        self.data_format = resolve_data_format(data_format)
 
     def forward(self, x):
         return F.pad(x, self.padding, mode=self.mode, value=self.value,

@@ -17,7 +17,8 @@ import math
 
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import Layer
+from ..layer_base import Layer, param
+from ..layout import resolve_data_format
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose"]
@@ -47,7 +48,7 @@ class _ConvNd(Layer):
         self._output_padding = output_padding
         self._dilation = dilation
         self._groups = groups
-        self._data_format = data_format
+        self._data_format = resolve_data_format(data_format)
         if transpose:
             w_shape = (in_channels, out_channels // groups) + \
                 self._kernel_size
@@ -67,7 +68,7 @@ class _ConvNd(Layer):
 
     def _wb(self):
         p = self._parameters
-        return p["weight"], p.get("bias")
+        return param(self, "weight"), p.get("bias")
 
     def extra_repr(self):
         return (f"{self._in_channels}, {self._out_channels}, "

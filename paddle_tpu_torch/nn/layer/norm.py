@@ -28,7 +28,8 @@ import torch
 
 from .. import functional as F
 from .. import initializer as I
-from ..layer_base import Layer, creation_device
+from ..layer_base import Layer, creation_device, param
+from ..layout import resolve_data_format
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm1D",
@@ -52,7 +53,7 @@ class LayerNorm(Layer):
 
     def forward(self, x):
         p = self._parameters
-        return F.layer_norm(x, self._normalized_shape, p.get("weight"),
+        return F.layer_norm(x, self._normalized_shape, param(self, "weight"),
                             p.get("bias"), self._epsilon)
 
     def extra_repr(self):
@@ -73,7 +74,7 @@ class _BatchNormBase(Layer):
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
-        self._data_format = data_format
+        self._data_format = resolve_data_format(data_format)
         self._use_global_stats = use_global_stats
         self.weight = self.create_parameter(
             (num_features,), attr=weight_attr,
@@ -85,7 +86,7 @@ class _BatchNormBase(Layer):
 
     def forward(self, x):
         p, b = self._parameters, self._buffers
-        return F.batch_norm(x, b["_mean"], b["_variance"], p.get("weight"),
+        return F.batch_norm(x, b["_mean"], b["_variance"], param(self, "weight"),
                             p.get("bias"), training=self.training,
                             momentum=self._momentum, epsilon=self._epsilon,
                             data_format=self._data_format,
@@ -135,7 +136,7 @@ class GroupNorm(Layer):
         super().__init__()
         self._num_groups = num_groups
         self._epsilon = epsilon
-        self._data_format = data_format
+        self._data_format = resolve_data_format(data_format)
         self.weight = None if weight_attr is False else self.create_parameter(
             (num_channels,), attr=weight_attr,
             default_initializer=I.Constant(1.0))
@@ -145,7 +146,7 @@ class GroupNorm(Layer):
     def forward(self, x):
         p = self._parameters
         return F.group_norm(x, self._num_groups, self._epsilon,
-                            p.get("weight"), p.get("bias"),
+                            param(self, "weight"), p.get("bias"),
                             self._data_format)
 
 
@@ -167,7 +168,7 @@ class _InstanceNormBase(Layer):
 
     def forward(self, x):
         p = self._parameters
-        return F.instance_norm(x, weight=p.get("weight"), bias=p.get("bias"),
+        return F.instance_norm(x, weight=param(self, "weight"), bias=p.get("bias"),
                                eps=self._epsilon)
 
 

@@ -2,11 +2,14 @@
 average, adaptive-average and adaptive-max pools in 1, 2 and 3 dims over
 their ``F`` functionals.  The 1-D pools and the adaptive max pools take no
 ``data_format`` (channel-first), as the JAX layers; the adaptive max
-pools raise on ``return_mask=True``, as there."""
+pools raise on ``return_mask=True``, as there.  Every pool resolves its
+layout when built (``nn.layout``): inside ``nn.channels_last()`` each
+one, those without a ``data_format`` argument included, is channel-last."""
 from __future__ import annotations
 
 from .. import functional as F
 from ..layer_base import Layer
+from ..layout import resolve_data_format
 
 __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
            "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
@@ -20,6 +23,9 @@ class _Pool(Layer):
     def __init__(self, **kw):
         super().__init__()
         self._kw = {k: v for k, v in kw.items() if k != "name"}
+        if "data_format" in self._kw:
+            self._kw["data_format"] = resolve_data_format(
+                self._kw["data_format"])
 
     def forward(self, x):
         return getattr(F, self._fn)(x, **self._kw)

@@ -44,7 +44,9 @@ The paddle face sits on top:
 Parameters are created on the device of an active ``with
 torch.device(...)`` block, else on the current place (``set_device``;
 the card by default, raising without one): the port's model
-constructors build under their ``device=``.
+constructors build under their ``device=``.  Inside
+``nn.abstract_init()`` they are made on the ``meta`` device instead
+(``nn.meta``).
 """
 from __future__ import annotations
 
@@ -59,9 +61,10 @@ from ..core import dtype as dtype_mod
 from ..core import place as place_mod
 from ..core.tensor import Tensor, _name_counter, _to_torch
 from . import initializer as init_mod
+from .meta import is_abstract_init
 
 __all__ = ["Layer", "Parameter", "ParamAttr", "HookRemoveHelper",
-           "creation_device"]
+           "creation_device", "param"]
 
 _layer_counter = itertools.count()
 _Module = torch.nn.Module
@@ -81,6 +84,18 @@ def creation_device() -> torch.device:
         if dev.type != "cpu":
             return dev
     return place_mod.current_device()
+
+
+def param(layer, name):
+    """The torch value a forward reads as parameter ``name`` (None when
+    the layer has none): the registered leaf, or the tensor that
+    ``nn.utils.weight_norm`` / ``spectral_norm`` rebuilt from their own
+    parameters for this call (kept in the layer's ``__dict__``)."""
+    p = layer._parameters.get(name)
+    if p is not None:
+        return p
+    rebuilt = layer.__dict__.get(name)
+    return None if rebuilt is None else rebuilt._value
 
 
 class _Bound(Tensor):
@@ -445,10 +460,16 @@ class Layer(_Module):
             return None
         dtype = dtype_mod.convert_dtype(dtype) if dtype is not None \
             else self._dtype
-        initializer = attr.initializer or default_initializer or (
-            init_mod.Constant(0.0) if is_bias else init_mod.XavierUniform())
-        value = initializer(tuple(int(s) for s in shape), dtype,
-                            creation_device())
+        shape = tuple(int(s) for s in shape)
+        if is_abstract_init():
+            # shape and dtype only: the meta device wins over any
+            # creation device, and no initializer draws
+            value = torch.empty(shape, dtype=dtype, device="meta")
+        else:
+            initializer = attr.initializer or default_initializer or (
+                init_mod.Constant(0.0) if is_bias
+                else init_mod.XavierUniform())
+            value = initializer(shape, dtype, creation_device())
         return Parameter(value, name=attr.name, trainable=attr.trainable,
                          learning_rate=attr.learning_rate,
                          regularizer=attr.regularizer,

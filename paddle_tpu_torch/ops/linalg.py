@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.dtype import as_inexact, operands
+from ..core.dtype import as_inexact, half_in_single, operands
 from ..core.op import apply_op, defop
 
 __all__ = ["matmul", "dot", "bmm", "mv", "norm", "dist", "cross", "cholesky",
@@ -90,6 +90,7 @@ def cholesky(x, upper=False, name=None):
 
 
 @defop
+@half_in_single
 def cholesky_solve(x, y, upper=False, name=None):
     # only y's triangle is read, so only it gets a gradient (as in jax)
     return torch.cholesky_solve(x, y.triu() if upper else y.tril(),
@@ -97,6 +98,7 @@ def cholesky_solve(x, y, upper=False, name=None):
 
 
 @defop
+@half_in_single
 def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False,
                      name=None):
     if transpose:
@@ -183,6 +185,7 @@ def slogdet(x, name=None):
 
 
 @defop
+@half_in_single
 def det(x, name=None):
     return torch.linalg.det(x)
 

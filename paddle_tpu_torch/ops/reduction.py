@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.dtype import as_inexact, convert_dtype
+from ..core.dtype import as_inexact, convert_dtype, half_in_single
 from ..core.op import defop
 
 __all__ = ["sum", "mean", "max", "min", "amax", "amin", "prod", "logsumexp",
@@ -100,6 +100,7 @@ def var(x, axis=None, unbiased=True, keepdim=False, name=None):
                      correction=1 if unbiased else 0, keepdim=keepdim)
 
 
+@half_in_single
 def _quantile(fn, x, q, axis, keepdim):
     """``fn`` (torch.quantile / nanquantile, linear interpolation) over
     any set of axes: the reduced axes moved last and flattened."""

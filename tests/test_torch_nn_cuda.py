@@ -89,3 +89,127 @@ def test_training_script_on_the_card_matches_the_cpu(cuda):
     for k, v in cpu.state_dict().items():
         np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=k)
+
+
+# -- the rest of nn and amp on the card ---------------------------------------
+
+RNN_BUILDS = {
+    "LSTM": lambda nn: nn.LSTM(16, 32, num_layers=2, direction="bidirect"),
+    "GRU": lambda nn: nn.GRU(16, 32, num_layers=2, time_major=True),
+    "SimpleRNN": lambda nn: nn.SimpleRNN(16, 32, direction="bidirect",
+                                         activation="relu"),
+    "RNN-LSTMCell": lambda nn: nn.RNN(nn.LSTMCell(16, 32), is_reverse=True),
+    "BiRNN-GRUCell": lambda nn: nn.BiRNN(nn.GRUCell(16, 32),
+                                         nn.GRUCell(16, 32)),
+}
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RNN_BUILDS))
+def test_recurrent_layer_on_the_card_matches_the_cpu(cuda, name):
+    x = np.random.RandomState(0).standard_normal((3, 7, 16)).astype(
+        np.float32)
+    res = {}
+    start = None
+    for where in ("cpu", "gpu"):
+        paddle.set_device(where)
+        paddle.seed(1)
+        layer = RNN_BUILDS[name](paddle.nn)
+        if start is None:
+            start = state(layer)
+        else:
+            assert layer.set_state_dict(start) == ([], [])
+        xt = paddle.to_tensor(x, stop_gradient=False)
+        outs = _flat(layer(xt))
+        loss = sum(((o * o).sum() for o in outs), paddle.zeros([]))
+        loss.backward()
+        res[where] = [o.numpy() for o in outs] + [xt.grad.numpy()] + [
+            p.grad.numpy() for p in layer.parameters()]
+        if where == "gpu":
+            assert {str(o.place) for o in outs} == {str(paddle.CUDAPlace(0))}
+    for i, (g, w) in enumerate(zip(res["gpu"], res["cpu"])):
+        _close(g, w, f"{name} tensor {i}")
+
+
+@pytest.mark.cuda
+def test_auto_cast_launches_bf16_attention_and_f32_layer_norm(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    import paddle_tpu_torch.nn.functional as F
+
+    rs = np.random.RandomState(2)
+    q, k, v = (torch.tensor(rs.standard_normal((2, 64, 2, 64)),
+                            dtype=torch.float32, device="cuda",
+                            requires_grad=True) for _ in range(3))
+    # the fused LayerNorm takes affine rows of a multiple of 128
+    x = torch.tensor(rs.standard_normal((128, 256)), dtype=torch.bfloat16,
+                     device="cuda", requires_grad=True)
+    w, b = (torch.tensor(rs.standard_normal(256), dtype=torch.float32,
+                         device="cuda", requires_grad=True) for _ in range(2))
+    fa.flash_attention_bthd.launches_by_dtype = {}
+    fa.flash_attention_bwd.launches_by_dtype = {}
+    ln.layer_norm_fused.launches_by_dtype = {}
+    ln.enable_fused_layernorm("full")
+    try:
+        with paddle.amp.auto_cast(level="O1"):
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            y = F.layer_norm(x, 256, w, b)
+        assert out.dtype == torch.bfloat16 and y.dtype == torch.float32
+        (out.float().sum() + y.sum()).backward()
+    finally:
+        ln.enable_fused_layernorm("off")
+    assert q.grad.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+    assert w.grad.dtype == torch.float32
+    assert fa.flash_attention_bthd.launches_by_dtype == {
+        ("launches", "bfloat16"): 1}
+    assert fa.flash_attention_bwd.launches_by_dtype == {
+        (w, "bfloat16"): 1 for w in ("launches_delta", "launches_dkv",
+                                     "launches_dq")}
+    assert ln.layer_norm_fused.launches_by_dtype == {
+        (w, "float32"): 1 for w in ("launches_fwd", "launches_bwd",
+                                    "launches_bwd_reduce")}
+
+
+@pytest.mark.cuda
+def test_grad_scaler_on_the_card(cuda):
+    paddle.set_device("gpu")
+    net = paddle.nn.Linear(4, 3)
+    opt = paddle.optimizer.AdamW(1e-3, parameters=net.parameters())
+    scaler = paddle.amp.GradScaler(init_loss_scaling=1024.0,
+                                   incr_every_n_steps=2)
+    x = paddle.to_tensor(np.ones((2, 4), np.float32))
+    w0 = net.weight.numpy().copy()
+    with paddle.amp.auto_cast():
+        loss = net(x).sum()
+    scaler.scale(loss).backward()
+    g = net.weight.grad.numpy().copy()
+    scaler.step(opt)
+    opt.clear_grad()
+    np.testing.assert_allclose(g, 1024.0 * np.full((4, 3), 2.0), rtol=1e-2)
+    assert not np.array_equal(net.weight.numpy(), w0)
+    bad = paddle.to_tensor(np.array([[np.inf, 1, 1, 1]], np.float32))
+    scaler.scale(net(bad).sum()).backward()
+    w1 = net.weight.numpy().copy()
+    scaler.step(opt)
+    np.testing.assert_array_equal(net.weight.numpy(), w1)
+    assert scaler.state_dict()["scale"] == 512.0
+
+
+@pytest.mark.cuda
+def test_beam_search_and_channels_last_on_the_card(cuda):
+    import chip_smoke
+
+    dev = torch.device("cuda", 0)
+    beam = chip_smoke._amp_beam_check(paddle, dev, 0, V=32, E=16, H=32, k=3,
+                                      b=2, steps=6)
+    assert beam["ids_shape"][0] == 2
+    assert chip_smoke._amp_sparse_attention_check(paddle, dev, 1, B=1, H=2,
+                                                  L=64, D=16) < 1e-4
+    assert chip_smoke._amp_channels_last_check(paddle, dev, 2, N=2, C=16,
+                                               S=8) < 1e-3

@@ -6,9 +6,10 @@
   port's counterpart, except the listed ones, each with its reason.
 * The ``paddle_tpu.core`` / ``core.op`` / ``core.autograd`` rows of
   ``tests/test_api_inventory.py`` hold for ``paddle_tpu_torch``.
-* Every op of the eight ported ``ops`` modules is at the port's top level
-  and in ``paddle.tensor``, and the Tensor methods those modules install
-  are on the port's Tensor.
+* Every op of the ten ``ops`` modules (``extended`` and
+  ``compat_surface`` among them) is at the port's top level and in
+  ``paddle.tensor``, and every public Tensor method of the JAX package is
+  on the port's Tensor.
 """
 import importlib
 import types
@@ -20,16 +21,9 @@ import paddle_tpu_torch
 from paddle_tpu.core.op import OP_REGISTRY as JAX_OPS
 from paddle_tpu_torch.core.op import OP_REGISTRY as PORT_OPS
 
-# the JAX package's ops/extended.py (26 ops) waits for a later slice
-# (ROADMAP module entry 6), as do ops/compat_surface.py, core/selected_rows.py
-# and device/tpu.py
-DEFERRED = {"addmm", "affine_grid", "bilinear_tensor_product", "clip_by_norm",
-            "crop_tensor", "diag_embed", "edit_distance", "fill",
-            "fill_diagonal", "fill_diagonal_tensor", "frame", "gather_tree",
-            "grid_sample", "logit", "lu", "lu_unpack", "max_unpool2d",
-            "overlap_add", "renorm", "shard_index", "squared_l2_norm",
-            "temporal_shift", "tril_indices", "triu_indices", "unstack",
-            "viterbi_decode"}
+# every module of the JAX package's ops/ is ported (ROADMAP module entry
+# 6); core/selected_rows.py and device/tpu.py wait, and name nothing here
+DEFERRED = set()
 
 # names the port does not have, by reason
 NOT_PORTED = {
@@ -52,9 +46,11 @@ MODULES = ["core", "core.dtype", "core.place", "core.random", "core.tensor",
            "core.autograd", "core.op", "core.pylayer", "core.tensor_methods",
            "ops", "ops.creation", "ops.math", "ops.manipulation",
            "ops.linalg", "ops.logic", "ops.reduction", "ops.search",
-           "ops.random_ops", "tensor", "autograd", "device", "device.cuda"]
+           "ops.random_ops", "ops.extended", "ops.compat_surface", "tensor",
+           "autograd", "device", "device.cuda"]
 OPS_MODULES = ["creation", "math", "manipulation", "linalg", "logic",
-               "reduction", "search", "random_ops"]
+               "reduction", "search", "random_ops", "extended",
+               "compat_surface"]
 
 
 def _public(mod):
@@ -119,7 +115,4 @@ def test_tensor_methods_of_the_ported_modules():
     missing = {n for n in dir(paddle_tpu.Tensor)
                if not n.startswith("_") and not hasattr(paddle_tpu_torch.Tensor,
                                                        n)}
-    # what is left comes from the deferred modules
-    compat = set(vars(importlib.import_module(
-        "paddle_tpu.ops.compat_surface")))
-    assert missing <= DEFERRED | compat, sorted(missing - DEFERRED - compat)
+    assert missing <= DEFERRED, sorted(missing - DEFERRED)

@@ -19,7 +19,7 @@ import paddle_tpu_torch.nn.functional as F
 from _torch_op_parity import check, family
 
 FUNCTIONAL = ("activation", "attention", "norm", "loss", "common", "conv",
-              "pooling")
+              "pooling", "extra")
 
 
 @pytest.mark.parametrize("name", family(*(f"nn.functional.{m}"

@@ -1,14 +1,14 @@
 """A/B of the flash-attention kernels and the GPT training cell, the
-fused-LayerNorm cell, the conv+BN kernels, the paged decode kernel or the
-serving cell, between checkouts of the PyTorch/CUDA port, on one card, in
-turns.
+fused-LayerNorm cell, the conv+BN kernels, the paged decode kernel, the
+serving cell or the CRNN cell, between checkouts of the PyTorch/CUDA
+port, on one card, in turns.
 
 Usage, from the root of a checkout, with one CUDA card::
 
     git archive <parent> | tar -x -C build/parent
     python tools/flash_ab.py --roots build/parent . . build/parent \\
         --out build/flash_ab.json [--mode fused-ln | conv-bn | paged |
-        serve]
+        serve | crnn]
 
 Each root runs in a fresh process that imports ``paddle_tpu_torch`` from
 that root (and builds its kernels there).  ``--mode flash`` (the default)
@@ -61,6 +61,11 @@ the decode graph; null for a checkout whose engine has no graph), and
 from the window the paged kernels' device ms and the device's busy
 share.
 
+``--mode crnn`` runs ``chip_smoke.py`` phase 36's CRNN training cell (f32,
+batch 128, the LSTM through torch's fused recurrent op) three times in
+the root's process: each run's step ms, and their median as
+``step_ms`` (the step is short and host-bound).
+
 The helpers come from this checkout's ``chip_smoke.py``.  Prints one JSON
 line a run, the ``nvidia-smi`` name and power limit, and the mean of each
 root's runs with the ratio of the first root's to every other's.
@@ -87,7 +92,8 @@ KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
         "paged": None,
         "serve": ("tokens_per_s", "p50_ttft_ms", "decode_step_ms",
                   "device_step_ms", "window_paged_ms",
-                  "window_decode_steps", "window_busy_share")}
+                  "window_decode_steps", "window_busy_share"),
+        "crnn": ("step_ms", "run_1_ms", "run_2_ms", "run_3_ms")}
 
 
 def _smoke():
@@ -351,9 +357,30 @@ def measure_serve(root: str, seed: int = 0) -> dict:
                 window_busy_share=prof["device_busy_share"])
 
 
+def measure_crnn(root: str, seed: int = 0, runs: int = 3) -> dict:
+    """Phase 36's CRNN cell of one root, ``runs`` times in this process
+    (``root`` first on the path)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    cs = _smoke()
+    from paddle_tpu_torch import vision
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ms = [cs.phase_crnn(torch.device("cuda", 0), "", seed)["step_ms"]
+          for _ in range(runs)]
+    res = dict(root=root, package=os.path.dirname(vision.__file__),
+               step_ms=sorted(ms)[len(ms) // 2])
+    res.update({f"run_{i + 1}_ms": v for i, v in enumerate(ms)})
+    return res
+
+
 MEASURE = {"flash": measure, "fused-ln": measure_fused_ln,
            "conv-bn": measure_conv_bn, "paged": measure_paged,
-           "serve": measure_serve}
+           "serve": measure_serve, "crnn": measure_crnn}
 
 
 def main(argv=None) -> int:
