@@ -430,7 +430,29 @@ run with a non-zero exit, and nothing is caught):
    plain version, every parameter f32 on ``CUDAPlace(0)``, the scaler's
    state after its rules (no non-finite step: the scale kept, one good
    step counted a step) and 60 s; printed: step ms, tokens/s, peak
-   memory, the profile, and phase 40's bf16-parameter step beside.
+   memory, the profile, and phase 40's bf16-parameter step beside;
+42. (run after 41) the training loop around phase 40's model (BERT-base
+   width, bf16, AdamW 1e-4 with ``ClipGradByGlobalNorm(1.0)``) through the
+   user's entry points only: a ``paddle.io.Dataset`` of seeded token rows
+   (each made in a worker from ``RandomState(seed + index)``),
+   ``paddle.io.DataLoader(batch_size=64, shuffle=True, num_workers=2,
+   use_shared_memory=True)`` at T = 512, ``paddle.Model(net).prepare(opt,
+   loss)`` and ``fit(..., prefetch=True)`` with ``CheckpointCallback(
+   every_n_steps=4)``, ``TelemetryCallback`` and telemetry on.  Runs A
+   (2 epochs of 8 steps), B (the same until a real ``SIGTERM`` at global
+   step 6: the emergency checkpoint) and C (a fresh optimizer and the
+   starting weights with ``resume="auto"``) from the same weights, D (one
+   epoch under ``torch.profiler``) and 3 ``make_train_step`` steps on the
+   same network; gated on B's losses then C's equal to A's bit for bit,
+   12 flash forwards and 12 of each backward kernel a step in bf16 and no
+   plain version, committed CRC-valid checkpoints whose model leaves
+   restore as bf16, the prefetcher's batches, warm ``train_batch`` calls
+   under ``set_sync_debug_mode("error")``, one ``hapi_train_batch``
+   latency sample a step, eager op-dispatch counters for the layers' ops,
+   one ``spmd_train_step`` signature, and batches over the workers' shm
+   ring; printed: the fit loop's device ms a step beside phase 40's bare
+   loop, the busy share, the prefetcher's stalls and wait, each
+   checkpoint's bytes, save and restore ms, peak memory.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -6824,6 +6846,395 @@ def phase_paddle_amp(dev, seed, smi, layers, steps=5):
                                     for m in ("off", "full")}, device=smi)
 
 
+# phase 42: the training loop around the model (hapi fit)
+FIT_ROWS, FIT_EPOCHS, FIT_PREEMPT_AT, FIT_EVERY = 8 * PL_B, 2, 6, 4
+FIT_WARM = 2          # steps of each fit run before the no-sync window
+
+
+def _token_rows(paddle, seed, rows=FIT_ROWS, seq=PL_T, vocab=PL_VOCAB):
+    """A ``paddle.io.Dataset`` of ``rows`` token rows: (ids, positions,
+    next-token labels), each row made where it is read (in a DataLoader
+    worker) from ``RandomState(seed + index)``, as numpy int64."""
+    import numpy as np
+
+    class TokenRows(paddle.io.Dataset):
+        def __getitem__(self, i):
+            ids = np.random.RandomState(seed + i).randint(0, vocab, seq + 1)
+            return (ids[:-1].astype(np.int64), np.arange(seq, dtype=np.int64),
+                    ids[1:].astype(np.int64))
+
+        def __len__(self):
+            return rows
+
+    return TokenRows()
+
+
+def _fit_net(paddle, enc):
+    """Phase 40's encoder as a hapi network: ``forward(ids, pos)`` gives
+    the head's logits; its ``CrossEntropyLoss`` goes to ``prepare`` (hapi
+    treats a batch's last field as the label)."""
+    class Logits(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.enc = enc
+
+        def forward(self, ids, pos):
+            e = self.enc
+            return e.head(e.encoder(e.norm(e.word(ids) + e.pos(pos))))
+
+    return Logits()
+
+
+def _fit_callbacks(paddle):
+    """The phase's callbacks: a loss recorder (keeps the deferred loss
+    lists unread), a step clock (a CUDA event at each batch's begin, read
+    after the run), the no-sync window (``set_sync_debug_mode("error")``
+    around every ``train_batch`` after the first ``FIT_WARM`` steps) and a
+    SIGTERM sender."""
+    import os
+    import signal
+
+    import torch
+
+    from paddle_tpu_torch.framework import preemption
+
+    class Guard(paddle.callbacks.Callback):
+        """First in the list: its begin runs last before train_batch's
+        callbacks' begins, its end first after it (the others may read
+        losses)."""
+
+        def __init__(self):
+            super().__init__()
+            self.steps = self.guarded = 0
+            self.events = []
+
+        def on_train_batch_begin(self, step, logs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            if self.steps >= FIT_WARM:
+                torch.cuda.set_sync_debug_mode("error")
+                self.guarded += 1
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.set_sync_debug_mode("default")
+            self.steps += 1
+
+        def step_ms(self):
+            """Device ms between consecutive batch begins."""
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in
+                    zip(self.events, self.events[1:])]
+
+    class Losses(paddle.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.lists = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.lists.append(logs["loss"])
+
+        def values(self):
+            return [float(v[0]) for v in self.lists]
+
+    class SigtermAt(paddle.callbacks.Callback):
+        def __init__(self, at):
+            super().__init__()
+            self.at, self.n = at, 0
+
+        def on_train_batch_end(self, step, logs=None):
+            self.n += 1
+            if self.n == self.at:
+                os.kill(os.getpid(), signal.SIGTERM)
+                t0 = time.perf_counter()
+                while not preemption.requested():
+                    if time.perf_counter() - t0 > 10.0:
+                        _fail("fit: the SIGTERM never reached the handler")
+                    time.sleep(1e-3)
+
+    return Guard, Losses, SigtermAt
+
+
+def _committed(saver, what):
+    """Every committed step of ``saver`` loads with its CRCs checked;
+    returns {step: (bytes, bf16 leaves)} and fails on a model leaf that
+    does not come back as bf16."""
+    import torch
+
+    from paddle_tpu_torch.framework import checkpoint as ck
+
+    out = {}
+    for step in saver.steps():
+        d = saver._step_dir(step)
+        state = ck.load_sharded(d, return_numpy=True)
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        model = state["model"]
+        bf16 = [k for k, v in model.items()
+                if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16]
+        if len(bf16) != len(model):
+            _fail(f"fit ({what}): step {step}'s model leaves "
+                  f"{sorted(set(model) - set(bf16))[:4]} did not restore as "
+                  f"bfloat16")
+        with open(os.path.join(d, "manifest.json")) as fh:
+            dtypes = {m["dtype"] for k, m in json.load(fh)["tensors"].items()
+                      if k.startswith("model/")}
+        if dtypes != {"bfloat16"}:
+            _fail(f"fit ({what}): step {step}'s manifest dtypes {dtypes}")
+        out[step] = (nbytes, len(bf16))
+    if not out:
+        _fail(f"fit ({what}): no committed checkpoint")
+    return out
+
+
+def _span_ms(name, since):
+    """The ms of every ``name`` span that began after ``since`` (a
+    ``time.perf_counter()`` reading)."""
+    from paddle_tpu_torch.observability import trace
+
+    return [s["dur"] / 1e3 for s in trace.spans(name)
+            if s["ts"] >= since * 1e6]
+
+
+def phase_fit(dev, seed, smi, layers=None):
+    """Phase 42: the paddle user's training loop around phase 40's model
+    (BERT-base width, bf16, AdamW 1e-4 with ``ClipGradByGlobalNorm(1.0)``)
+    through the user's entry points only: a ``paddle.io.Dataset`` of seeded
+    token rows, ``paddle.io.DataLoader(batch_size=64, shuffle=True,
+    num_workers=2, use_shared_memory=True)`` at T = 512, ``paddle.Model(
+    net).prepare(opt, loss)``, ``fit(..., prefetch=True)`` with
+    ``CheckpointCallback(every_n_steps=4)``, ``TelemetryCallback`` and
+    telemetry on.  Three runs from the same weights: A uninterrupted (2
+    epochs of 8 steps), B the same until a real SIGTERM at global step 6
+    (the emergency checkpoint), C a fresh model and optimizer with
+    ``resume="auto"``; then D, one epoch under ``torch.profiler`` (the busy
+    share), and 3 steps of ``make_train_step`` on the same network (the
+    retrace sentinel's one signature).  Gates: B's losses then C's equal
+    A's bit for bit; 12 flash forwards and 12 + 12 + 12 backward launches
+    a step, all bf16, no plain version; every committed checkpoint loads
+    with its CRCs and its model leaves restore as bf16; the prefetcher
+    delivered every batch; warm ``train_batch`` calls under
+    ``set_sync_debug_mode("error")``; ``step_latency_count(
+    "hapi_train_batch")`` equals the steps run; op-dispatch counters for
+    the layers' ops (mode "eager"); ``compile_count("spmd_train_step")``
+    grows by 1 over the 3 steps; the workers' batches came over the shm
+    ring.  Printed: the fit loop's step ms beside phase 40's, the busy
+    share, the prefetcher's stalls and wait, each checkpoint's bytes, the
+    save and restore ms, peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.framework import preemption
+    from paddle_tpu_torch.hapi.callbacks import (CheckpointCallback,
+                                                 TelemetryCallback)
+    from paddle_tpu_torch.observability import dispatch, retrace, steps
+
+    tag = "fit"
+    t_phase = time.perf_counter()
+    place = paddle.CUDAPlace(dev.index or 0)
+    paddle.set_device(place)
+    paddle.seed(seed)
+    enc = _paddle_encoder(paddle, PL_LAYERS, PL_D, PL_H, PL_FFN)
+    enc.to(dtype="bfloat16")
+    net = _fit_net(paddle, enc)
+    start = {k: v.value.clone() for k, v in net.state_dict().items()}
+    data = _token_rows(paddle, seed + 1)
+    Guard, Losses, SigtermAt = _fit_callbacks(paddle)
+    root = tempfile.mkdtemp(prefix="fit_ckpt_")
+    was_on = obs.enabled()
+    obs.enable(True)
+    runs = {}
+
+    def run(name, ckdir, epochs=FIT_EPOCHS, sigterm=None, resume=None,
+            ckpt=True):
+        net.set_state_dict(start)
+        paddle.seed(seed + (99 if resume else 2))
+        opt = paddle.optimizer.AdamW(
+            learning_rate=1e-4, parameters=net.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        model = paddle.Model(net)
+        model.prepare(opt, loss=enc.loss)
+        loader = paddle.io.DataLoader(data, batch_size=PL_B, shuffle=True,
+                                      num_workers=2, use_shared_memory=True)
+        guard, losses = Guard(), Losses()
+        cbs = [guard, losses]
+        if sigterm:
+            cbs.append(SigtermAt(sigterm))
+        cb = None
+        if ckpt:
+            cb = CheckpointCallback(ckdir, every_n_steps=FIT_EVERY,
+                                    keep_last=2, data_seed=seed + 3)
+            cbs.append(cb)
+        cbs.append(TelemetryCallback())
+        n_lat = steps.step_latency_count("hapi_train_batch")
+        n_spans = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _attention_counters(zero=True)
+        _ln_counters(zero=True)
+        t0 = time.perf_counter()
+        with _no_plain():
+            model.fit(loader, epochs=epochs, verbose=0, prefetch=True,
+                      callbacks=cbs, resume=resume)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {**_attention_counters(), **_ln_counters()}
+        res = dict(losses=losses.values(), launches=n,
+                   launches_by_dtype=_launches_by_dtype(), wall_s=wall,
+                   step_ms=guard.step_ms(), guarded=guard.guarded,
+                   steps=guard.steps,
+                   latency_samples=steps.step_latency_count(
+                       "hapi_train_batch") - n_lat,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   prefetch=model.prefetcher.stats(),
+                   shm_batches=loader.shm_batches,
+                   batches=guard.steps,
+                   snapshot_ms=_span_ms("checkpoint.snapshot", n_spans),
+                   write_ms=_span_ms("checkpoint.async_write", n_spans),
+                   load_ms=_span_ms("checkpoint.load", n_spans),
+                   preempted=bool(cb and cb.preempted))
+        if cb is not None:
+            res["saver"] = cb.saver
+        runs[name] = res
+        return res
+
+    try:
+        a = run("A", os.path.join(root, "a"))
+        b = run("B", os.path.join(root, "b"), sigterm=FIT_PREEMPT_AT)
+        preemption.clear()
+        # B's checkpoints, the emergency one at step 6 last, before C
+        ckpts = {"B": _committed(b["saver"], "B")}
+        if max(ckpts["B"]) != FIT_PREEMPT_AT:
+            _fail(f"{tag}: B's newest checkpoint is step "
+                  f"{max(ckpts['B'])}, not the emergency one at "
+                  f"{FIT_PREEMPT_AT}")
+        c = run("C", os.path.join(root, "b"), resume="auto")
+        # D: one epoch under the profiler, no checkpoints (the busy share)
+        prof = _device_profile(lambda: run("D", None, epochs=1, ckpt=False))
+        d = runs["D"]
+        # the retrace sentinel on the same network: make_train_step
+        n0 = retrace.compile_count("spmd_train_step")
+        opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                     parameters=net.parameters())
+        step = paddle.distributed.make_train_step(
+            net, opt, loss_fn=lambda out, lab: enc.loss(out, lab),
+            num_labels=1)
+        batch = [torch.as_tensor(np.stack(f)).to(dev)
+                 for f in zip(*(data[i] for i in range(PL_B)))]
+        for _ in range(3):
+            step(*batch)
+        torch.cuda.synchronize()
+        n_spmd = retrace.compile_count("spmd_train_step") - n0
+        eager = dispatch.dispatch_counts(mode="eager")
+    finally:
+        obs.enable(was_on)
+        torch.cuda.set_sync_debug_mode("default")
+    # -- gates
+    per_epoch = FIT_ROWS // PL_B
+    total = FIT_EPOCHS * per_epoch
+    if a["steps"] != total or b["steps"] != FIT_PREEMPT_AT or \
+            c["steps"] != total - FIT_PREEMPT_AT or d["steps"] != per_epoch:
+        _fail(f"{tag}: steps run A {a['steps']}, B {b['steps']}, C "
+              f"{c['steps']}, D {d['steps']}")
+    if not b["preempted"] or c["preempted"]:
+        _fail(f"{tag}: B preempted {b['preempted']}, C {c['preempted']}")
+    _falling(f"{tag} (A)", a["losses"])
+    if b["losses"] + c["losses"] != a["losses"]:
+        _fail(f"{tag}: resumed losses {b['losses']} + {c['losses']} are "
+              f"not A's {a['losses']} bit for bit")
+    for name, r in runs.items():
+        k = r["steps"]
+        want = {key: 0 for key in r["launches"]}
+        want.update({key: PL_LAYERS * k for key in
+                     ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")})
+        if r["launches"] != want:
+            _fail(f"{tag} ({name}): launches {r['launches']} != {want}")
+        bf16 = {f"{key}_bfloat16": PL_LAYERS * k for key in
+                ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")}
+        if r["launches_by_dtype"] != bf16:
+            _fail(f"{tag} ({name}): launches by dtype "
+                  f"{r['launches_by_dtype']} != {bf16}")
+        if r["latency_samples"] != k:
+            _fail(f"{tag} ({name}): {r['latency_samples']} hapi_train_batch "
+                  f"latency samples for {k} steps")
+        # C's first epoch also reads the 6 batches its resume skips
+        skipped = FIT_PREEMPT_AT if name == "C" else 0
+        if r["prefetch"]["batches"] != k + skipped:
+            _fail(f"{tag} ({name}): the prefetcher delivered "
+                  f"{r['prefetch']['batches']} batches for {k} steps and "
+                  f"{skipped} skipped")
+        if r["shm_batches"] < k:
+            _fail(f"{tag} ({name}): {r['shm_batches']} batches over the shm "
+                  f"ring for {k} steps")
+        if r["guarded"] != max(0, k - FIT_WARM):
+            _fail(f"{tag} ({name}): {r['guarded']} steps under the no-sync "
+                  f"window")
+    ckpts.update({name: _committed(runs[name]["saver"], name)
+                  for name in ("A", "C")})
+    if not b["write_ms"] or not c["load_ms"]:
+        _fail(f"{tag}: no emergency save ({b['write_ms']}) or restore "
+              f"({c['load_ms']}) span")
+    layer_ops = {op for op in ("linear", "layer_norm", "embedding", "gelu")
+                 if eager.get(op, 0) > 0}
+    if len(layer_ops) < 3:
+        _fail(f"{tag}: op-dispatch counters (eager) {eager}")
+    if n_spmd != 1:
+        _fail(f"{tag}: make_train_step booked {n_spmd} signatures over 3 "
+              f"steps")
+    shutil.rmtree(root, ignore_errors=True)
+    del net, enc, start, step, opt, batch
+    paddle.set_device("cpu")
+    torch.cuda.empty_cache()
+    # -- printed
+    warm = sorted(a["step_ms"][FIT_WARM:])
+    fit_ms = warm[len(warm) // 2]
+    bare_ms = layers["runs"]["off"]["step_ms"] if layers else None
+    pf = a["prefetch"]
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{tag}] A {a['losses'][:3]}... ({len(a['losses'])} steps); B "
+          f"{len(b['losses'])} steps then SIGTERM, C resumed "
+          f"{len(c['losses'])}: bit-identical; launches a step "
+          f"{ {k: v // a['steps'] for k, v in a['launches'].items() if v} } "
+          f"all bf16")
+    print(f"[{tag}] fit loop step ms (device, between batch begins; median "
+          f"of A's warm steps) {fit_ms:.3f}, mean "
+          f"{sum(warm) / len(warm):.3f}; phase 40's bare loop "
+          f"{'not run' if bare_ms is None else f'{bare_ms:.3f} ms a step'}"
+          f" (same call); on {smi}")
+    _print_profile(f"{tag}-profile", "run D, one epoch through fit", prof)
+    print(f"[{tag}] prefetcher (A): {pf['batches']} batches, {pf['stalls']} "
+          f"stalls after warm-up, {pf['wait_seconds'] * 1e3:.3f} ms waited; "
+          f"shm batches {a['shm_batches']}; {a['guarded']} warm train_batch "
+          f"calls with no device sync")
+    for name in ("A", "B", "C"):
+        print(f"[{tag}] checkpoints ({name}): " + ", ".join(
+            f"step {s}: {nb} bytes, {nl} bf16 model leaves"
+            for s, (nb, nl) in ckpts[name].items()))
+    print(f"[{tag}] save ms: async snapshot (caller) "
+          f"{'/'.join(f'{v:.1f}' for v in a['snapshot_ms'])}, async write "
+          f"(thread) {'/'.join(f'{v:.1f}' for v in a['write_ms'])}; "
+          f"emergency (blocking) snapshot {b['snapshot_ms'][-1]:.1f} + write "
+          f"{b['write_ms'][-1]:.1f}; restore {c['load_ms'][0]:.1f}; peak "
+          f"memory {a['peak_memory_bytes']} bytes; {phase_s:.1f} s; {smi}")
+    for r in runs.values():
+        r.pop("saver", None)
+    return dict(runs=runs, fit_step_ms=fit_ms,
+                fit_mean_ms=sum(warm) / len(warm), bare_step_ms=bare_ms,
+                profile={k: v for k, v in prof.items()
+                         if k != "all_kernels_ms"},
+                checkpoints=ckpts, spmd_signatures=n_spmd,
+                eager_ops=sorted(eager), phase_s=phase_s,
+                launches={k: sum(r["launches"][k] for r in runs.values())
+                          for k in a["launches"]},
+                device=smi)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -6978,6 +7389,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     amp = phase_paddle_amp(dev, args.seed + 15, smi, layers)
     n_amp = amp["launches"]
+    # the training loop around the model (phase 42) follows
+    torch.cuda.empty_cache()
+    fit = phase_fit(dev, args.seed + 16, smi, layers)
+    n_fit = fit["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -7037,7 +7452,8 @@ def main(argv=None) -> int:
                                 "35 svtr": n_svtr["fwd"],
                                 "39 surface": n_surface["fwd"],
                                 "40 paddle layers": n_layers["fwd"],
-                                "41 paddle amp": n_amp["fwd"]},
+                                "41 paddle amp": n_amp["fwd"],
+                                "42 fit": n_fit["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
         dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
              route="cuda",
@@ -7097,7 +7513,9 @@ def main(argv=None) -> int:
                                 + n_layers["bwd_dkv"]
                                 + n_layers["bwd_dq"],
                                 "41 paddle amp": n_amp["bwd_delta"]
-                                + n_amp["bwd_dkv"] + n_amp["bwd_dq"]}),
+                                + n_amp["bwd_dkv"] + n_amp["bwd_dq"],
+                                "42 fit": n_fit["bwd_delta"]
+                                + n_fit["bwd_dkv"] + n_fit["bwd_dq"]}),
         dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
                   "delta + dk/dv + dq kernels)",
              route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
@@ -7278,7 +7696,7 @@ def main(argv=None) -> int:
                            svtr_parity=svtr_parity, crnn=ocr_crnn,
                            gateway=gateway, fleet=fleet,
                            fleet_memory=fleet_memory, surface=surface,
-                           paddle_layers=layers, paddle_amp=amp,
+                           paddle_layers=layers, paddle_amp=amp, fit=fit,
                            kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)

@@ -14,7 +14,13 @@ logic, reduction, search, random, the long tail of ``extended`` and
 ``compat_surface``) at the top level and as ``Tensor`` methods,
 ``paddle.autograd`` (``PyLayer``, ``backward``), ``paddle.device``,
 ``paddle.nn`` and ``paddle.amp`` (``auto_cast`` decides each op's dtype
-by its name at the op boundary; ``GradScaler``).  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
+by its name at the op boundary; ``GradScaler``), and the training loop
+around a model: ``paddle.io`` (``Dataset``, ``DataLoader`` with forked
+workers over a shared-memory ring, ``DevicePrefetcher``),
+``paddle.Model`` (hapi ``fit`` / ``evaluate`` / ``predict``),
+``paddle.metric``, ``paddle.callbacks``, ``paddle.save`` /
+``paddle.load``, ``paddle.framework`` (sharded checkpoints, preemption)
+and ``paddle.summary``.  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
 autograd is torch's.  Without a card the default place raises: CPU
 scripts call ``paddle.set_device("cpu")`` first.
 
@@ -46,8 +52,19 @@ from .ops import *  # noqa: F401,F403,E402
 from . import amp, autograd, device, tensor  # noqa: F401,E402
 from . import (distributed, incubate, models, nn,  # noqa: F401,E402
                optimizer, regularizer, vision)
+from . import framework, io, metric, observability, utils  # noqa: F401,E402
+from . import callbacks, hapi  # noqa: F401,E402
 from .device import resolve_device  # noqa: F401,E402
+from .framework.io import load, save  # noqa: F401,E402
+from .hapi import Model  # noqa: F401,E402
 from .nn import ParamAttr  # noqa: F401,E402
+
+
+def summary(net, input_size=None, dtypes=None):
+    """paddle.summary: the layer table and parameter counts."""
+    from .hapi.summary import summary as _summary
+    return _summary(net, input_size, dtypes)
+
 
 bool = bool_  # noqa: A001 — the reference exports `paddle.bool`
 dtype = _torch.dtype

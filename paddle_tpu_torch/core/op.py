@@ -21,12 +21,15 @@ forward calls ``nn.functional`` on unwrapped values, a nested op on its
 callers').  The cast is a torch op, so gradients return to the leaves in
 their own dtype.  Outside a scope the hook is one thread-local read.
 
-``TELEMETRY`` (op-dispatch timing) is not ported yet (ROADMAP module
-entry 9): the flag is read by nothing.
+``TELEMETRY`` is the telemetry switch (``observability.enable`` sets
+it): while it is on, every op's host wall-time is booked by
+``observability.dispatch.record`` on both branches; off, it costs one
+flag test.
 """
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable
 
 import numpy as np
@@ -45,7 +48,7 @@ OP_REGISTRY: dict[str, Callable] = {}
 # framework/details/nan_inf_utils_detail.cc:341 CheckVarHasNanOrInf
 CHECK_NAN_INF = False
 
-# op-dispatch telemetry: read once observability/dispatch.py is ported
+# op-dispatch telemetry (observability.enable sets it)
 TELEMETRY = False
 
 _SEQ = (list, tuple)
@@ -146,6 +149,17 @@ def _amp_cast(name, args, kwargs):
 
 def apply_op(fn, name, args, kwargs):
     """Run ``fn`` on the arguments' values; Tensors in give Tensors out."""
+    if not TELEMETRY:
+        return _apply_op(fn, name, args, kwargs)
+    from ..observability import dispatch as _dispatch
+    t0 = time.perf_counter()
+    try:
+        return _apply_op(fn, name, args, kwargs)
+    finally:
+        _dispatch.record(name, time.perf_counter() - t0)
+
+
+def _apply_op(fn, name, args, kwargs):
     first = _first_tensor(args, kwargs)
     if first is None:
         if _AMP.enabled:

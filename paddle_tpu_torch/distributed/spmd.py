@@ -41,14 +41,28 @@ The twin of "one train-step compile": PyTorch runs eagerly, so nothing is
 compiled; the step builds its per-signature state (the split of the batch
 and the cast list) once per batch signature (shapes and dtypes) and
 ``compile_count`` counts the signatures.  A later CUDA-graph capture of
-the step keys on the same signature.  A mesh and gradient accumulation
-raise ``NotImplementedError`` (ROADMAP module item 11); the JAX step's
-sharding and offload options are not taken.
+the step keys on the same signature.  The retrace sentinel
+(``observability.retrace``) wraps the step as ``"spmd_train_step"`` and
+``run_steps`` as ``"spmd_train_step_multi"``, the JAX step's names, and
+with telemetry on each call books ``observability.steps.record_step``
+(``fn="train_step"``; ``run_steps`` one ``"train_step_multi"`` sample of
+the K steps' mean) and the device memory gauges, as the JAX step does.
+A mesh and gradient accumulation raise ``NotImplementedError`` (ROADMAP
+module item 11); the JAX step's sharding and offload options are not
+taken.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+
+from ..core import op as _op
+from ..core.tensor import Tensor
+from ..observability import instrument_jit
+from ..observability import steps as _steps
+from ..observability import trace as _trace
 
 __all__ = ["ShardedTrainStep", "make_train_step"]
 
@@ -96,6 +110,10 @@ class ShardedTrainStep:
         optimizer.name_parameters(model)
         self._plans: dict = {}
         self._step = 0          # the train state's step (JAX TrainState)
+        # the retrace sentinel's books (the JAX step's entry-point names)
+        self._jitted = instrument_jit(self._one_step, "spmd_train_step")
+        self._jitted_multi = instrument_jit(self._k_steps,
+                                            "spmd_train_step_multi")
 
     @property
     def compile_count(self) -> int:
@@ -119,7 +137,26 @@ class ShardedTrainStep:
         return loss.float()
 
     def __call__(self, *batch):
-        batch = tuple(torch.as_tensor(b, device=self.device) for b in batch)
+        t0 = time.perf_counter() if _op.TELEMETRY else 0.0
+        batch = tuple(self._on_device(b) for b in batch)
+        with _trace.span("train_step", fn="spmd_train_step",
+                         step=self.optimizer._step_count + 1):
+            loss = self._jitted(*batch)
+        if _op.TELEMETRY:
+            n = batch[0].shape[0] if batch and batch[0].dim() else None
+            _steps.record_step(time.perf_counter() - t0, examples=n,
+                               fn="train_step")
+            _steps.record_memory_stats()
+        return loss
+
+    def _on_device(self, b):
+        """A batch argument (a tensor, a surface Tensor as a
+        ``DevicePrefetcher`` delivers it, an array) on the step's device."""
+        if isinstance(b, Tensor):
+            b = b._value
+        return torch.as_tensor(b, device=self.device)
+
+    def _one_step(self, *batch):
         sig = tuple((tuple(b.shape), b.dtype) for b in batch)
         plan = self._plans.get(sig)
         if plan is None:
@@ -138,9 +175,23 @@ class ShardedTrainStep:
 
     def run_steps(self, *stacked):
         """K steps over ``[K, B, ...]`` stacks; returns the K losses."""
-        stacked = tuple(torch.as_tensor(b, device=self.device)
-                        for b in stacked)
-        return torch.stack([self(*(b[i] for b in stacked))
+        t0 = time.perf_counter() if _op.TELEMETRY else 0.0
+        stacked = tuple(self._on_device(b) for b in stacked)
+        k = int(stacked[0].shape[0])
+        with _trace.span("train_step", fn="spmd_train_step_multi", steps=k,
+                         step=self.optimizer._step_count + 1):
+            losses = self._jitted_multi(*stacked)
+        if _op.TELEMETRY:
+            n = stacked[0].shape[1] if stacked[0].dim() > 1 else None
+            # one call covers k steps: the per-step series stays
+            # comparable with the single-step path
+            _steps.record_step((time.perf_counter() - t0) / k, examples=n,
+                               fn="train_step_multi")
+            _steps.record_memory_stats()
+        return losses
+
+    def _k_steps(self, *stacked):
+        return torch.stack([self._one_step(*(b[i] for b in stacked))
                             for i in range(int(stacked[0].shape[0]))])
 
     # -- the train state -----------------------------------------------------

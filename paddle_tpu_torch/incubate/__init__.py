@@ -1,5 +1,6 @@
 """``paddle_tpu.incubate`` counterparts: the MoE layer
-(``distributed.models.moe``)."""
-from . import distributed
+(``distributed.models.moe``) and auto-checkpoint (``checkpoint``:
+``TrainEpochRange``)."""
+from . import checkpoint, distributed
 
-__all__ = ["distributed"]
+__all__ = ["checkpoint", "distributed"]

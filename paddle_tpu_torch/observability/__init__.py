@@ -1,16 +1,21 @@
 """paddle_tpu_torch.observability — process-wide runtime telemetry.
 
-The port's own copy of ``paddle_tpu/observability`` for the serving path
-(it imports nothing of the JAX package, and its registry is its own).
-Two layers with different duty cycles:
+The port's own copy of ``paddle_tpu/observability`` (it imports nothing
+of the JAX package, and its registry is its own).  Two layers with
+different duty cycles:
 
 **Metrics (off by default).**  One registry (counters / gauges /
-histograms with labels) that the serving engine, the supervisor and the
-gateway feed; the switch :func:`enable` also turns on the registry's
-time-series samples and perfscope's exported series.  The JAX package
-keeps this switch in its op layer (``core/op.py``'s ``TELEMETRY``); the
-port has no op layer, so the switch lives here (:data:`TELEMETRY`).
-Enable with ``PADDLE_TPU_TELEMETRY=1`` or :func:`enable`.  Export with
+histograms with labels) fed by op-dispatch telemetry in the op hub
+(``core/op.py`` ``apply_op`` through :mod:`dispatch`), the retrace
+sentinel (:mod:`retrace`: the train step's and the serving engine's
+signature books), step-level training metrics (:mod:`steps`: step
+latency, examples/s, device memory gauges, the input pipeline; hapi
+``TelemetryCallback``), and the serving engine, supervisor and gateway.
+The one switch is the op layer's ``core.op.TELEMETRY``, as in the JAX
+package: :func:`enable` sets it (and turns on the registry's time-series
+samples and perfscope's exported series), and :func:`enabled` /
+``TELEMETRY`` read it.  It costs one flag test per op when off.  Enable
+with ``PADDLE_TPU_TELEMETRY=1`` or :func:`enable`.  Export with
 :func:`dump` (JSON) or :func:`to_prometheus_text`.
 
 **Timeline (always on).**  :mod:`trace` spans (``span("serving.decode",
@@ -35,9 +40,9 @@ import os
 from .metrics import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry)
 
+from ..core import op as _op
+
 _REGISTRY = MetricsRegistry()
-# the telemetry switch (the JAX package's ``core.op.TELEMETRY``)
-TELEMETRY = False
 
 
 def registry() -> MetricsRegistry:
@@ -46,14 +51,21 @@ def registry() -> MetricsRegistry:
 
 
 def enabled() -> bool:
-    return TELEMETRY
+    return _op.TELEMETRY
+
+
+def __getattr__(name):
+    # ``observability.TELEMETRY`` reads the op layer's switch
+    if name == "TELEMETRY":
+        return _op.TELEMETRY
+    raise AttributeError(name)
 
 
 def enable(on: bool = True):
-    """Flip telemetry globally (registry samples and perfscope series)."""
-    global TELEMETRY
-    TELEMETRY = bool(on)
-    _REGISTRY.sampling = TELEMETRY
+    """Flip telemetry globally: the op layer's switch, the registry's
+    samples and perfscope's series."""
+    _op.TELEMETRY = bool(on)
+    _REGISTRY.sampling = _op.TELEMETRY
 
 
 def disable():
@@ -78,6 +90,13 @@ def _bootstrap_from_env():
         enable(True)
 
 
+# imported AFTER registry()/enable() exist: they pull `registry` from
+# this package at import time
+from . import dispatch  # noqa: E402,F401
+from . import retrace  # noqa: E402,F401
+from . import steps  # noqa: E402,F401
+from .retrace import (  # noqa: E402,F401
+    get_retrace_threshold, instrument_jit, set_retrace_threshold)
 # the always-on timeline layer (no registry dependency)
 from . import flight  # noqa: E402,F401
 from . import trace  # noqa: E402,F401

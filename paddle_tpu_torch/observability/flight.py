@@ -33,6 +33,17 @@ from collections import deque
 DEFAULT_CAPACITY = 1024
 
 _lock = threading.Lock()
+
+
+def _fresh_lock_in_child():
+    # a forked child (a DataLoader worker) may inherit the lock held by a
+    # thread that does not exist there: give it a free one
+    global _lock
+    _lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_fresh_lock_in_child)
+
 _seq = itertools.count(1)
 _EVENTS: deque = deque(
     maxlen=max(8, int(os.environ.get("PADDLE_TPU_FLIGHT_EVENTS",

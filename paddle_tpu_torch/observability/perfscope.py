@@ -65,7 +65,8 @@ from collections import deque
 
 import torch
 
-from . import flight, registry
+from . import flight, registry, steps
+from .steps import MEMORY_GAUGE  # noqa: F401 — re-exported
 
 logger = logging.getLogger("paddle_tpu_torch.observability")
 
@@ -74,7 +75,6 @@ DEVICE_PROGRAM_SECONDS = "paddle_tpu_device_program_seconds"
 DEVICE_PROGRAM_MFU = "paddle_tpu_device_program_mfu"
 DEVICE_PROGRAM_BW_FRAC = "paddle_tpu_device_program_hbm_bw_frac"
 HBM_BYTES = "paddle_tpu_hbm_bytes"
-MEMORY_GAUGE = "paddle_tpu_device_memory_bytes"
 
 # ledger owners whose bytes live in host DRAM, not on the device: part of
 # the consolidated KV budget, excluded from the allocator reconciliation
@@ -501,13 +501,9 @@ def backend_memory() -> dict:
 
 def record_memory_stats():
     """The allocator's numbers as ``paddle_tpu_device_memory_bytes{stat}``
-    gauges (absent without a card, as the JAX package's are on the CPU)."""
-    stats = backend_memory()
-    if not stats:
-        return
-    g = registry().gauge(MEMORY_GAUGE, "CUDA allocator stats, device 0")
-    for key in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit"):
-        g.set(float(stats[key]), labels={"stat": key})
+    gauges (``steps.record_memory_stats``; absent without a card, as the
+    JAX package's are on the CPU)."""
+    steps.record_memory_stats()
 
 
 def memory_report() -> dict:

@@ -30,6 +30,17 @@ from collections import deque
 from . import flight
 
 _lock = threading.Lock()
+
+
+def _fresh_lock_in_child():
+    # a forked child (a DataLoader worker) may inherit the lock held by a
+    # thread that does not exist there: give it a free one
+    global _lock
+    _lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_fresh_lock_in_child)
+
 _ids = itertools.count(1)
 _SPANS: deque = deque(
     maxlen=max(16, int(os.environ.get("PADDLE_TPU_SPAN_RING", "4096"))))

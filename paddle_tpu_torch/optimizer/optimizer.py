@@ -238,9 +238,11 @@ class Optimizer:
     @torch.no_grad()
     def set_state_dict(self, state_dict):
         """Restore :meth:`state_dict`: the step count, the scheduler's
-        state and every slot, matched by parameter name (a slot entry
-        that names no parameter raises ``KeyError``; a shape that does not
-        fit raises ``ValueError``)."""
+        state and every slot, matched all by parameter name or, when the
+        names are another model's (a fresh model's generated names) and
+        the counts agree, all by position, the JAX optimizer's rule (a
+        slot entry that fits neither raises ``KeyError``; a shape that
+        does not fit raises ``ValueError``)."""
         sc = state_dict.get("step_count", 0)
         self._step_count = int(sc.item() if torch.is_tensor(sc) else sc)
         if isinstance(self._lr, LRScheduler) and \
@@ -250,16 +252,25 @@ class Optimizer:
             return
         params = dict(zip(self._names, self._parameters))
         slot_names = set(self._init_slots(torch.zeros(1)))
-        found: dict = {}
+        by_prefix: dict = {}
         for key, v in state_dict.items():
             if key in _SPECIAL:
                 continue
             sn = next((s for s in slot_names if key.endswith(f"_{s}")), None)
-            name = key[:-len(sn) - 1] if sn else None
-            if name not in params:
+            if sn is None:
                 raise KeyError(f"optimizer state entry {key!r} names no "
-                               f"parameter of this optimizer")
-            found.setdefault(name, {})[sn] = v
+                               f"slot of this optimizer")
+            by_prefix.setdefault(key[:-len(sn) - 1], {})[sn] = v
+        # EITHER all by name OR all by position: mixing the two could pair
+        # shifted generated names with the wrong parameter's slots
+        if all(n in params for n in by_prefix):
+            found = by_prefix
+        elif len(by_prefix) == len(self._names):
+            found = dict(zip(self._names, by_prefix.values()))
+        else:
+            bad = next(n for n in by_prefix if n not in params)
+            raise KeyError(f"optimizer state entry {bad!r} names no "
+                           f"parameter of this optimizer")
         for name, src in found.items():
             p = params[name]
             slots = self._init_slots(p)

@@ -124,6 +124,7 @@ from ..kernels import paged_attention as _pa
 from ..kernels.paged_attention import SPARE_PAGE
 from ..observability import flight, registry
 from ..observability import perfscope as _perfscope
+from ..observability import retrace as _retrace
 from ..observability import watchdog as _watchdog
 from ..observability.trace import span
 from ..testing import faults
@@ -178,6 +179,12 @@ SERVING_HOST_PREFIX_PROMOTE_SECONDS = \
 
 # the perfscope program names of the engine's dispatches
 PROGRAM_DECODE = "serving.decode"
+
+
+# the retrace sentinel's entry-point names (the JAX engine's)
+_RETRACE_NAMES = {"prefill": "serving.prefill", "decode": "serving.decode",
+                  "tail": "serving.tail_prefill",
+                  "copy": "serving.prefix_copy"}
 
 
 class QueueFullError(RuntimeError):
@@ -1183,6 +1190,21 @@ class Engine:
         with self._lock:
             return self._compile_stats_locked()
 
+    def _add_sig(self, kind, sig) -> bool:
+        """Book ``sig`` for entry point ``kind`` (under ``_lock``); True
+        when it is new."""
+        book = self._sigs[kind]
+        if sig in book:
+            return False
+        book.add(sig)
+        return True
+
+    def _note_build(self, kind, sig, seconds):
+        """A new signature of entry point ``kind``: a build for the
+        retrace sentinel, under the JAX engine's names."""
+        _retrace.note_compile(_RETRACE_NAMES[kind], sig, seconds,
+                              len(self._sigs[kind]))
+
     def _compile_stats_locked(self) -> dict:
         return {"prefill_compiles": len(self._sigs["prefill"]),
                 "decode_compiles": len(self._sigs["decode"]),
@@ -1822,7 +1844,9 @@ class Engine:
         with self._lock:
             self._counts["prefill_batches"] += 1
             self._counts["prefill_seconds"] += dt
-            self._sigs["prefill"].add((n, bucket))
+            fresh = self._add_sig("prefill", (n, bucket))
+        if fresh:
+            self._note_build("prefill", (n, bucket), dt)
         registry().histogram(SERVING_BATCH_SECONDS,
                              "prefill/decode batch wall time").observe(
             dt, labels={"phase": "prefill"})
@@ -1935,9 +1959,12 @@ class Engine:
             self._counts["page_cow_copies"] += n_copy
             self._counts["tail_prefill_read_groups"] += len(
                 _pa.paged_groups(tb))
-            self._sigs["tail"].add((n_rows, tb))
-            if n_copy:
-                self._sigs["copy"].add((lanes,))
+            fresh = [("tail", (n_rows, tb), t_end - t_copy_end)
+                     ] if self._add_sig("tail", (n_rows, tb)) else []
+            if n_copy and self._add_sig("copy", (lanes,)):
+                fresh.append(("copy", (lanes,), t_copy_end - t0))
+        for kind, sig, dt in fresh:
+            self._note_build(kind, sig, dt)
         self._emit_first_tokens(hits, toks, by_slot=True)
 
     def _copy_pages(self, src, dst):
@@ -2132,9 +2159,9 @@ class Engine:
             self._stage(*inputs)
             logits, toks = self._decode_forward()
             with self._lock:
-                fresh = sig not in self._sigs["decode"]
-                self._sigs["decode"].add(sig)
+                fresh = self._add_sig("decode", sig)
             if fresh:
+                self._note_build("decode", sig, time.perf_counter() - t0)
                 self._register_decode_cost(sig)
             if sample:
                 _perfscope.block_ready(toks)
@@ -2148,8 +2175,9 @@ class Engine:
             entry = self._capture(sig)
             self._build = (t_b0, time.perf_counter() - t_b0)
             with self._lock:
-                self._sigs["decode"].add(sig)
+                self._add_sig("decode", sig)
                 self._counts["decode_capture_seconds"] += self._build[1]
+            self._note_build("decode", sig, self._build[1])
             self._register_decode_cost(sig)
         self._stage(*inputs)
         t0, t1, t2 = self._events

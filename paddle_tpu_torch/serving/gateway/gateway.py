@@ -608,7 +608,7 @@ class Gateway:
     def _dispatch_impl(self):
         outstanding: list = []       # local to this thread — never shared
         while True:
-            faults.fault_point("gateway.dispatch")
+            faults.fault_point("gateway.dispatch", gateway=self)
             self._reap(outstanding)
             if self._stop_ev.is_set():
                 break

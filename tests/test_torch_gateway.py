@@ -666,9 +666,13 @@ def test_gateway_clean_shutdown_fails_queued(models):
 def test_dispatcher_fault_degrades_healthz(models):
     _, pm = models
     eng = _engine(pm, max_slots=1)
+    # the module's `stacks` gateway crosses the same seam every poll: the
+    # one shot matches only the dispatcher of the gateway under test
+    g = gw.Gateway([eng], start=False)
     faults.arm("gateway.dispatch", exc=RuntimeError("dispatcher died"),
-               times=1)
-    with gw.start_gateway([eng], own_engines=True) as stack:
+               times=1, match={"gateway": g})
+    g.start()
+    with gw.start_gateway(g, own_engines=True) as stack:
         assert _wait(lambda: not stack.gateway.dispatcher_alive())
         status, raw = _get(stack.port, "/healthz")
         health = json.loads(raw)

@@ -1,14 +1,14 @@
 """A/B of the flash-attention kernels and the GPT training cell, the
 fused-LayerNorm cell, the conv+BN kernels, the paged decode kernel, the
-serving cell or the CRNN cell, between checkouts of the PyTorch/CUDA
-port, on one card, in turns.
+serving cell, the CRNN cell or the fit loop, between checkouts of the
+PyTorch/CUDA port, on one card, in turns.
 
 Usage, from the root of a checkout, with one CUDA card::
 
     git archive <parent> | tar -x -C build/parent
     python tools/flash_ab.py --roots build/parent . . build/parent \\
         --out build/flash_ab.json [--mode fused-ln | conv-bn | paged |
-        serve | crnn]
+        serve | crnn | fit]
 
 Each root runs in a fresh process that imports ``paddle_tpu_torch`` from
 that root (and builds its kernels there).  ``--mode flash`` (the default)
@@ -66,6 +66,16 @@ batch 128, the LSTM through torch's fused recurrent op) three times in
 the root's process: each run's step ms, and their median as
 ``step_ms`` (the step is short and host-bound).
 
+``--mode fit`` runs ``chip_smoke.py`` phase 42, the paddle user's
+training loop (``DataLoader`` workers over the shm ring, ``Model.fit``
+with ``prefetch=True``, checkpoints, a SIGTERM and ``resume="auto"`` at
+BERT-base width, 64 x 512 bf16) with all its gates: the fit loop's
+device ms a step (median and mean of the uninterrupted run's warm steps,
+CUDA events at each batch's begin), the busy share of one profiled
+epoch, the prefetcher's wait and stalls, the emergency save's and the
+restore's ms.  A checkout without ``paddle_tpu_torch.Model`` (before the
+fit loop was ported) reads null.
+
 The helpers come from this checkout's ``chip_smoke.py``.  Prints one JSON
 line a run, the ``nvidia-smi`` name and power limit, and the mean of each
 root's runs with the ratio of the first root's to every other's.
@@ -93,7 +103,9 @@ KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
         "serve": ("tokens_per_s", "p50_ttft_ms", "decode_step_ms",
                   "device_step_ms", "window_paged_ms",
                   "window_decode_steps", "window_busy_share"),
-        "crnn": ("step_ms", "run_1_ms", "run_2_ms", "run_3_ms")}
+        "crnn": ("step_ms", "run_1_ms", "run_2_ms", "run_3_ms"),
+        "fit": ("fit_step_ms", "fit_mean_ms", "busy_share", "wait_ms",
+                "stalls", "emergency_save_ms", "restore_ms")}
 
 
 def _smoke():
@@ -378,9 +390,36 @@ def measure_crnn(root: str, seed: int = 0, runs: int = 3) -> dict:
     return res
 
 
+def measure_fit(root: str, seed: int = 16) -> dict:
+    """Phase 42's fit loop of one root, in this process (``root`` first
+    on the path); null for a root without the fit loop."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import paddle_tpu_torch
+
+    cs = _smoke()
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: no CUDA card")
+    res = dict(root=root, package=os.path.dirname(paddle_tpu_torch.__file__))
+    if not hasattr(paddle_tpu_torch, "Model"):
+        return dict(res, **{k: None for k in KEYS["fit"]})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = cs.phase_fit(torch.device("cuda", 0), seed, "")
+    a, b, c = (out["runs"][k] for k in "ABC")
+    return dict(res, fit_step_ms=out["fit_step_ms"],
+                fit_mean_ms=out["fit_mean_ms"],
+                busy_share=out["profile"]["device_busy_share"],
+                wait_ms=1e3 * a["prefetch"]["wait_seconds"],
+                stalls=a["prefetch"]["stalls"],
+                emergency_save_ms=b["snapshot_ms"][-1] + b["write_ms"][-1],
+                restore_ms=c["load_ms"][0])
+
+
 MEASURE = {"flash": measure, "fused-ln": measure_fused_ln,
            "conv-bn": measure_conv_bn, "paged": measure_paged,
-           "serve": measure_serve, "crnn": measure_crnn}
+           "serve": measure_serve, "crnn": measure_crnn, "fit": measure_fit}
 
 
 def main(argv=None) -> int:
