@@ -442,7 +442,8 @@ run with a non-zero exit, and nothing is caught):
    (2 epochs of 8 steps), B (the same until a real ``SIGTERM`` at global
    step 6: the emergency checkpoint) and C (a fresh optimizer and the
    starting weights with ``resume="auto"``) from the same weights, D (one
-   epoch under ``torch.profiler``) and 3 ``make_train_step`` steps on the
+   epoch without checkpoints, its warm steps under ``torch.profiler``)
+   and 3 ``make_train_step`` steps on the
    same network; gated on B's losses then C's equal to A's bit for bit,
    12 flash forwards and 12 of each backward kernel a step in bf16 and no
    plain version, committed CRC-valid checkpoints whose model leaves
@@ -450,8 +451,9 @@ run with a non-zero exit, and nothing is caught):
    under ``set_sync_debug_mode("error")``, one ``hapi_train_batch``
    latency sample a step, eager op-dispatch counters for the layers' ops,
    one ``spmd_train_step`` signature, and batches over the workers' shm
-   ring; printed: the fit loop's device ms a step beside phase 40's bare
-   loop, the busy share, the prefetcher's stalls and wait, each
+   ring; printed: the fit loop's device ms a step (the mean of A's warm
+   steps, saves included, and of D's) beside phase 40's bare loop, the
+   warm window's busy share, the prefetcher's stalls and wait, each
    checkpoint's bytes, save and restore ms, peak memory.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
@@ -899,6 +901,14 @@ def _device_profile(fn, trace_path=None, top=10):
         wall_us = 1e6 * (time.perf_counter() - t0)
     if trace_path:
         prof.export_chrome_trace(trace_path)
+    return _profile_summary(prof, wall_us, top)
+
+
+def _profile_summary(prof, wall_us, top=10):
+    """``_device_profile``'s numbers from a finished ``torch.profiler``
+    session whose window lasted ``wall_us``."""
+    import torch
+
     spans, by_name, n_by_name = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -6952,7 +6962,37 @@ def _fit_callbacks(paddle):
                         _fail("fit: the SIGTERM never reached the handler")
                     time.sleep(1e-3)
 
-    return Guard, Losses, SigtermAt
+    class WarmWindow(paddle.callbacks.Callback):
+        """``torch.profiler`` over an epoch's warm steps: started at the
+        end of step ``FIT_WARM - 1`` (after a sync, so the window opens on
+        an empty queue; outside the no-sync window), stopped at the
+        epoch's end; ``res`` holds ``_profile_summary``'s numbers."""
+
+        def __init__(self):
+            super().__init__()
+            self.n, self.prof, self.res, self.steps = 0, None, None, 0
+
+        def on_train_batch_end(self, step, logs=None):
+            self.n += 1
+            if self.n == FIT_WARM and self.prof is None:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+
+        def on_epoch_end(self, epoch, logs=None):
+            if self.prof is None or self.res is not None:
+                return
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - self.t0)
+            self.prof.__exit__(None, None, None)
+            self.res = _profile_summary(self.prof, wall_us)
+            self.steps = self.n - FIT_WARM
+
+    return Guard, Losses, SigtermAt, WarmWindow
 
 
 def _committed(saver, what):
@@ -7007,9 +7047,10 @@ def phase_fit(dev, seed, smi, layers=None):
     telemetry on.  Three runs from the same weights: A uninterrupted (2
     epochs of 8 steps), B the same until a real SIGTERM at global step 6
     (the emergency checkpoint), C a fresh model and optimizer with
-    ``resume="auto"``; then D, one epoch under ``torch.profiler`` (the busy
-    share), and 3 steps of ``make_train_step`` on the same network (the
-    retrace sentinel's one signature).  Gates: B's losses then C's equal
+    ``resume="auto"``; then D, one epoch without checkpoints whose warm
+    steps run under ``torch.profiler`` (the busy share), and 3 steps of
+    ``make_train_step`` on the same network (the retrace sentinel's one
+    signature).  Gates: B's losses then C's equal
     A's bit for bit; 12 flash forwards and 12 + 12 + 12 backward launches
     a step, all bf16, no plain version; every committed checkpoint loads
     with its CRCs and its model leaves restore as bf16; the prefetcher
@@ -7044,14 +7085,14 @@ def phase_fit(dev, seed, smi, layers=None):
     net = _fit_net(paddle, enc)
     start = {k: v.value.clone() for k, v in net.state_dict().items()}
     data = _token_rows(paddle, seed + 1)
-    Guard, Losses, SigtermAt = _fit_callbacks(paddle)
+    Guard, Losses, SigtermAt, WarmWindow = _fit_callbacks(paddle)
     root = tempfile.mkdtemp(prefix="fit_ckpt_")
     was_on = obs.enabled()
     obs.enable(True)
     runs = {}
 
     def run(name, ckdir, epochs=FIT_EPOCHS, sigterm=None, resume=None,
-            ckpt=True):
+            ckpt=True, extra=()):
         net.set_state_dict(start)
         paddle.seed(seed + (99 if resume else 2))
         opt = paddle.optimizer.AdamW(
@@ -7062,7 +7103,7 @@ def phase_fit(dev, seed, smi, layers=None):
         loader = paddle.io.DataLoader(data, batch_size=PL_B, shuffle=True,
                                       num_workers=2, use_shared_memory=True)
         guard, losses = Guard(), Losses()
-        cbs = [guard, losses]
+        cbs = [guard, losses, *extra]
         if sigterm:
             cbs.append(SigtermAt(sigterm))
         cb = None
@@ -7114,9 +7155,11 @@ def phase_fit(dev, seed, smi, layers=None):
                   f"{max(ckpts['B'])}, not the emergency one at "
                   f"{FIT_PREEMPT_AT}")
         c = run("C", os.path.join(root, "b"), resume="auto")
-        # D: one epoch under the profiler, no checkpoints (the busy share)
-        prof = _device_profile(lambda: run("D", None, epochs=1, ckpt=False))
-        d = runs["D"]
+        # D: one epoch, no checkpoints; its warm steps under the profiler
+        # (the busy share)
+        window = WarmWindow()
+        d = run("D", None, epochs=1, ckpt=False, extra=[window])
+        prof = window.res
         # the retrace sentinel on the same network: make_train_step
         n0 = retrace.compile_count("spmd_train_step")
         opt = paddle.optimizer.AdamW(learning_rate=1e-4,
@@ -7190,9 +7233,15 @@ def phase_fit(dev, seed, smi, layers=None):
     del net, enc, start, step, opt, batch
     paddle.set_device("cpu")
     torch.cuda.empty_cache()
+    if prof is None or window.steps != per_epoch - FIT_WARM:
+        _fail(f"{tag}: the profiled window of D covered {window.steps} "
+              f"steps")
     # -- printed
     warm = sorted(a["step_ms"][FIT_WARM:])
-    fit_ms = warm[len(warm) // 2]
+    fit_ms = sum(warm) / len(warm)
+    fit_median = warm[len(warm) // 2]
+    warm_d = d["step_ms"][FIT_WARM:]
+    d_ms = sum(warm_d) / len(warm_d)
     bare_ms = layers["runs"]["off"]["step_ms"] if layers else None
     pf = a["prefetch"]
     phase_s = time.perf_counter() - t_phase
@@ -7201,12 +7250,14 @@ def phase_fit(dev, seed, smi, layers=None):
           f"{len(c['losses'])}: bit-identical; launches a step "
           f"{ {k: v // a['steps'] for k, v in a['launches'].items() if v} } "
           f"all bf16")
-    print(f"[{tag}] fit loop step ms (device, between batch begins; median "
-          f"of A's warm steps) {fit_ms:.3f}, mean "
-          f"{sum(warm) / len(warm):.3f}; phase 40's bare loop "
+    print(f"[{tag}] fit loop step ms (device, between batch begins; mean "
+          f"of A's warm steps, its saves included) {fit_ms:.3f}, median "
+          f"{fit_median:.3f}; D's warm steps (no checkpoints, under the "
+          f"profiler) mean {d_ms:.3f}; phase 40's bare loop "
           f"{'not run' if bare_ms is None else f'{bare_ms:.3f} ms a step'}"
           f" (same call); on {smi}")
-    _print_profile(f"{tag}-profile", "run D, one epoch through fit", prof)
+    _print_profile(f"{tag}-profile", f"run D's warm steps {FIT_WARM + 1}-"
+                   f"{per_epoch} through fit", prof)
     print(f"[{tag}] prefetcher (A): {pf['batches']} batches, {pf['stalls']} "
           f"stalls after warm-up, {pf['wait_seconds'] * 1e3:.3f} ms waited; "
           f"shm batches {a['shm_batches']}; {a['guarded']} warm train_batch "
@@ -7223,8 +7274,8 @@ def phase_fit(dev, seed, smi, layers=None):
           f"memory {a['peak_memory_bytes']} bytes; {phase_s:.1f} s; {smi}")
     for r in runs.values():
         r.pop("saver", None)
-    return dict(runs=runs, fit_step_ms=fit_ms,
-                fit_mean_ms=sum(warm) / len(warm), bare_step_ms=bare_ms,
+    return dict(runs=runs, fit_step_ms=fit_ms, fit_median_ms=fit_median,
+                nosave_step_ms=d_ms, bare_step_ms=bare_ms,
                 profile={k: v for k, v in prof.items()
                          if k != "all_kernels_ms"},
                 checkpoints=ckpts, spmd_signatures=n_spmd,

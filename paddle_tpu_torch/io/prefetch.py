@@ -15,8 +15,11 @@ copy is pinned staging plus a copy stream:
   batch, and every delivered tensor gets ``record_stream`` on the
   consumer's stream, so the caching allocator does not hand its memory
   out again while the consumer's work on it may still be queued;
-* a pinned buffer is reused only after its copy's event has completed
-  (``Event.query()``: the producer polls, it never waits on the card);
+* each leaf goes through a pinned block of torch's caching host
+  allocator: the ``non_blocking`` copy records its event on the block,
+  and the allocator hands the block out again only after that event has
+  completed (it queries the event, it never waits on the card), so any
+  leaf size works, batch to batch;
 * a ``DataLoader`` hands over its host batches (``DataLoader._host_iter``)
   so the host-to-device copy happens once, on the copy stream.
 
@@ -114,34 +117,6 @@ def _host_tensor(v) -> torch.Tensor:
     return torch.from_numpy(v)
 
 
-class _Staging:
-    """Pinned host buffers for the producer, each reused only after the
-    copy out of it has completed on the card."""
-
-    def __init__(self, limit: int):
-        self._free: list = []       # (buffer, event or None)
-        self._limit = limit
-        self._made = 0
-
-    def take(self, nbytes: int, stop: threading.Event):
-        while True:
-            for i, (buf, ev) in enumerate(self._free):
-                if buf.numel() >= nbytes and (ev is None or ev.query()):
-                    return self._free.pop(i)[0]
-            if self._made < self._limit:
-                self._made += 1
-                return torch.empty(max(nbytes, 1), dtype=torch.uint8,
-                                   pin_memory=True)
-            if stop.is_set():
-                return None
-            # every buffer is in flight: the copies are queued on the
-            # card; poll (never wait on the device from this thread)
-            time.sleep(2e-4)
-
-    def give(self, buf, event):
-        self._free.append((buf, event))
-
-
 class _PrefetchIter:
     """One epoch: a producer thread + a bounded queue.  Created fresh per
     ``iter(DevicePrefetcher)`` so epoch loops restart the pipeline."""
@@ -198,11 +173,10 @@ class _PrefetchIter:
 
     def _produce_cuda(self, source, dev):
         stream = torch.cuda.Stream(dev)
-        staging = _Staging(limit=8 * (self._owner.depth + 2))
         for batch in source:
             if self._stop.is_set():
                 return
-            tensors, used = [], []
+            tensors = []
 
             def put(v):
                 src = _host_tensor(v)
@@ -210,27 +184,19 @@ class _PrefetchIter:
                     raise RuntimeError(
                         "DevicePrefetcher takes host batches; got a CUDA "
                         "tensor")
-                nbytes = src.numel() * src.element_size()
-                buf = staging.take(nbytes, self._stop)
-                if buf is None:
-                    raise _Stopped
-                pinned = buf[:nbytes].view(src.dtype).view(src.shape)
+                # a block of the caching host allocator, released with
+                # ``pinned``: the copy's recorded event keeps it from reuse
+                pinned = torch.empty(src.shape, dtype=src.dtype,
+                                     pin_memory=True)
                 pinned.copy_(src)
-                used.append(buf)
                 with torch.cuda.stream(stream):
-                    t = torch.empty(src.shape, dtype=src.dtype, device=dev)
-                    t.copy_(pinned, non_blocking=True)
+                    t = pinned.to(dev, non_blocking=True)
                 tensors.append(t)
                 return Tensor._wrap(t)
 
-            try:
-                tree = _tree_map(batch, put)
-            except _Stopped:
-                return
+            tree = _tree_map(batch, put)
             event = torch.cuda.Event()
             event.record(stream)
-            for buf in used:
-                staging.give(buf, event)
             if not self._enqueue(_Batch(tree, event, tensors)):
                 return
 
@@ -310,10 +276,6 @@ class _PrefetchIter:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
-
-
-class _Stopped(Exception):
-    """The producer was stopped while it waited for a staging buffer."""
 
 
 class DevicePrefetcher:

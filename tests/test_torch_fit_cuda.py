@@ -10,6 +10,7 @@ fixture at run time); this file imports no JAX.  Run on the chip:
 """
 import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -103,6 +104,43 @@ def test_prefetch_warm_loop_waits_for_no_device(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert n == 15 and torch.isfinite(acc).all()
+
+
+def _growing(n):
+    """``n`` batches whose leaves grow from batch to batch (padded or
+    length-bucketed batches), each one's values set by its index."""
+    for k in range(n):
+        rs = np.random.RandomState(k)
+        yield (rs.randn(4, 64 * (k + 1)).astype(np.float32),
+               {"ids": np.arange(3 * (k + 1), dtype=np.int64) + k})
+
+
+@pytest.mark.cuda
+def test_prefetch_leaves_growing_batch_to_batch(cuda):
+    n, got, errors = 96, [], []
+    w = torch.randn(64, 64, device=cuda)
+
+    def consume():
+        try:
+            for k, (x, d) in enumerate(DevicePrefetcher(_growing(n),
+                                                         depth=2)):
+                # queue work on the batch so copies overlap compute
+                y = x.value.reshape(-1, 64) @ w
+                got.append((x.value.cpu(), d["ids"].value.cpu(),
+                            bool(torch.isfinite(y).all())))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive(), f"prefetcher hung after {len(got)} batches"
+    assert not errors, errors
+    assert len(got) == n
+    for (x, ids, finite), (rx, rd) in zip(got, _growing(n)):
+        assert finite
+        np.testing.assert_array_equal(x.numpy(), rx)
+        np.testing.assert_array_equal(ids.numpy(), rd["ids"])
 
 
 @pytest.mark.cuda

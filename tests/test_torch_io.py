@@ -8,7 +8,7 @@ batches.  The shm ring is the port's own copy of ``shm_ring.cpp``, built
 with g++ at first use into ``build/``.  Every ``DevicePrefetcher``
 contract of the JAX package's ``test_prefetch.py`` that needs no mesh
 holds here on the CPU (the card's copy stream is in
-``test_torch_io_cuda.py``).
+``test_torch_fit_cuda.py``).
 """
 import threading
 import time
@@ -454,6 +454,21 @@ def test_prefetch_warm_buffer_records_no_stall():
     assert len(rest) == 5 and pf.stats()["stalls"] == 0
     assert not [e for e in flight.events("pipeline_stall")
                 if e["name"] == "warm_probe"]
+
+
+def test_prefetch_leaves_growing_batch_to_batch():
+    def growing(n):
+        for k in range(n):
+            rs = np.random.RandomState(k)
+            yield (rs.randn(2, 8 * (k + 1)).astype(np.float32),
+                   np.arange(k + 1, dtype=np.int64))
+
+    got = list(DevicePrefetcher(growing(40), depth=2, device="cpu"))
+    ref = list(growing(40))
+    assert len(got) == len(ref)
+    for (x, i), (rx, ri) in zip(got, ref):
+        np.testing.assert_array_equal(x.numpy(), rx)
+        np.testing.assert_array_equal(i.numpy(), ri)
 
 
 def test_prefetch_nests_and_dtypes():

@@ -70,9 +70,11 @@ the root's process: each run's step ms, and their median as
 training loop (``DataLoader`` workers over the shm ring, ``Model.fit``
 with ``prefetch=True``, checkpoints, a SIGTERM and ``resume="auto"`` at
 BERT-base width, 64 x 512 bf16) with all its gates: the fit loop's
-device ms a step (median and mean of the uninterrupted run's warm steps,
-CUDA events at each batch's begin), the busy share of one profiled
-epoch, the prefetcher's wait and stalls, the emergency save's and the
+device ms a step (CUDA events at each batch's begin: the mean of the
+uninterrupted run's warm steps, its saves included, as ``fit_step_ms``,
+their median, and the mean of the checkpoint-free run D's warm steps as
+``nosave_step_ms``), the busy share of D's warm steps under the
+profiler, the prefetcher's wait and stalls, the emergency save's and the
 restore's ms.  A checkout without ``paddle_tpu_torch.Model`` (before the
 fit loop was ported) reads null.
 
@@ -104,7 +106,8 @@ KEYS = {"flash": ("fwd_ms", "fwd_eager_ms", "bwd_ms", "bwd_eager_ms",
                   "device_step_ms", "window_paged_ms",
                   "window_decode_steps", "window_busy_share"),
         "crnn": ("step_ms", "run_1_ms", "run_2_ms", "run_3_ms"),
-        "fit": ("fit_step_ms", "fit_mean_ms", "busy_share", "wait_ms",
+        "fit": ("fit_step_ms", "fit_median_ms", "nosave_step_ms",
+                "busy_share", "wait_ms",
                 "stalls", "emergency_save_ms", "restore_ms")}
 
 
@@ -409,7 +412,8 @@ def measure_fit(root: str, seed: int = 16) -> dict:
     out = cs.phase_fit(torch.device("cuda", 0), seed, "")
     a, b, c = (out["runs"][k] for k in "ABC")
     return dict(res, fit_step_ms=out["fit_step_ms"],
-                fit_mean_ms=out["fit_mean_ms"],
+                fit_median_ms=out["fit_median_ms"],
+                nosave_step_ms=out["nosave_step_ms"],
                 busy_share=out["profile"]["device_busy_share"],
                 wait_ms=1e3 * a["prefetch"]["wait_seconds"],
                 stalls=a["prefetch"]["stalls"],
