@@ -454,7 +454,40 @@ run with a non-zero exit, and nothing is caught):
    ring; printed: the fit loop's device ms a step (the mean of A's warm
    steps, saves included, and of D's) beside phase 40's bare loop, the
    warm window's busy share, the prefetcher's stalls and wait, each
-   checkpoint's bytes, save and restore ms, peak memory.
+   checkpoint's bytes, save and restore ms, peak memory;
+43. (run after 42) the main path's train step under ``paddle.profiler``,
+   preempted: full-width gpt2-small-en at 16 x 1024, bf16 over f32
+   masters, AdamW, hidden dropout 0.1 (attention dropout 0: the flash
+   kernels draw no mask), built as ``make_train_step(...).attach_saver(
+   AsyncCheckpointSaver(dir))``.  Run A: 8 steps under ``Profiler(targets=
+   [CPU, GPU], scheduler=(2, 5), on_trace_ready=export_chrome_tracing(
+   dir))``, a ``RecordEvent("step")`` around each, telemetry on; run B:
+   the same under ``preemption.guard()`` with a real ``SIGTERM`` before
+   step 5 (``TrainingPreempted(5)``, the emergency checkpoint); run C: a
+   fresh step of other weights restored with ``restore_latest_valid()``
+   runs steps 6-8.  Gated on B's and C's losses equal to A's bit for bit,
+   ``saver.steps() == [5]``, the summary's ``step`` row (3 calls), the
+   exported JSON's host, span (``train_step``) and telemetry events, the
+   window's ``torch.profiler`` trace naming the fused flash forward and the
+   delta, dk/dv and dq kernels 12 times a recorded step, 12 launches of
+   each a step and no plain version; printed: the recorded steps' mean ms
+   beside the unrecorded ones' (the profiler's cost), the emergency
+   save's ms and bytes, the restore's ms;
+44. (run after 43) ``paddle.quantization`` on ``resnet50(num_classes=
+   1000)``, f32, eval, 224^2: 8 batches of 32 ``.npy`` images read through
+   ``vision.datasets.DatasetFolder(loader=np.load)``,
+   ``paddle.reader.buffered`` and ``paddle.batch``; ``PTQ(algo="kl")``
+   calibrated on 4 and converted; gated on top-1 agreement with the f32
+   model of at least 99% on the 4 others, 53 ``QuantedConv2D`` and 1
+   ``QuantedLinear``, every converted weight on its channel's int8 grid,
+   every observer's CPU twin (fed host copies of the activations the
+   card's observer saw) within one histogram bin width of the card's
+   threshold, and a CPU copy of the model calibrated on the same images
+   agreeing with the card's converted model on at least 99% of the top-1
+   (its thresholds' distance printed); then 3 QAT ``Momentum`` steps at batch 32 (finite losses, a
+   nonzero straight-through gradient on every wrapped weight); printed:
+   calibration ms a batch, convert ms, the converted forward's ms beside
+   the f32 forward's.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -7285,6 +7318,533 @@ def phase_fit(dev, seed, smi, layers=None):
                 device=smi)
 
 
+# -- phase 43: the main path's step under the profiler, preempted ------------
+
+PROF_STEPS, PROF_WINDOW, PROF_PREEMPT_AT = 8, (2, 5), 5
+PROF_B, PROF_T, PROF_VOCAB = 16, 1024, 50304
+# the bf16 flash kernels one gpt2-small step launches 12 times each (one
+# a layer): the fused forward (row 5) and the backward's delta, dk/dv and
+# dq kernels (row 6), by the names the device trace gives them
+PROF_KERNELS = {"fused_fwd": "flash_fwd_bf16_kernel",
+                "fused_bwd_delta": "flash_bwd_delta_kernel",
+                "fused_bwd_dkv": "flash_bwd_dkv_bf16_kernel",
+                "fused_bwd_dq": "flash_bwd_dq_bf16_kernel"}
+
+
+def _profiled_model(dev, seed):
+    """gpt2-small-en at full width with ``_random_state``'s weights, its
+    configured hidden dropout (0.1, ``torch.nn.Dropout``) and attention
+    dropout 0: dropout inside attention takes the plain math (the flash
+    kernels draw no mask), and this phase holds the kernels' path."""
+    from paddle_tpu_torch.models import build_gpt, load_jax_state
+
+    model = build_gpt("gpt2-small-en", device=dev,
+                      attention_dropout_prob=0.0)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_attention_heads,
+            cfg.vocab_size, cfg.hidden_dropout_prob) != (
+                768, N_LAYERS, 12, PROF_VOCAB, 0.1):
+        _fail(f"gpt2-small-en is not at full width with its dropout: {cfg}")
+    load_jax_state(model, _random_state(model, seed))
+    return model
+
+
+def _want_attention(steps):
+    """``_want_launches(steps)``'s flash counters (12 fused forwards and
+    12 of each backward kernel a step, nothing else)."""
+    keys = [key for _, _, key in _attention_slots()]
+    return {k: v for k, v in _want_launches(steps).items() if k in keys}
+
+
+def _trace_kernel_counts(path):
+    """Launches of each ``PROF_KERNELS`` kernel in a ``torch.profiler``
+    chrome trace, and the number of kernel events in it."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return ({k: sum(frag in n for n in kernels)
+             for k, frag in PROF_KERNELS.items()}, len(kernels))
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def phase_profiled_step(dev, seed, smi):
+    """Phase 43: the main path's train step (full-width gpt2-small-en,
+    16 x 1024, bf16 over f32 masters, AdamW, hidden dropout 0.1) built as
+    ``make_train_step(...).attach_saver(AsyncCheckpointSaver(dir))``.  Run
+    A: 8 steps under ``paddle.profiler.Profiler(targets=[CPU, GPU],
+    scheduler=(2, 5), on_trace_ready=export_chrome_tracing(dir))`` with a
+    ``RecordEvent("step")`` around each and telemetry on.  Run B: the same
+    weights, generators and batches under ``preemption.guard()`` with a
+    real ``SIGTERM`` to the process before step 5: step 5 writes the
+    emergency checkpoint and raises ``TrainingPreempted(5)``.  Run C: a
+    fresh model of other weights and a fresh step restored from
+    ``restore_latest_valid()`` runs steps 6-8.  Gates: B's steps 1-4 and
+    C's steps 6-8 equal A's losses bit for bit (dropout on); ``saver.steps()
+    == [5]``; the summary lists ``step`` once per recorded step (3); the
+    exported JSON holds host, ``span`` (``train_step`` among them) and
+    ``telemetry`` events; the window's ``torch.profiler`` trace names the
+    fused flash forward and the delta, dk/dv and dq kernels 12 times per
+    recorded step; the launch counters read 12 of each a step in every run,
+    and no plain version runs.  Printed: the recorded steps' mean ms
+    beside the unrecorded steps' (1, 6-8), the emergency save's ms and
+    bytes and the restore's ms."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler as pprof
+    from paddle_tpu_torch.framework import preemption
+    from paddle_tpu_torch.framework.checkpoint import AsyncCheckpointSaver
+
+    tag = "profiled-step"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="profiled_step_")
+    ids = np.random.RandomState(seed).randint(
+        0, PROF_VOCAB, size=(PROF_STEPS, PROF_B, PROF_T + 1)).astype(np.int64)
+    xs = torch.from_numpy(ids[:, :, :-1]).to(dev)
+    ys = torch.from_numpy(ids[:, :, 1:]).to(dev)
+    recording = (pprof.ProfilerState.RECORD,
+                 pprof.ProfilerState.RECORD_AND_RETURN)
+    was_on = obs.enabled()
+    prof_dirs = []
+
+    def fresh_step(weights_seed, saver=None):
+        model = _profiled_model(dev, weights_seed)
+        step = _train_step(model, torch.bfloat16)
+        return step.attach_saver(saver) if saver is not None else step
+
+    def seed_generators():
+        # what the step's dropout draws from: torch's default generator
+        # (the models' torch.nn.Dropout) and the port's
+        torch.manual_seed(seed)
+        paddle.seed(seed)
+
+    try:
+        # run A: profiled
+        step = fresh_step(seed, AsyncCheckpointSaver(os.path.join(root, "a")))
+        trace_dir = os.path.join(root, "traces")
+        prof = pprof.Profiler(
+            targets=[pprof.ProfilerTarget.CPU, pprof.ProfilerTarget.GPU],
+            scheduler=PROF_WINDOW,
+            on_trace_ready=pprof.export_chrome_tracing(trace_dir))
+        seed_generators()
+        obs.enable(True)
+        losses_a, ms_a, recorded = [], [], []
+        _attention_counters(zero=True)
+        with _no_plain():
+            prof.start()
+            for i in range(PROF_STEPS):
+                recorded.append(prof.current_state in recording)
+                t0 = time.perf_counter()
+                with pprof.RecordEvent("step"):
+                    losses_a.append(float(step(xs[i], ys[i])))
+                ms_a.append(1e3 * (time.perf_counter() - t0))
+                prof.step()
+            prof.stop()
+        obs.enable(was_on)
+        n_a = _attention_counters()
+        prof_dirs = [os.path.dirname(p) for p in prof.device_trace_paths]
+        del step
+        torch.cuda.empty_cache()
+        n_rec = sum(recorded)
+        if recorded != [False, False, True, True, True, False, False,
+                        False]:
+            _fail(f"{tag}: recorded steps {recorded}, not 3-5")
+        summary = prof.summary()
+        calls = [ln.split() for ln in summary.splitlines()
+                 if ln.split()[:1] == ["step"]]
+        if len(calls) != 1 or int(calls[0][1]) != n_rec:
+            _fail(f"{tag}: the summary's step row is {calls}, not {n_rec} "
+                  f"calls:\n{summary}")
+        exported = sorted(os.listdir(trace_dir))
+        if len(exported) != 1:
+            _fail(f"{tag}: export_chrome_tracing wrote {exported}")
+        with open(os.path.join(trace_dir, exported[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        cats = {}
+        for e in events:
+            cats.setdefault(e.get("cat"), set()).add(e["name"])
+        if not ({"host", "span", "telemetry"} <= set(cats)
+                and "train_step" in cats["span"]
+                and cats["host"] == {"step"}):
+            _fail(f"{tag}: the exported trace's categories "
+                  f"{ {k: sorted(v)[:5] for k, v in cats.items()} }")
+        if len(prof.device_trace_paths) != 1:
+            _fail(f"{tag}: {len(prof.device_trace_paths)} device traces")
+        in_trace, n_kernel_events = _trace_kernel_counts(
+            prof.device_trace_path)
+        want = {k: N_LAYERS * n_rec for k in PROF_KERNELS}
+        if in_trace != want:
+            _fail(f"{tag}: the device trace names {in_trace} flash "
+                  f"kernels, not {want}")
+        want_a = _want_attention(PROF_STEPS)
+        if n_a != want_a:
+            _fail(f"{tag}: A launched {n_a}, not {want_a}")
+        rec_ms = [m for m, r in zip(ms_a, recorded) if r]
+        unrec_ms = [m for i, (m, r) in enumerate(zip(ms_a, recorded))
+                    if not r and i > 0]
+
+        # run B: a real SIGTERM before step 5
+        saver_b = AsyncCheckpointSaver(os.path.join(root, "b"))
+        step = fresh_step(seed, saver_b)
+        seed_generators()
+        losses_b, raised = [], None
+        since = time.perf_counter()
+        _attention_counters(zero=True)
+        with _no_plain(), preemption.guard():
+            try:
+                for i in range(PROF_STEPS):
+                    if i + 1 == PROF_PREEMPT_AT:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    losses_b.append(float(step(xs[i], ys[i])))
+            except preemption.TrainingPreempted as e:
+                raised = e.step
+        n_b = _attention_counters()
+        emergency_ms = _span_ms("checkpoint.emergency", since)
+        preemption.clear()
+        del step
+        torch.cuda.empty_cache()
+        if raised != PROF_PREEMPT_AT or saver_b.steps() != [PROF_PREEMPT_AT]:
+            _fail(f"{tag}: B raised TrainingPreempted({raised}) with "
+                  f"checkpoints {saver_b.steps()}")
+        if losses_b != losses_a[:PROF_PREEMPT_AT - 1]:
+            _fail(f"{tag}: B's losses {losses_b} are not A's "
+                  f"{losses_a[:PROF_PREEMPT_AT - 1]}")
+        if n_b != _want_attention(PROF_PREEMPT_AT):
+            _fail(f"{tag}: B launched {n_b}")
+        save_bytes = _dir_bytes(saver_b._step_dir(PROF_PREEMPT_AT))
+
+        # run C: other weights, restored from B's emergency checkpoint
+        step = fresh_step(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        at, snap = saver_b.restore_latest_valid()
+        step.load_state_dict(snap)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        del snap
+        _attention_counters(zero=True)
+        with _no_plain():
+            losses_c = [float(step(xs[i], ys[i]))
+                        for i in range(PROF_PREEMPT_AT, PROF_STEPS)]
+        n_c = _attention_counters()
+        del step
+        torch.cuda.empty_cache()
+        if at != PROF_PREEMPT_AT or losses_c != losses_a[PROF_PREEMPT_AT:]:
+            _fail(f"{tag}: C (restored at {at}) gave {losses_c}, not A's "
+                  f"{losses_a[PROF_PREEMPT_AT:]}")
+        if n_c != _want_attention(PROF_STEPS - PROF_PREEMPT_AT):
+            _fail(f"{tag}: C launched {n_c}")
+        if not all(np.isfinite(losses_a)):
+            _fail(f"{tag}: A's losses {losses_a}")
+    finally:
+        obs.enable(was_on)
+        preemption.clear()
+        for d in [root, *prof_dirs]:
+            shutil.rmtree(d, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    rec_mean = sum(rec_ms) / len(rec_ms)
+    unrec_mean = sum(unrec_ms) / len(unrec_ms)
+    print(f"[{tag}] A: losses {', '.join(f'{v:.6f}' for v in losses_a)}; "
+          f"B equal to step {PROF_PREEMPT_AT - 1}, then SIGTERM: "
+          f"TrainingPreempted({raised}); C restored at step {at}: steps "
+          f"{PROF_PREEMPT_AT + 1}-{PROF_STEPS} equal A's bit for bit "
+          f"(hidden dropout 0.1)")
+    print(f"[{tag}] step ms (host wall to the loss on the host): recorded "
+          f"steps 3-5 mean {rec_mean:.3f} ({', '.join(f'{v:.3f}' for v in rec_ms)}), "
+          f"unrecorded steps 2, 6-8 mean {unrec_mean:.3f} "
+          f"({', '.join(f'{v:.3f}' for v in unrec_ms)}); the profiler's "
+          f"cost {rec_mean - unrec_mean:.3f} ms a recorded step; first "
+          f"step {ms_a[0]:.3f}; on {smi}")
+    print(f"[{tag}] device trace: {n_kernel_events} kernel events, flash "
+          f"kernels {in_trace}; summary row {calls[0][:2]}")
+    print(f"[{tag}] emergency save {emergency_ms[-1]:.1f} ms, "
+          f"{save_bytes} bytes; restore {restore_ms:.1f} ms; "
+          f"{phase_s:.1f} s; {smi}")
+    return dict(losses=losses_a, losses_b=losses_b, losses_c=losses_c,
+                step_ms=ms_a, recorded=recorded,
+                recorded_mean_ms=rec_mean, unrecorded_mean_ms=unrec_mean,
+                trace_kernels=in_trace, trace_kernel_events=n_kernel_events,
+                emergency_ms=emergency_ms[-1], emergency_bytes=save_bytes,
+                restore_ms=restore_ms, phase_s=phase_s,
+                launches={k: n_a[k] + n_b[k] + n_c[k] for k in n_a},
+                device=smi)
+
+
+# -- phase 44: PTQ and QAT of ResNet-50 ---------------------------------------
+
+PTQ_B, PTQ_CAL, PTQ_EVAL, PTQ_SIZE, PTQ_CLASSES = 32, 4, 4, 224, 4
+PTQ_AGREE = 0.99       # the JAX acceptance rule (tests/test_quantization.py)
+
+
+def _ptq_batches(paddle, root, seed, n, batch, size):
+    """``n`` batches of ``batch`` f32 N(0, 1) images written as ``.npy``
+    files under ``root/c<k>/`` and read back through
+    ``vision.datasets.DatasetFolder(loader=np.load)``,
+    ``paddle.reader.buffered`` and ``paddle.batch``: [(x, labels)] on the
+    host."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    for k in range(PTQ_CLASSES):
+        os.makedirs(os.path.join(root, f"c{k}"))
+    for i in range(n * batch):
+        np.save(os.path.join(root, f"c{i % PTQ_CLASSES}", f"{i:05d}.npy"),
+                rs.standard_normal((3, size, size)).astype(np.float32))
+    ds = paddle.vision.datasets.DatasetFolder(root, loader=np.load,
+                                              extensions=(".npy",))
+
+    def samples():
+        for i in range(len(ds)):
+            yield ds[i]
+
+    out = []
+    for b in paddle.batch(paddle.reader.buffered(samples, 2 * batch),
+                          batch)():
+        out.append((torch.from_numpy(np.stack([s[0] for s in b])),
+                    torch.tensor([s[1] for s in b], dtype=torch.int64)))
+    if len(out) != n or len(ds) != n * batch:
+        _fail(f"ptq: {len(out)} batches from {len(ds)} images")
+    return out
+
+
+def _calibrate(ptq, model, batches, twins=None):
+    """PTQ of ``model`` in place: quantize, one forward of each
+    calibration batch (host ms each, to the device's end), convert (ms).
+    With ``twins`` (a dict), every ``HistObserver`` gets a CPU twin there
+    under its name, fed a host copy of each input it observes (the host
+    path on the same activations); the twins' time is left out of the
+    batches' ms."""
+    import torch
+
+    from paddle_tpu_torch import quantization as pq
+
+    q = ptq.quantize(model, inplace=True)
+    hooks, spent = [], [0.0]
+
+    def feeder(twin):
+        def hook(layer, inputs):
+            t0 = time.perf_counter()
+            twin._observe_value(inputs[0].detach().cpu())
+            spent[0] += time.perf_counter() - t0
+        return hook
+
+    if twins is not None:
+        for n, m in q.named_modules():
+            if isinstance(m, pq.HistObserver):
+                twins[n] = pq.HistObserver(algo=m.algo, bins=m.bins,
+                                           percent=m.percent)
+                hooks.append(m.register_forward_pre_hook(feeder(twins[n])))
+    cal_ms = []
+    with torch.no_grad():
+        for x in batches:
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            q(x)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            cal_ms.append(1e3 * (time.perf_counter() - t0 - spent[0]))
+    for h in hooks:
+        h.remove()
+    for t in (twins or {}).values():
+        t.finalize()
+    t0 = time.perf_counter()
+    ptq.convert(q, inplace=True)
+    return q, cal_ms, 1e3 * (time.perf_counter() - t0)
+
+
+def _threshold_gap(a, b):
+    """Per observer name of ``a``: (|threshold a - threshold b| in bin
+    widths of the wider range, the L1 share of their histograms'
+    difference)."""
+    import numpy as np
+
+    out = {}
+    for n, m in a.items():
+        o = b[n]
+        bw = max(m._range, o._range) / m.bins
+        out[n] = (abs(float(m._buffers["scale"]) - float(o._buffers["scale"]))
+                  / bw, float(np.abs(m._hist - o._hist).sum()
+                              / max(m._hist.sum(), 1.0)))
+    return out
+
+
+def _top1(model, xs):
+    import torch
+
+    with torch.no_grad():
+        return torch.cat([model(x).argmax(-1).cpu() for x in xs])
+
+
+def phase_quantization(dev, seed, smi, size=PTQ_SIZE, batch=PTQ_B):
+    """Phase 44: ``paddle.quantization`` on ``resnet50(num_classes=1000)``
+    (its own initializers from ``paddle.seed``), f32, eval, at
+    ``size``^2: 8 batches of ``batch`` ``.npy`` images read through
+    ``DatasetFolder(loader=np.load)``, ``paddle.reader.buffered`` and
+    ``paddle.batch``.  ``PTQ(algo="kl")`` calibrated on 4 batches, then
+    converted.  Gates: top-1 on the 4 other batches agrees with the f32
+    model's on at least 99% of the images; 53 ``QuantedConv2D`` and 1
+    ``QuantedLinear``; every converted weight lies on its output
+    channel's int8 grid; every observer's CPU twin, fed a host copy of
+    each activation the card's observer saw (the host path: numpy's
+    histogram on the CPU), gives a threshold within one histogram bin
+    width of the card's (the device histogram); a CPU copy of the f32
+    model calibrated on the same images agrees with the card's converted
+    model on at least 99% of the top-1 (its thresholds' distance from the
+    card's, in bin widths, and its histograms' are printed: the
+    convolutions' rounding differs, and the fake quant of each layer's
+    input during calibration amplifies it).  Then 3 QAT steps
+    (``Momentum(1e-3, 0.9)``, ``CrossEntropyLoss``, batch 32, train mode)
+    of the f32 model through ``make_train_step``: finite losses and a
+    nonzero straight-through gradient on every wrapped weight.  Printed:
+    calibration ms a batch, convert ms (the KL search runs on the host),
+    the converted forward's ms beside the f32 forward's (CUDA events)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import quantization as pq
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    tag = "ptq"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ptq_images_")
+    try:
+        host = _ptq_batches(paddle, root, seed, PTQ_CAL + PTQ_EVAL, batch,
+                            size)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cal_h = [x for x, _ in host[:PTQ_CAL]]
+    ev_h = [x for x, _ in host[PTQ_CAL:]]
+    cal = [x.to(dev) for x in cal_h]
+    ev = [x.to(dev) for x in ev_h]
+    paddle.seed(seed)
+    torch.manual_seed(seed)
+    model = resnet50(num_classes=1000, device=dev).eval()
+    base = copy.deepcopy(model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    want = _top1(model, ev)
+    with torch.no_grad():
+        f32_ms = _timed_ms(lambda: model(ev[0]), 5, warmup=2)
+
+    twins = {}
+    q, cal_ms, convert_ms = _calibrate(pq.PTQ(algo="kl"), model, cal,
+                                       twins)
+    kinds = [type(m).__name__ for m in q.modules()]
+    n_conv, n_lin = kinds.count("QuantedConv2D"), kinds.count("QuantedLinear")
+    if (n_conv, n_lin) != (53, 1):
+        _fail(f"{tag}: {n_conv} QuantedConv2D and {n_lin} QuantedLinear")
+    got = _top1(q, ev)
+    agree = float((got == want).float().mean())
+    if agree < PTQ_AGREE:
+        _fail(f"{tag}: the converted model's top-1 agrees with f32 on "
+              f"{agree:.4f} of the images (< {PTQ_AGREE})")
+    with torch.no_grad():
+        q_ms = _timed_ms(lambda: q(ev[0]), 5, warmup=2)
+    worst = 0.0
+    for m in q.modules():
+        if isinstance(m, pq._QuantedWrapper):
+            w = m.inner._parameters["weight"].detach()
+            axis = pq._channel_axis(m.inner)
+            s = pq._weight_scales(w, True, axis)
+            g = w / s * 127
+            worst = max(worst, float((g - g.round()).abs().max()))
+    if worst > 1e-3:
+        _fail(f"{tag}: a converted weight lies {worst} grid steps off its "
+              f"channel's int8 grid")
+
+    # the host path on the card's own activations: each observer's CPU
+    # twin saw what it saw
+    card_obs = {n: m for n, m in q.named_modules()
+                if isinstance(m, pq.HistObserver)}
+    twin_gap = _threshold_gap(card_obs, twins)
+    twin_bins = max(g for g, _ in twin_gap.values())
+    twin_hist = max(h for _, h in twin_gap.values())
+    if len(card_obs) != 54 or twin_bins > 1.0:
+        _fail(f"{tag}: {len(card_obs)} observers; the card's thresholds lie "
+              f"up to {twin_bins:.3f} bin widths from their CPU twins' "
+              f"(histograms {twin_hist:.2e} apart)")
+    # a CPU copy of the f32 model calibrated on the same images: its
+    # activations differ from the card's by the convolutions' rounding,
+    # which the fake quant of every layer's input amplifies
+    qc, cal_ms_cpu, convert_ms_cpu = _calibrate(pq.PTQ(algo="kl"),
+                                                cpu_model, cal_h)
+    got_cpu = _top1(qc, ev_h)
+    cpu_gap = _threshold_gap(card_obs, {
+        n: m for n, m in qc.named_modules() if isinstance(m, pq.HistObserver)})
+    gaps = sorted(g for g, _ in cpu_gap.values())
+    cpu_hist = max(h for _, h in cpu_gap.values())
+    cpu_agree = float((got_cpu == got).float().mean())
+    worst3 = sorted(cpu_gap.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"[{tag}] the CPU copy: thresholds {gaps[len(gaps) // 2]:.2f} "
+          f"bin widths from the card's (median), {gaps[-1]:.2f} (max: "
+          f"{', '.join(f'{n} {g:.1f} bins, histogram {h:.4f} apart' for n, (g, h) in worst3)}); "
+          f"histograms up to {cpu_hist:.4f} apart (L1 share); top-1 "
+          f"agreement with the card's converted model {cpu_agree:.4f}")
+    if cpu_agree < PTQ_AGREE:
+        _fail(f"{tag}: the CPU copy's top-1 agrees with the card's on "
+              f"{cpu_agree:.4f} of the images (< {PTQ_AGREE})")
+    del q, qc, cpu_model, model
+    torch.cuda.empty_cache()
+
+    # QAT: 3 steps of the f32 model through the fake quant
+    net = pq.QAT(pq.QuantConfig()).quantize(base.train())
+    step = make_train_step(
+        net, Momentum(learning_rate=1e-3, momentum=0.9, parameters=net,
+                      weight_decay=1e-4), loss_fn=CrossEntropyLoss())
+    labels = [y.to(dev) for _, y in host[:3]]
+    qat_losses = [float(step(x, y)) for x, y in zip(cal[:3], labels)]
+    wrapped = [m for m in net.modules() if isinstance(m, pq._QuantedWrapper)]
+    dead = [i for i, m in enumerate(wrapped)
+            if m.inner._parameters["weight"].grad is None
+            or not bool(m.inner._parameters["weight"].grad.abs().sum() > 0)]
+    if not np.all(np.isfinite(qat_losses)) or dead or len(wrapped) != 54:
+        _fail(f"{tag}: QAT losses {qat_losses}; {len(dead)} of "
+              f"{len(wrapped)} wrapped weights without a gradient")
+    del step, net, base
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{tag}] resnet50 f32 {size}^2, PTQ kl on {PTQ_CAL} batches of "
+          f"{batch}: top-1 agreement with f32 {agree:.4f} on "
+          f"{len(got)} images; {n_conv} QuantedConv2D + {n_lin} "
+          f"QuantedLinear on the int8 grid (worst {worst:.2e} steps); the "
+          f"observers' CPU twins: thresholds within {twin_bins:.4f} bin "
+          f"widths, histograms {twin_hist:.2e} apart")
+    print(f"[{tag}] calibration ms a batch {', '.join(f'{v:.1f}' for v in cal_ms)} "
+          f"(CPU copy {', '.join(f'{v:.1f}' for v in cal_ms_cpu)}); convert "
+          f"{convert_ms:.1f} ms (CPU copy {convert_ms_cpu:.1f}); forward "
+          f"B={batch}: converted {q_ms:.3f} ms, f32 {f32_ms:.3f} ms "
+          f"(CUDA events); QAT losses {', '.join(f'{v:.6f}' for v in qat_losses)}; "
+          f"{phase_s:.1f} s; {smi}")
+    return dict(agreement=agree, n_quanted_conv=n_conv,
+                n_quanted_linear=n_lin, grid_worst=worst,
+                twin_threshold_bins_max=twin_bins,
+                twin_hist_l1_max=twin_hist,
+                cpu_copy_threshold_bins=gaps, cpu_copy_hist_l1_max=cpu_hist,
+                cpu_copy_top1_agreement=cpu_agree, calibration_ms=cal_ms,
+                calibration_ms_cpu=cal_ms_cpu, convert_ms=convert_ms,
+                convert_ms_cpu=convert_ms_cpu, converted_forward_ms=q_ms,
+                f32_forward_ms=f32_ms, qat_losses=qat_losses,
+                phase_s=phase_s, device=smi)
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -7444,6 +8004,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fit = phase_fit(dev, args.seed + 16, smi, layers)
     n_fit = fit["launches"]
+    # the main path's step under the profiler, preempted (phase 43), and
+    # quantization (phase 44) follow
+    torch.cuda.empty_cache()
+    profiled = phase_profiled_step(dev, args.seed + 17, smi)
+    n_prof = profiled["launches"]
+    torch.cuda.empty_cache()
+    quant = phase_quantization(dev, args.seed + 18, smi)
+    print(f"[phases 43-44] {profiled['phase_s']:.1f} s (profiled, "
+          f"preempted step) + {quant['phase_s']:.1f} s (PTQ / QAT) of wall "
+          f"time")
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -7520,7 +8090,8 @@ def main(argv=None) -> int:
         dict(name="flash_attention_qkv_fused", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
              replaces=f"{fa_py}:490", launches=n_tr["fused_fwd"],
-             launches_by_phase={"33 gpt-moe": n_moe["fused_fwd"]},
+             launches_by_phase={"33 gpt-moe": n_moe["fused_fwd"],
+                                "43 profiled step": n_prof["fused_fwd"]},
              max_abs_err=fused_fwd["max_abs_err"], ms=fused_fwd["ms"],
              eager_ms=fused_fwd["eager_ms"],
              plain_ms=fused_fwd["plain_ms"], bound_ms=fused_fwd["bound_ms"],
@@ -7533,7 +8104,10 @@ def main(argv=None) -> int:
                      fused_bwd),
              launches_by_phase={"33 gpt-moe": n_moe["fused_bwd_delta"]
                                 + n_moe["fused_bwd_dkv"]
-                                + n_moe["fused_bwd_dq"]}),
+                                + n_moe["fused_bwd_dq"],
+                                "43 profiled step": n_prof["fused_bwd_delta"]
+                                + n_prof["fused_bwd_dkv"]
+                                + n_prof["fused_bwd_dq"]}),
         dict(name="flash_attention_qkv_fused at D=128 (gpt3-1.3B recipe)",
              route="cuda",
              source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -7748,6 +8322,7 @@ def main(argv=None) -> int:
                            gateway=gateway, fleet=fleet,
                            fleet_memory=fleet_memory, surface=surface,
                            paddle_layers=layers, paddle_amp=amp, fit=fit,
+                           profiled_step=profiled, quantization=quant,
                            kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)

@@ -20,7 +20,10 @@ workers over a shared-memory ring, ``DevicePrefetcher``),
 ``paddle.Model`` (hapi ``fit`` / ``evaluate`` / ``predict``),
 ``paddle.metric``, ``paddle.callbacks``, ``paddle.save`` /
 ``paddle.load``, ``paddle.framework`` (sharded checkpoints, preemption)
-and ``paddle.summary``.  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
+and ``paddle.summary``; ``paddle.profiler`` (over ``torch.profiler``),
+the legacy readers (``paddle.batch``, ``paddle.reader``,
+``paddle.dataset`` over ``vision.datasets`` and ``paddle.text``) and
+``paddle.quantization`` (QAT / PTQ, simulated int8).  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
 autograd is torch's.  Without a card the default place raises: CPU
 scripts call ``paddle.set_device("cpu")`` first.
 
@@ -54,6 +57,9 @@ from . import (distributed, incubate, models, nn,  # noqa: F401,E402
                optimizer, regularizer, vision)
 from . import framework, io, metric, observability, utils  # noqa: F401,E402
 from . import callbacks, hapi  # noqa: F401,E402
+from . import (dataset, profiler, quantization, reader,  # noqa: F401,E402
+               text)
+from .batch import batch  # noqa: F401,E402
 from .device import resolve_device  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402
 from .hapi import Model  # noqa: F401,E402

@@ -28,9 +28,25 @@ update on the model's device, as the JAX step does in one jitted program:
 step's canonical ``train_state_v2`` layout: ``params``, ``slots``
 (``{name: {slot: tensor}}``), ``buffers``, ``step``, ``opt_step_count``
 and ``meta``, by the port's parameter names and shapes
-(``models.convert`` maps a JAX snapshot onto them and back).  The step
-updates the module's own parameters in place, so ``sync_to_model()`` has
-nothing to write back.
+(``models.convert`` maps a JAX snapshot onto them and back), and ``rng``:
+the states of the generators the step's dropout draws from, as uint8
+tensors: ``{"port": {device: state}}``, the port's generators of
+``core.random`` (paddle's ``F.dropout`` and ``nn.Dropout``), and
+``{"torch": {device: state}}``, torch's default generator of the step's
+device (the models' ``torch.nn.Dropout`` and attention dropout), so a
+restored step continues bit for bit.
+Where the JAX step keeps its dropout key (``rng_key``) the port keeps
+these: the two packages' draws differ by design.  A snapshot without
+``rng`` (a JAX one, through ``models.load_jax_train_state``) leaves the
+generators as they are.  The step updates the module's own parameters in
+place, so ``sync_to_model()`` has nothing to write back.
+
+``attach_saver(AsyncCheckpointSaver(...))`` makes the step its own
+preemption point, as the JAX step is: when ``framework.preemption`` has a
+request (a SIGTERM under ``preemption.guard()``), the end of ``__call__``
+and of ``run_steps`` writes a blocking checkpoint of ``state_dict()`` at
+the optimizer's step count inside a ``checkpoint.emergency`` span, calls
+``preemption.mark_saved`` and raises ``TrainingPreempted(step)``.
 
 ``run_steps(*stacked)`` takes ``[K, B, ...]`` stacks of K batches and runs
 K steps, returning the K losses as one f32 tensor; where the JAX step
@@ -59,6 +75,7 @@ import numpy as np
 import torch
 
 from ..core import op as _op
+from ..core import random as random_mod
 from ..core.tensor import Tensor
 from ..observability import instrument_jit
 from ..observability import steps as _steps
@@ -70,6 +87,14 @@ __all__ = ["ShardedTrainStep", "make_train_step"]
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet: the port has the "
                                f"single-device step (ROADMAP module item 11)")
+
+
+def _as_torch(v) -> torch.Tensor:
+    """A restored leaf (a torch tensor, a surface Tensor as
+    ``load_sharded`` returns it, a numpy array) as a torch tensor."""
+    if isinstance(v, Tensor):
+        return v._value
+    return v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
 
 
 class _Plan:
@@ -110,6 +135,7 @@ class ShardedTrainStep:
         optimizer.name_parameters(model)
         self._plans: dict = {}
         self._step = 0          # the train state's step (JAX TrainState)
+        self._saver = None      # the emergency checkpoint's target
         # the retrace sentinel's books (the JAX step's entry-point names)
         self._jitted = instrument_jit(self._one_step, "spmd_train_step")
         self._jitted_multi = instrument_jit(self._k_steps,
@@ -147,6 +173,7 @@ class ShardedTrainStep:
             _steps.record_step(time.perf_counter() - t0, examples=n,
                                fn="train_step")
             _steps.record_memory_stats()
+        self._maybe_emergency_save()
         return loss
 
     def _on_device(self, b):
@@ -188,6 +215,7 @@ class ShardedTrainStep:
             _steps.record_step((time.perf_counter() - t0) / k, examples=n,
                                fn="train_step_multi")
             _steps.record_memory_stats()
+        self._maybe_emergency_save()
         return losses
 
     def _k_steps(self, *stacked):
@@ -226,11 +254,22 @@ class ShardedTrainStep:
             "step": torch.tensor(self._step, dtype=torch.int32),
             "opt_step_count": torch.tensor(opt._step_count,
                                            dtype=torch.int64),
+            "rng": self._rng_state(),
             "meta": {"format": "train_state_v2", "mesh": {}}}
+
+    def _rng_state(self) -> dict:
+        """The ``rng`` leaf: the port's generators and torch's default
+        generator of the step's device (see the module docstring)."""
+        dev = self.device
+        default = (torch.cuda.get_rng_state(dev) if dev.type == "cuda"
+                   else torch.get_rng_state())
+        return {"port": random_mod.get_rng_state(),
+                "torch": {str(dev): default}}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Restore :meth:`state_dict` (tensors or numpy arrays).  Every
+        """Restore :meth:`state_dict` (tensors, surface Tensors or numpy
+        arrays).  Every
         leaf is checked before anything is written: a missing leaf raises
         ``KeyError`` and a shape that does not fit ``ValueError``, each
         naming the leaf, and leave the step as it was."""
@@ -241,8 +280,7 @@ class ShardedTrainStep:
             if key not in tree:
                 raise KeyError(f"train state: {section} leaf {key!r} is "
                                f"missing")
-            v = tree[key]
-            v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+            v = _as_torch(tree[key])
             if tuple(v.shape) != tuple(like.shape):
                 raise ValueError(f"train state: {section} leaf {key!r} has "
                                  f"shape {tuple(v.shape)}, this step needs "
@@ -258,6 +296,9 @@ class ShardedTrainStep:
         new_b = {n: leaf(state.get("buffers", {}), n, t, "buffers")
                  for n, t in buffers.items()}
         step, count = int(state["step"]), int(state["opt_step_count"])
+        rng = {part: {d: _as_torch(s).to("cpu", torch.uint8)
+                      for d, s in state["rng"].get(part, {}).items()}
+               for part in ("port", "torch")} if "rng" in state else None
         for n, p in params.items():
             p.copy_(new_p[n])
             slots = opt.slots_of(n, p)
@@ -268,6 +309,33 @@ class ShardedTrainStep:
             t.copy_(new_b[n])
         self._step = step
         opt._step_count = count
+        if rng is not None:
+            random_mod.set_rng_state(rng["port"])
+            for d, s in rng["torch"].items():
+                if torch.device(d).type == "cuda":
+                    torch.cuda.set_rng_state(s, d)
+                else:
+                    torch.set_rng_state(s)
+
+    # -- preemption ----------------------------------------------------------
+    def attach_saver(self, saver):
+        """Attach an ``AsyncCheckpointSaver`` as the emergency checkpoint's
+        target (see the module docstring); returns the step."""
+        self._saver = saver
+        return self
+
+    def _maybe_emergency_save(self):
+        if self._saver is None:
+            return
+        from ..framework import preemption
+        if not preemption.requested():
+            return
+        from ..framework.checkpoint import mesh_axes_of
+        step_no = int(self.optimizer._step_count)
+        with _trace.span("checkpoint.emergency", step=step_no):
+            self._saver.save(self.state_dict(), step=step_no, blocking=True)
+        preemption.mark_saved(step_no, topology=mesh_axes_of(None))
+        raise preemption.TrainingPreempted(step_no)
 
     def sync_to_model(self) -> None:
         """Nothing to do: the step updates the module's own parameters

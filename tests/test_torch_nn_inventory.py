@@ -1,8 +1,9 @@
 """The names of ``paddle_tpu.nn`` and ``paddle_tpu.nn.functional`` against
 the port's: every public name is in the port except the ones listed here,
-each under the module that will bring it (ROADMAP.md: ``nn/quant.py``
-waits for module entry 12) or with the reason it is not ported.  The
-lists are exact: a name ported later must leave them."""
+each under the module that will bring it or with the reason it is not
+ported.  The lists are exact: a name ported later must leave them (every
+``nn`` module is ported: ``nn/quant.py`` came with the quantization
+package)."""
 import types
 
 import pytest
@@ -13,9 +14,8 @@ import paddle_tpu_torch
 import paddle_tpu_torch.nn as pnn
 import paddle_tpu_torch.nn.functional as pF
 
-# left for a later slice: nn/quant.py re-exports the quantization
-# package, which waits for ROADMAP module entry 12
-NEXT_NN = {"nn/quant.py": {"quant"}}
+# left for a later slice: none
+NEXT_NN = {}
 NEXT_F = {}
 NOT_PORTED_F = {
     # helpers the JAX modules' imports leak into nn.functional
