@@ -5933,8 +5933,9 @@ def phase_fleet_memory(dev, seed, cycles=FLEET_MEM_CYCLES):
     ``Autoscaler(min_replicas=2, max_replicas=3, warm_pool=1)`` whose
     policy never fires on its own) runs ``cycles`` scale-up / drain
     cycles: route the parked spare in, one short request on every
-    replica, drain one replica down, and wait for the refill build (a
-    cold build with its prewarm capture) to park.  ``memory_allocated``
+    replica, drain one replica down and wait for its teardown, and wait
+    for the refill build (a cold build with its prewarm capture) to
+    park.  ``memory_allocated``
     after each cycle must stay within 32 MiB (one workspace) of its value
     after the first, and the sub-phase under 30 s."""
     import gc
@@ -5985,8 +5986,12 @@ def phase_fleet_memory(dev, seed, cycles=FLEET_MEM_CYCLES):
             for h in handles:
                 h.result(timeout=600)
             auto.trigger("down", reason="smoke")
-            _until(lambda: len(router.names) == 2,
-                   "a scale-down never completed")
+            # the router drops the drained replica before its teardown
+            # frees the build's pools and graphs; the scale-down's event
+            # is booked after that teardown
+            _until(lambda: len(router.names) == 2 and sum(
+                ev["direction"] == "down" for ev in auto.events())
+                   == len(mem) + 1, "a scale-down never completed")
             _until(lambda: len(auto.fleet_stats()["warm_pool"]["parked"])
                    == 1, "the refill never parked")
             gc.collect()
@@ -6004,8 +6009,9 @@ def phase_fleet_memory(dev, seed, cycles=FLEET_MEM_CYCLES):
           f"({captures} decode-graph captures), workspaces kept: "
           f"memory_allocated after each cycle - after the first, MiB "
           f"{[round(g / 2 ** 20, 1) for g in growth]}; {phase_s:.1f} s")
-    if max(abs(g) for g in growth) > FLEET_MEM_SLACK:
-        _fail(f"{tag}: memory_allocated moved {max(growth) / 2 ** 20:.1f} "
+    moved = max(growth, key=abs)
+    if abs(moved) > FLEET_MEM_SLACK:
+        _fail(f"{tag}: memory_allocated moved {moved / 2 ** 20:+.1f} "
               f"MiB past its value after the first cycle (limit "
               f"{FLEET_MEM_SLACK / 2 ** 20:.0f} MiB)")
     if phase_s > 30.0:

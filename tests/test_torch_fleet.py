@@ -145,3 +145,38 @@ def test_replay_capture_replays_a_shape_mode_capture(stack, monkeypatch,
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["requests"] == n and summary["completed"] == n
     assert summary["errors"] == 0
+
+
+def test_fleet_memory_cycle_ends_after_the_drained_teardown(monkeypatch):
+    """Smoke sub-phase 38b reads ``memory_allocated`` once a cycle's
+    scale-down has torn its replica down: the router drops the replica
+    before the teardown frees its pools, so a reading taken on the
+    router's count alone sometimes holds a fourth build.  Here every
+    build with live KV pools counts 64 MiB and every second teardown is
+    slowed down; each cycle must read the two routed builds and the
+    parked spare, and nothing more."""
+    live, releases = [], [0]
+    init, release = Engine.__init__, Engine._release_device
+
+    def tracked_init(self, *a, **k):
+        init(self, *a, **k)
+        live.append(self)
+
+    def slow_release(self):
+        releases[0] += 1
+        if releases[0] % 2 == 0:
+            time.sleep(0.3)
+        release(self)
+
+    mib64 = 64 * 2 ** 20
+    monkeypatch.setattr(Engine, "__init__", tracked_init)
+    monkeypatch.setattr(Engine, "_release_device", slow_release)
+    monkeypatch.setattr(chip_smoke, "_gpt2_small", lambda dev, seed, cpu:
+                        (build_gpt("gpt-tiny", device="cpu",
+                                   max_position_embeddings=1024), None))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: mib64 * sum(
+        1 for e in live if e._kpools))
+    got = chip_smoke.phase_fleet_memory(torch.device("cpu"), 0, cycles=4)
+    assert got["memory_allocated"] == [3 * mib64] * 4
+    assert got["builds"] == 7 and not any(e._kpools for e in live)
