@@ -318,6 +318,7 @@ run with a non-zero exit, and nothing is caught):
 37. (run after 36) the gateway curve of ``bench.py``'s serving leg
    (``_bench_gateway_curve``, its on-chip branch) through the port's HTTP
    front door: ``start_gateway([EngineSupervisor(Engine(gpt2-small-en,
+   paged_kv=True, decode_kernel="pallas", sample_on_device=False,
    max_slots=8, max_len=640, max_queue=8))])`` with a ``LoadShedder``
    seeded from phase 4's p50 prefill and p50 token seconds, tenant
    ``bench`` (``max_queue=16``); one warm-up request, then 30 streamed
@@ -488,6 +489,41 @@ run with a non-zero exit, and nothing is caught):
    nonzero straight-through gradient on every wrapped weight); printed:
    calibration ms a batch, convert ms, the converted forward's ms beside
    the f32 forward's.
+45. (run after 44) ``bench.py``'s ``gpt_decode`` leg through the port's
+   ``HybridParallelInferenceHelper``: first an f32 run (2 x 512, 16 new)
+   held by teacher forcing against the plain CPU forward (1e-3); then the
+   bench's recipe at full width (gpt2-small-en, 576 positions, bf16,
+   batch 8, prompt 512, 64 new, ``RandomState(0)`` ids), each length
+   warmed twice and timed 3 times at 64 and at 1 new; printed: tokens/s,
+   ms/token (the median difference), prefill + 1 ms and the decode HBM
+   share (bf16 parameter bytes at 3.35 TB/s over ms/token); gated on one
+   capture of the per-token step per key, a greedy generation under
+   ``set_sync_debug_mode("error")`` and 12 flash launches a prefill; then
+   one generation under ``torch.profiler`` (busy share, kernels by device
+   time);
+46. (run after 45) ``bench_serving``'s main block with the JAX engine's
+   defaults: ``Engine(model, max_slots=8, max_len=640, max_queue=48)``
+   (the dense pool, the device sampler), 24 Poisson requests of 32-128
+   tokens, 32 new each, after warm-ups at both prompt buckets; gated on
+   every request completing, a reused slot, ``decode_compiles`` 1 and 12
+   flash launches a prefill batch; tokens/s and p50 TTFT printed, then 8
+   requests at once under ``torch.profiler`` (busy share, kernels by
+   device time); then
+   ``_bench_paged_kv``'s heavy-tail mix (dense against a paged pool of 24
+   lanes in the dense budget: greedy tokens equal, paged bytes no more)
+   and ``_bench_decode_kernel`` (int8 paged pools, ``speculative_k=3``,
+   ``"xla"`` against ``"pallas"``: greedy tokens equal, one decode
+   signature each, equal decode steps);
+47. (run after 46) GPT-MoE served: phase 33's model through
+   ``Engine(paged_kv=True, decode_kernel="pallas")``, 8 requests, 32 new
+   tokens, queued before the scheduler starts; every lane (padding and
+   parked ones too) goes through the capacity dispatch, as in the JAX
+   engine, so the gate is a CPU copy served alike: the same tokens, with
+   ``decode_compiles`` 1, 12 flash launches a prefill batch, 12 paged
+   launches a replayed decode step and 36 eager ones (the capture's two
+   warm-up steps and the capture); then the same weights at a capacity that
+   never binds: every token within 1e-3 of the CPU no-cache forward's
+   maximum under teacher forcing.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -1081,9 +1117,9 @@ def phase_serve(dev, kv_dtype, n_req, new, seed, margin, profile=False,
     t_build = time.perf_counter() - t_build
     rs = np.random.RandomState(seed)
     prompts = _serve_prompts(rs, cfg.vocab_size, n_req)
-    engine = Engine(model, max_slots=8, max_len=640, paged_kv=True,
-                    page_size=16, max_queue=2 * n_req, kv_dtype=kv_dtype,
-                    device=dev)
+    engine = Engine(model, decode_kernel="pallas", sample_on_device=False,
+                    max_slots=8, max_len=640, paged_kv=True, page_size=16,
+                    max_queue=2 * n_req, kv_dtype=kv_dtype)
     graph = hasattr(engine, "compile_stats")       # the decode graph
     step_ms = (None, None)
     try:
@@ -1248,8 +1284,9 @@ def phase_fastpath(dev, seed, margin, kv_dtype=None):
     kws = [dict(temperature=0.8, top_k=40, seed=i) if i in sampled else {}
            for i in range(FAST_REQ)]
     kw = dict(max_slots=8, max_len=640, page_size=16, max_queue=2 * FAST_REQ,
-              kv_dtype=kv_dtype, device=dev)
-    engine = Engine(model, prefix_cache=True, prefix_block=16,
+              kv_dtype=kv_dtype)
+    engine = Engine(model, paged_kv=True, decode_kernel="pallas",
+                    sample_on_device=False, prefix_cache=True, prefix_block=16,
                     speculative_k=FAST_SPEC_K, **kw)
     try:
         engine.submit(first, max_new_tokens=FAST_NEW).result(timeout=600)
@@ -1283,7 +1320,8 @@ def phase_fastpath(dev, seed, margin, kv_dtype=None):
     greedy = [i for i in range(FAST_REQ) if i not in sampled]
     worst = _teacher_forced(cpu_model, [prompts[i] for i in greedy],
                             [outs[i] for i in greedy], margin)
-    plain = Engine(model, **kw)
+    plain = Engine(model, paged_kv=True, decode_kernel="pallas",
+                   sample_on_device=False, **kw)
     try:
         plain_outs = [h.result(timeout=600) for h in
                       [plain.submit(prompts[i], max_new_tokens=FAST_NEW)
@@ -3325,12 +3363,14 @@ def phase_lora(dev, seed, serve4):
     rs = np.random.RandomState(seed)
     prompts, names = _lora_traffic(rs, model.config.vocab_size, LORA_REQ)
     reg = _lora_registry(model)
-    kw = dict(SERVE_KW, max_queue=4 * LORA_REQ, device=dev)
+    kw = dict(SERVE_KW, max_queue=4 * LORA_REQ)
     handles, outs, wall, base, st, launches = _run_engine(
-        Engine(model, adapters=reg, **kw), prompts, LORA_NEW, rs,
-        [dict(adapter=nm) for nm in names])
+        Engine(model, paged_kv=True, decode_kernel="pallas",
+               sample_on_device=False, adapters=reg, **kw), prompts,
+        LORA_NEW, rs, [dict(adapter=nm) for nm in names])
     _, plain_outs, plain_wall, pbase, pst, _ = _run_engine(
-        Engine(model, **kw), prompts, LORA_NEW, rs)
+        Engine(model, paged_kv=True, decode_kernel="pallas",
+               sample_on_device=False, **kw), prompts, LORA_NEW, rs)
     tag = "lora"
     steps, replays = _replay_gates(tag, st, base, launches)
     if st["completed"] - base["completed"] != LORA_REQ or \
@@ -3414,12 +3454,13 @@ def phase_int8_weights(dev, seed, serve4, n_req=8, new=16):
     from paddle_tpu_torch.serving.adapters import weight_quant as wq
 
     model, cpu_model = _gpt2_small(dev, seed)
-    kw = dict(SERVE_KW, max_queue=4 * n_req, device=dev)
+    kw = dict(SERVE_KW, max_queue=4 * n_req)
     runs = {}
     for dtype in (None, "int8"):
         rs = np.random.RandomState(seed + 1)       # phase 7's traffic
         prompts = _serve_prompts(rs, model.config.vocab_size, n_req)
-        eng = Engine(model, weight_dtype=dtype, **kw)
+        eng = Engine(model, paged_kv=True, decode_kernel="pallas",
+                     sample_on_device=False, weight_dtype=dtype, **kw)
         wbytes = eng.weight_bytes()
         runs[dtype] = _run_engine(eng, prompts, new, rs) + (wbytes,)
     tag = "int8-weights"
@@ -3506,11 +3547,12 @@ def phase_supervisor(dev, seed):
     model, cpu_model = _gpt2_small(dev, seed)
     V = model.config.vocab_size
     reg = _lora_registry(model)
-    kw = dict(SERVE_KW, max_queue=8 * SUP_REQ, device=dev)
+    kw = dict(SERVE_KW, max_queue=8 * SUP_REQ)
     builds = []
 
     def factory():
-        e = Engine(model, adapters=reg, **kw)
+        e = Engine(model, paged_kv=True, decode_kernel="pallas",
+                   sample_on_device=False, adapters=reg, **kw)
         builds.append(e)
         return e
 
@@ -3531,7 +3573,9 @@ def phase_supervisor(dev, seed):
         other = {}
 
         def build_and_serve():
-            e = other["engine"] = Engine(model, **kw)
+            e = other["engine"] = Engine(model, paged_kv=True,
+                                         decode_kernel="pallas",
+                                         sample_on_device=False, **kw)
             try:
                 other["busy_at_start"] = builds[0].slots_in_use()
                 other["out"] = e.submit(lone, max_new_tokens=SUP_NEW).result(
@@ -3614,7 +3658,8 @@ def phase_supervisor(dev, seed):
         _fail(f"{tag}: memory_allocated moved {drift} bytes between the "
               f"first and the third rebuild (limit 64 MB)")
     # the unfaulted run of the re-dispatched requests
-    ref = Engine(model, adapters=reg, **kw)
+    ref = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, adapters=reg, **kw)
     try:
         ref_outs = [h.result(timeout=600) for h in
                     [ref.submit(p, max_new_tokens=SUP_NEW, adapter=nm)
@@ -3682,7 +3727,7 @@ def phase_host_tier(dev, seed, kv_dtype=None, n_conv=TIER_CONV):
              for _ in range(n_conv)]
     extra = [rs.randint(0, V, 16) for _ in range(n_conv)]
     tag = f"host-tier{'-int8' if kv_dtype else ''}"
-    kw = dict(SERVE_KW, kv_dtype=kv_dtype, device=dev)
+    kw = dict(SERVE_KW, kv_dtype=kv_dtype)
     tier_kw = dict(prefix_cache=True, prefix_block=16)
 
     def conversation(eng, on_turn1=None, on_return=None):
@@ -3729,13 +3774,15 @@ def phase_host_tier(dev, seed, kv_dtype=None, n_conv=TIER_CONV):
         snaps["promote_identical"] = True
 
     # the never-evicting engine first (the reference), then the tiered one
-    ref = Engine(model, num_pages=640, **tier_kw, **kw)
+    ref = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, num_pages=640, **tier_kw, **kw)
     try:
         r_out1, r_out2, r_hs, _ = conversation(ref)
     finally:
         ref.shutdown()
-    tiered = Engine(model, num_pages=TIER_PAGES, host_prefix_mb=1024,
-                    **tier_kw, **kw)
+    tiered = Engine(model, paged_kv=True, decode_kernel="pallas",
+                    sample_on_device=False, num_pages=TIER_PAGES,
+                    host_prefix_mb=1024, **tier_kw, **kw)
     tier = tiered._host_tier
     hold = threading.Event()
     copy_to_host = tier._copy_to_host
@@ -3793,7 +3840,8 @@ def phase_host_tier(dev, seed, kv_dtype=None, n_conv=TIER_CONV):
     finally:
         hold.set()
         tiered.shutdown()
-    plain = Engine(model, **kw)
+    plain = Engine(model, paged_kv=True, decode_kernel="pallas",
+                   sample_on_device=False, **kw)
     try:
         plain_ttft = []
         for i, p in enumerate(turn1):
@@ -4971,8 +5019,9 @@ def phase_gateway(dev, seed, serve4, smi):
     builds = []
 
     def factory():
-        e = Engine(model, max_slots=8, max_len=640, max_queue=8,
-                   page_size=16, device=dev)
+        e = Engine(model, paged_kv=True, decode_kernel="pallas",
+                   sample_on_device=False, max_slots=8, max_len=640,
+                   max_queue=8, page_size=16)
         builds.append(e)
         return e
 
@@ -5626,7 +5675,8 @@ def phase_fleet(dev, seed, serve4, smi):
     def factory_for_revision(revision):
         def build():
             t0 = time.perf_counter()
-            e = Engine(model, host_prefix=tier, device=dev, **FLEET_KW)
+            e = Engine(model, paged_kv=True, decode_kernel="pallas",
+                       sample_on_device=False, host_prefix=tier, **FLEET_KW)
             builds.append((revision, e, time.perf_counter() - t0))
             return e
         sup = EngineSupervisor(build, name=f"fleet-{revision}-{len(sups)}",
@@ -5734,7 +5784,8 @@ def phase_fleet(dev, seed, serve4, smi):
                 ns == (None, "fleet-conv") for ns, _ in tier._entries):
             _fail(f"{tag}: the conversation was not demoted before the "
                   f"rollout: {tier.stats()}")
-        ref = Engine(model, device=dev, **SERVE_KW)
+        ref = Engine(model, paged_kv=True, decode_kernel="pallas",
+                     sample_on_device=False, **SERVE_KW)
         try:
             ref_warm = [int(t) for t in ref.submit(
                 np.asarray(warm, np.int64),
@@ -5955,7 +6006,8 @@ def phase_fleet_memory(dev, seed, cycles=FLEET_MEM_CYCLES):
 
     def factory():
         def build():
-            e = Engine(model, device=dev, **FLEET_KW)
+            e = Engine(model, paged_kv=True, decode_kernel="pallas",
+                       sample_on_device=False, **FLEET_KW)
             builds.append(e)
             return e
         sup = EngineSupervisor(build, name=f"mem-{len(sups)}",
@@ -7852,6 +7904,511 @@ def phase_quantization(dev, seed, smi, size=PTQ_SIZE, batch=PTQ_B):
 
 
 
+# -- phases 45-47: the rest of the serving engine ----------------------------
+
+# bench_gpt_decode's on-chip recipe (bench.py:593-626)
+DECODE_B, DECODE_PROMPT, DECODE_NEW = 8, 512, 64
+HBM_BYTES_S = 3.35e12        # H100 SXM data sheet: the bench's vs_baseline
+# bench_serving's on-chip block (bench.py:707-760)
+DEF_SLOTS, DEF_LEN, DEF_REQ, DEF_NEW = 8, 640, 24, 32
+MOE_REQ, MOE_NEW = 8, 32
+# _bench_paged_kv's heavy tail: every 6th request long, the rest short
+HT_LONG, HT_LONG_NEW, HT_SHORT, HT_SHORT_NEW = 500, 32, 24, 16
+
+
+def _flash_launches(zero=False):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    if zero:
+        fa.flash_attention_bthd.launches = 0
+    return fa.flash_attention_bthd.launches
+
+
+def _decode_pair(dev, seed):
+    """gpt2-small-en at the decode leg's position table (576), dropout 0,
+    f32, on ``dev`` and on the CPU with the same numpy-seeded weights."""
+    from paddle_tpu_torch.models import build_gpt, load_jax_state
+
+    kw = dict(max_position_embeddings=DECODE_PROMPT + DECODE_NEW,
+              hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model = build_gpt("gpt2-small-en", device=dev, **kw)
+    state = _random_state(model, seed)
+    load_jax_state(model, state)
+    cpu_model = build_gpt("gpt2-small-en", device="cpu", **kw)
+    load_jax_state(cpu_model, state)
+    return model, cpu_model
+
+
+def phase_gpt_decode(dev, seed, smi):
+    """Phase 45: ``bench.py``'s ``gpt_decode`` leg through the port's
+    ``HybridParallelInferenceHelper``.  First an f32 run (2 x 512, 16 new,
+    TF32 off) held by teacher forcing against the plain no-cache forward
+    on the CPU (1e-3, as phase 5).  Then the bench's recipe at full width:
+    gpt2-small-en, 576 positions, bf16 weights, batch 8, prompt 512,
+    ``RandomState(0)`` ids; each length (64 and 1 new) warmed twice, then
+    timed 3 times; decode time is the median difference, as the bench
+    computes it.  Gates: one capture of the step per (batch, prompt, total
+    length, dtype) key, a greedy generation under
+    ``set_sync_debug_mode("error")``, and 12 flash launches a prefill."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.utils import \
+        HybridParallelInferenceHelper
+    from paddle_tpu_torch.models import build_gpt
+
+    t_phase = time.perf_counter()
+    model, cpu_model = _decode_pair(dev, seed)
+    ids = np.random.RandomState(seed).randint(
+        0, model.config.vocab_size, (2, DECODE_PROMPT)).astype(np.int64)
+    out = HybridParallelInferenceHelper(model).generate(ids,
+                                                        max_new_tokens=16)
+    if out.shape != (2, DECODE_PROMPT + 16):
+        _fail(f"gpt_decode: f32 output shape {out.shape}")
+    worst = _teacher_forced(cpu_model, list(ids),
+                            [row[DECODE_PROMPT:] for row in out], 1e-3)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    total = DECODE_PROMPT + DECODE_NEW
+    model = build_gpt("gpt2-small-en", device=dev, seed=seed,
+                      dtype=torch.bfloat16, max_position_embeddings=total,
+                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    helper = HybridParallelInferenceHelper(model, max_length=total)
+    ids = np.random.RandomState(0).randint(
+        0, model.config.vocab_size,
+        (DECODE_B, DECODE_PROMPT)).astype(np.int64)
+    _flash_launches(zero=True)
+    prefills = 0
+
+    def timed(n, reps=3):
+        nonlocal prefills
+        helper.generate(ids, max_new_tokens=n)
+        helper.generate(ids, max_new_tokens=n)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = helper.generate(ids, max_new_tokens=n)
+            ts.append(time.perf_counter() - t0)
+        prefills += 2 + reps
+        if got.shape != (DECODE_B, DECODE_PROMPT + n):
+            _fail(f"gpt_decode: output shape {got.shape} at n={n}")
+        return ts, got
+
+    t_full, full = timed(DECODE_NEW)
+    t_one, _ = timed(1)
+    # the greedy loop (prefill, replays, the one copy back) with any host
+    # sync an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = helper.generate(ids, max_new_tokens=DECODE_NEW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    prefills += 1
+    flash = _flash_launches()
+    keys = len(helper._make._signatures)
+    if not np.array_equal(again, full):
+        _fail("gpt_decode: a greedy generation changed between calls")
+    if keys != 2:
+        _fail(f"gpt_decode: {keys} step captures for 2 keys")
+    if flash != prefills * N_LAYERS:
+        _fail(f"gpt_decode: flash launches {flash} != prefills {prefills} "
+              f"x {N_LAYERS}")
+    # where a generation's device time goes (after the counted calls)
+    prof = _device_profile(
+        lambda: helper.generate(ids, max_new_tokens=DECODE_NEW))
+    _print_profile("gpt_decode", f"one greedy generation (a prefill, "
+                   f"{DECODE_NEW - 1} replays)", prof)
+    dts = [a - b for a, b in zip(sorted(t_full), sorted(t_one))]
+    dt = max(float(np.median(dts)), 1e-9)
+    tps = DECODE_B * (DECODE_NEW - 1) / dt
+    ms_tok = dt / (DECODE_NEW - 1) * 1e3
+    prefill_ms = float(np.median(t_one)) * 1e3
+    n_params = sum(p.numel() for p in model.parameters())
+    hbm_share = n_params * 2 / HBM_BYTES_S * 1e3 / ms_tok
+    res = dict(batch=DECODE_B, prompt=DECODE_PROMPT, new=DECODE_NEW,
+               tokens_per_s=tps, ms_per_token=ms_tok,
+               prefill_plus_1_ms=prefill_ms, decode_hbm_share=hbm_share,
+               noise_pct=100 * (max(dts) - min(dts)) / dt,
+               t_full_s=t_full, t_one_s=t_one, step_captures=keys,
+               prefills=prefills, flash_launches=flash,
+               teacher_forced_worst_gap=worst, n_params=n_params,
+               launches={"flash": flash, "paged": 0},
+               profile={k: prof[k] for k in ("window_ms", "device_busy_ms",
+                                             "device_busy_share",
+                                             "kernels_ms",
+                                             "kernels_launches")},
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[gpt_decode] batch {DECODE_B} prompt {DECODE_PROMPT} new "
+          f"{DECODE_NEW} bf16: {tps:.1f} tokens/s, {ms_tok:.4f} ms/token, "
+          f"prefill+1 {prefill_ms:.3f} ms, decode HBM share "
+          f"{100 * hbm_share:.2f}% ({n_params} bf16 parameters at 3.35 "
+          f"TB/s), noise {res['noise_pct']:.1f}%; {keys} step captures for "
+          f"2 keys, {prefills} prefills ({flash} flash launches), greedy "
+          f"loop under sync-debug 'error'; f32 teacher-forced worst gap "
+          f"{worst:.3e} on {smi}")
+    return res
+
+
+def _bench_serving_model(dev, seed, max_len=DEF_LEN):
+    """bench_serving's model: gpt2-small-en at ``max_len`` positions, f32,
+    dropout 0, numpy-seeded weights."""
+    from paddle_tpu_torch.models import build_gpt, load_jax_state
+
+    model = build_gpt("gpt2-small-en", device=dev, max_position_embeddings=
+                      max_len, hidden_dropout_prob=0.0,
+                      attention_dropout_prob=0.0)
+    load_jax_state(model, _random_state(model, seed))
+    return model
+
+
+def _heavy_tail(model):
+    """``_bench_paged_kv``'s heavy-tail block at its on-chip shapes: the
+    same mix through the dense pool (8 slots) and a paged pool of 24 lanes
+    whose pages fit the dense budget; greedy tokens equal, paged bytes no
+    more than dense."""
+    import numpy as np
+
+    slots, page, n_req = DEF_SLOTS, 16, 24
+    rs = np.random.RandomState(17)
+    vocab = model.config.vocab_size
+    mix = []
+    for i in range(n_req):
+        if i % 6 == 5:
+            mix.append((rs.randint(0, vocab, HT_LONG).astype(np.int64),
+                        HT_LONG_NEW))
+        else:
+            plen = rs.randint(HT_SHORT, HT_SHORT + 8)
+            mix.append((rs.randint(0, vocab, plen).astype(np.int64),
+                        HT_SHORT_NEW))
+
+    def run_mix(engine):
+        try:
+            handles = [engine.submit(p, max_new_tokens=n) for p, n in mix]
+            peak = 0
+            while not all(h.done() for h in handles):
+                peak = max(peak, engine.slots_in_use())
+                time.sleep(0.001)
+            outs = [h.result(timeout=600) for h in handles]
+            return outs, peak, engine.pool_bytes(), engine.stats()
+        finally:
+            engine.shutdown()
+
+    from paddle_tpu_torch.serving import Engine
+
+    d_out, d_peak, d_bytes, d_st = run_mix(
+        Engine(model, max_slots=slots, max_len=DEF_LEN, max_queue=2 * n_req))
+    p_out, p_peak, p_bytes, p_st = run_mix(
+        Engine(model, max_slots=3 * slots, max_len=DEF_LEN,
+               max_queue=2 * n_req, paged_kv=True, page_size=page,
+               num_pages=slots * -(-DEF_LEN // page)))
+    for i, (a, b) in enumerate(zip(d_out, p_out)):
+        if not np.array_equal(a, b):
+            _fail(f"heavy tail: request {i}'s greedy tokens differ "
+                  f"between the dense and the paged pool")
+    if p_bytes > d_bytes or p_st["decode_compiles"] != 1 or \
+            d_st["decode_compiles"] != 1:
+        _fail(f"heavy tail: paged {p_bytes} B against dense {d_bytes} B, "
+              f"decode_compiles {p_st['decode_compiles']} / "
+              f"{d_st['decode_compiles']}")
+    return dict(dense_bytes=d_bytes, paged_bytes=p_bytes,
+                dense_peak_slots=d_peak, paged_peak_slots=p_peak,
+                dense_slots_per_mib=d_peak / (d_bytes / 2**20),
+                paged_slots_per_mib=max(p_peak, 1) / (p_bytes / 2**20))
+
+
+def _decode_kernels(model):
+    """``_bench_decode_kernel`` at its on-chip shapes: int8 paged pools,
+    ``speculative_k=3``, the gather read (``"xla"``) against the paged
+    kernel (``"pallas"``): greedy tokens equal, one decode signature each,
+    equal decode steps.  The requests are queued before the scheduler
+    starts, so the admission waves do not depend on timing."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import Engine
+
+    n_req, new = 16, 32
+    rs = np.random.RandomState(23)
+    prompts = [rs.randint(0, model.config.vocab_size, rs.randint(6, 20))
+               .astype(np.int64) for _ in range(n_req)]
+
+    def run(kernel):
+        eng = Engine(model, max_slots=DEF_SLOTS, max_len=DEF_LEN,
+                     max_queue=2 * n_req, paged_kv=True, page_size=16,
+                     kv_dtype="int8", speculative_k=3, decode_kernel=kernel,
+                     auto_start=False)
+        try:
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            eng.start()
+            outs = [h.result(timeout=600) for h in handles]
+            return outs, eng.stats(), time.perf_counter() - t0
+        finally:
+            eng.shutdown()
+
+    x_out, x_st, x_wall = run("xla")
+    p_out, p_st, p_wall = run("pallas")
+    for i, (a, b) in enumerate(zip(x_out, p_out)):
+        if not np.array_equal(a, b):
+            _fail(f"decode kernel: request {i}'s greedy tokens differ "
+                  f"between the gather read and the paged kernel")
+    if (x_st["decode_compiles"], p_st["decode_compiles"]) != (1, 1) or \
+            x_st["decode_steps"] != p_st["decode_steps"]:
+        _fail(f"decode kernel: decode_compiles {x_st['decode_compiles']} / "
+              f"{p_st['decode_compiles']}, decode steps "
+              f"{x_st['decode_steps']} / {p_st['decode_steps']}")
+    return dict(decode_steps=p_st["decode_steps"],
+                xla_tokens_per_s=n_req * new / x_wall,
+                pallas_tokens_per_s=n_req * new / p_wall,
+                xla_device_step_ms=1e3 * x_st["decode_device_seconds"]
+                / max(x_st["decode_graph_replays"], 1),
+                pallas_device_step_ms=1e3 * p_st["decode_device_seconds"]
+                / max(p_st["decode_graph_replays"], 1),
+                pallas_replayed_paged_launches=p_st[
+                    "replayed_paged_launches"])
+
+
+def phase_serve_defaults(dev, seed, smi):
+    """Phase 46: ``bench_serving``'s main block on the port with the JAX
+    engine's defaults: ``Engine(model, max_slots=8, max_len=640,
+    max_queue=48)`` is the dense pool with the device sampler.  Warm-up
+    requests at the shortest and longest prompts (both buckets and the
+    capture), then 24 Poisson requests (50/s) of 32-128 tokens, 32 new
+    each.  Gates: every request completes, a slot is reused,
+    ``decode_compiles`` stays 1, 12 flash launches a prefill batch.  Then
+    the heavy-tail block (dense against paged) and the decode-kernel block
+    (``"xla"`` against ``"pallas"``) at their on-chip shapes."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    model = _bench_serving_model(dev, seed)
+    vocab = model.config.vocab_size
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, vocab, rs.randint(32, 129)).astype(np.int64)
+               for _ in range(DEF_REQ)]
+    engine = Engine(model, max_slots=DEF_SLOTS, max_len=DEF_LEN,
+                    max_queue=2 * DEF_REQ)
+    try:
+        for plen in sorted({len(min(prompts, key=len)),
+                            len(max(prompts, key=len))}):
+            warm = (prompts[0][:plen] if plen <= len(prompts[0]) else
+                    rs.randint(0, vocab, plen).astype(np.int64))
+            engine.submit(warm, max_new_tokens=2).result(timeout=600)
+        warm_decode = engine.compile_stats()["decode_compiles"]
+        torch.cuda.synchronize()
+        base = engine.stats()
+        _flash_launches(zero=True)
+        t0 = time.perf_counter()
+        handles = []
+        for p in prompts:
+            handles.append(engine.submit(p, max_new_tokens=DEF_NEW))
+            time.sleep(min(rs.exponential(1.0 / 50.0), 0.25))
+        for h in handles:
+            h.result(timeout=600)
+        wall = time.perf_counter() - t0
+        flash = _flash_launches()
+        st = engine.stats()
+
+        def window():
+            for h in [engine.submit(p, max_new_tokens=DEF_NEW)
+                      for p in prompts[:DEF_SLOTS]]:
+                h.result(timeout=600)
+
+        # where the dense engine's device time goes (after the count)
+        prof = _device_profile(window)
+        _print_profile("serve-defaults", f"{DEF_SLOTS} requests x "
+                       f"{DEF_NEW} tokens at once", prof)
+    finally:
+        engine.shutdown()
+    done = st["completed"] - base["completed"]
+    prefills = st["prefill_batches"] - base["prefill_batches"]
+    if done != DEF_REQ or st["slot_reuses"] <= 0:
+        _fail(f"serve defaults: {done}/{DEF_REQ} completed, "
+              f"{st['slot_reuses']} slot reuses")
+    if st["decode_compiles"] != 1 or warm_decode != 1:
+        _fail(f"serve defaults: decode_compiles {warm_decode} -> "
+              f"{st['decode_compiles']}")
+    if flash != prefills * N_LAYERS or flash == 0:
+        _fail(f"serve defaults: flash launches {flash} != prefill batches "
+              f"{prefills} x {N_LAYERS}")
+    ttft = sorted(h.ttft_s for h in handles)
+    steps = st["decode_steps"] - base["decode_steps"]
+    replays = st["decode_graph_replays"] - base["decode_graph_replays"]
+    res = dict(requests=DEF_REQ, new_tokens=DEF_NEW, wall_s=wall,
+               tokens_per_s=DEF_REQ * DEF_NEW / wall,
+               p50_ttft_ms=1e3 * ttft[len(ttft) // 2],
+               prefill_batches=prefills, decode_steps=steps,
+               decode_graph_replays=replays, flash_launches=flash,
+               decode_step_ms=1e3 * (st["decode_seconds"]
+                                     - base["decode_seconds"]) / max(steps, 1),
+               device_step_ms=_device_step_ms(st, base),
+               kv_pool_bytes=st["kv_pool_bytes"],
+               slot_reuses=st["slot_reuses"],
+               profile={k: prof[k] for k in ("window_ms", "device_busy_ms",
+                                             "device_busy_share",
+                                             "kernels_ms",
+                                             "kernels_launches")})
+    res["heavy_tail"] = _heavy_tail(model)
+    res["decode_kernel"] = _decode_kernels(model)
+    # row 7 runs in the decode-kernel block's "pallas" engine alone
+    res["launches"] = {"flash": flash,
+                       "paged": res["decode_kernel"][
+                           "pallas_replayed_paged_launches"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    ht, dk = res["heavy_tail"], res["decode_kernel"]
+    print(f"[serve-defaults] dense pool, device sampler: {DEF_REQ} requests "
+          f"x {DEF_NEW} tokens in {wall:.3f} s: {res['tokens_per_s']:.1f} "
+          f"tokens/s, p50 TTFT {res['p50_ttft_ms']:.2f} ms; {prefills} "
+          f"prefill batches ({flash} flash launches), {steps} decode steps "
+          f"({replays} replays, device {_ms(res['device_step_ms'])} ms a "
+          f"step, host {res['decode_step_ms']:.3f}); heavy tail: dense "
+          f"{ht['dense_bytes']} B peak {ht['dense_peak_slots']} slots, "
+          f"paged {ht['paged_bytes']} B peak {ht['paged_peak_slots']}, "
+          f"tokens equal; decode kernel (int8, k=3): {dk['decode_steps']} "
+          f"steps each, xla {dk['xla_device_step_ms']:.4f} / pallas "
+          f"{dk['pallas_device_step_ms']:.4f} device ms a step, tokens "
+          f"equal; on {smi}")
+    return res
+
+
+def _moe_engine_run(model, prompts):
+    """The requests through ``Engine(paged_kv=True,
+    decode_kernel="pallas")``, all queued before the scheduler starts, so
+    the admission waves and the lanes, and with them each step's batch,
+    do not depend on timing.  The launch counters are zeroed at the
+    start: on the card the decode graph's capture (two warm-up steps and
+    the capture) calls the paged wrapper three times a layer, every later
+    step replays.  ``(outs, stats after, launches, wall)``."""
+    from paddle_tpu_torch.serving import Engine
+
+    engine = Engine(model, max_slots=DEF_SLOTS, max_len=DEF_LEN,
+                    max_queue=2 * MOE_REQ, paged_kv=True,
+                    decode_kernel="pallas", auto_start=False)
+    try:
+        _counters_zero()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, max_new_tokens=MOE_NEW) for p in prompts]
+        engine.start()
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        st = engine.stats()
+        launches = _row_launches([engine])
+    finally:
+        engine.shutdown()
+    return outs, st, launches, wall
+
+
+def phase_moe_serve(dev, seed, smi):
+    """Phase 47: GPT-MoE served.  Phase 33's model (gpt2-small-en, 8
+    experts on every 2nd layer, GShard, eval capacity 2.4, dropout 0;
+    weights drawn on the card from ``seed``) through ``Engine(paged_kv=
+    True, decode_kernel="pallas")``: 8 requests of 32-128 tokens, 32 new
+    each.  Every lane of a step, padding and parked ones too, goes through
+    the capacity dispatch, as in the JAX engine, so what a token gets
+    depends on the batch it rides in and its lane: the card's tokens must
+    equal a CPU copy's served with the same schedule, with
+    ``decode_compiles`` 1, 12 flash launches a prefill batch, 12 paged
+    launches a replayed decode step and 36 eager ones (the capture).
+    Then the same weights with a capacity that never binds
+    (``moe_capacity_factor=2``: eval capacity = the tokens), where a
+    token's routing is its own: every served token within 1e-3 of the
+    maximum of the CPU copy's no-cache forward under teacher forcing.
+    Printed beside, at phase 33's capacity: the choices the eager
+    dispatches dropped, and the served tokens' teacher-forced gap against
+    the no-cache forward (not gated: there each token is routed in a batch
+    of its own sequence)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import GPTMoEMLP
+
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    prompts = None
+    res = dict(requests=MOE_REQ, new_tokens=MOE_NEW)
+    for tag, kw in (("capacity 2.4", {}),
+                    ("unbound", dict(moe_capacity_factor=2.0))):
+        model = _moe_model(dev, seed, **kw)
+        cpu_model = _moe_model("cpu", seed, **kw)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        if prompts is None:
+            prompts = [rs.randint(0, model.config.vocab_size,
+                                  rs.randint(32, 129)).astype(np.int64)
+                       for _ in range(MOE_REQ)]
+        dropped, hooks = [], []
+        for layer in model.gpt.layers:
+            if isinstance(layer.mlp, GPTMoEMLP):
+                moe = layer.mlp.moe
+
+                def hook(mod, inp, out, moe=moe):
+                    # the eager calls only (a replay runs no hook, and the
+                    # capture is skipped): the prefills and the capture's
+                    # warm-up steps; device tensors, read after the run
+                    if out[1].is_cuda and \
+                            torch.cuda.is_current_stream_capturing():
+                        return
+                    cap = moe._capacity(inp[0].shape[0])
+                    n = (out[1].flatten()[:, None] == torch.arange(
+                        MOE_EXPERTS, device=out[1].device)).sum(0)
+                    dropped.append((n - cap).clamp(min=0).sum())
+                hooks.append(moe.gate.register_forward_hook(hook))
+        outs, st, launches, wall = _moe_engine_run(model, prompts)
+        for h in hooks:
+            h.remove()
+        prefills, steps = st["prefill_batches"], st["decode_steps"]
+        if st["completed"] != MOE_REQ or st["decode_compiles"] != 1 or \
+                st["decode_graph_replays"] != steps:
+            _fail(f"moe serve ({tag}): {st['completed']} completed, "
+                  f"decode_compiles {st['decode_compiles']}, "
+                  f"{st['decode_graph_replays']} replays of {steps} steps")
+        if launches["flash"] != N_LAYERS * prefills or \
+                launches["paged"] != N_LAYERS * (steps + 3) or \
+                launches["paged_eager"] != 3 * N_LAYERS:
+            _fail(f"moe serve ({tag}): launches {launches} for {prefills} "
+                  f"prefill batches and {steps} decode steps")
+        if kw:
+            worst = _teacher_forced(cpu_model, prompts, outs, 1e-3)
+            res.update(unbound_teacher_forced_worst_gap=worst)
+        else:
+            cpu_outs = _moe_engine_run(cpu_model, prompts)[0]
+            same = [bool(np.array_equal(a, b))
+                    for a, b in zip(outs, cpu_outs)]
+            if not all(same):
+                _fail(f"moe serve: the card's tokens differ from the CPU "
+                      f"copy's served alike, requests {same}")
+            # printed, not gated: the no-cache forward routes each token
+            # in a batch of its own sequence
+            res["teacher_forced_gap_at_capacity"] = _teacher_forced(
+                cpu_model, prompts, outs, float("inf"))
+            res.update(wall_s=wall,
+                       decode_steps=steps, prefill_batches=prefills,
+                       device_step_ms=1e3 * st["decode_device_seconds"]
+                       / max(st["decode_graph_replays"], 1),
+                       dropped_choices_eager=int(sum(int(d) for d in
+                                                     dropped)),
+                       launches=launches)
+        del model, cpu_model
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[moe-serve] {MOE_REQ} requests x {MOE_NEW} tokens on "
+          f"gpt2-small-en with {MOE_EXPERTS} experts in {res['wall_s']:.3f} "
+          f"s (the decode graph's capture included), {res['decode_steps']} "
+          f"decode steps (device {_ms(res['device_step_ms'])} ms a step), "
+          f"launches {res['launches']}; tokens equal to the CPU copy's "
+          f"served alike ({res['dropped_choices_eager']} choices dropped by "
+          f"the eager dispatches at capacity 2.4, teacher-forced gap "
+          f"against the no-cache forward "
+          f"{res['teacher_forced_gap_at_capacity']:.3e}); at a capacity "
+          f"that never "
+          f"binds, teacher-forced worst gap "
+          f"{res['unbound_teacher_forced_worst_gap']:.3e}; on {smi}")
+    return res
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -8020,6 +8577,19 @@ def main(argv=None) -> int:
     print(f"[phases 43-44] {profiled['phase_s']:.1f} s (profiled, "
           f"preempted step) + {quant['phase_s']:.1f} s (PTQ / QAT) of wall "
           f"time")
+    # the rest of the serving engine (phases 45-47) follows
+    torch.cuda.empty_cache()
+    decode = phase_gpt_decode(dev, args.seed + 19, smi)
+    torch.cuda.empty_cache()
+    defaults = phase_serve_defaults(dev, args.seed + 20, smi)
+    torch.cuda.empty_cache()
+    moe_serve = phase_moe_serve(dev, args.seed + 21, smi)
+    slice_launches.update({"45 gpt_decode": decode["launches"],
+                           "46 serve defaults": defaults["launches"],
+                           "47 moe serve": moe_serve["launches"]})
+    print(f"[phases 45-47] {decode['phase_s']:.1f} s (gpt_decode) + "
+          f"{defaults['phase_s']:.1f} s (serving defaults) + "
+          f"{moe_serve['phase_s']:.1f} s (MoE served) of wall time")
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -8329,7 +8899,8 @@ def main(argv=None) -> int:
                            fleet_memory=fleet_memory, surface=surface,
                            paddle_layers=layers, paddle_amp=amp, fit=fit,
                            profiled_step=profiled, quantization=quant,
-                           kernels=kernels,
+                           gpt_decode=decode, serve_defaults=defaults,
+                           moe_serve=moe_serve, kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -626,6 +626,13 @@ flash_bwd_dkv_bf16_kernel(__grid_constant__ const Bf16BwdArgs a) {
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % S, ph = (it / S) & 1, q0 = q_begin + it * BQ;
       if (a.causal && q0 + BQ - 1 + offset < first) {  // all masked here
+        // The masked tiles are this warpgroup's first ones, so it waits on
+        // the stage again later.  A wait tests the phase's parity only:
+        // had this phase not completed, the stage's next wait (the other
+        // parity) would pass at once and read the ring before its tiles
+        // landed.  Waiting here keeps every consumer in step with the
+        // phases.  (The forward and dq kernels skip trailing tiles only.)
+        mbar_wait(&full[s], ph);
         if (lane == 0) mbar_arrive(&empty[s]);
         continue;
       }

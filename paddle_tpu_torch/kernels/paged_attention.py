@@ -34,12 +34,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_by_groups", "paged_groups", "paged_cost", "paged_plan",
-           "MAX_W", "SPARE_PAGE"]
+           "MAX_W", "SPARE_PAGE", "gather_read", "gather_read_active"]
 
 NEG_INF = -1e30
 MAX_W = 8                  # widest query span the kernel takes (kMaxW)
@@ -117,6 +119,29 @@ def _check(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
                   v_scale.shape != v_pages.shape[:2]):
         raise ValueError("k_scale/v_scale are [NP, P]")
     return quant
+
+
+_read = threading.local()
+
+
+@contextmanager
+def gather_read():
+    """Within the block (on this thread) the model reads a paged cache
+    by gathering each row's pages into a ``[B, virt, H, D]`` view under
+    the validity mask, the JAX package's XLA read
+    (``Engine(decode_kernel="xla")``), instead of launching the paged
+    kernel.  The pools' writes are the same either way."""
+    prev = getattr(_read, "gather", False)
+    _read.gather = True
+    try:
+        yield
+    finally:
+        _read.gather = prev
+
+
+def gather_read_active() -> bool:
+    """Whether :func:`gather_read` is in effect on this thread."""
+    return getattr(_read, "gather", False)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,

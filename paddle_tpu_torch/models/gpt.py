@@ -8,16 +8,34 @@ model's serving path:
 * no cache: causal self-attention through the fused flash kernel on the
   ``[B, T, nh, 3, hd]`` projection (``F.fused_qkv_attention``, as JAX's
   ``gpt.py:269``) — the training forward, differentiable;
+* ``use_cache=True`` with no caches: the same attention on separate q,
+  k, v (the flash kernel), returning ``(logits, [(k, v), ...])``; a
+  2-tuple ``(k, v)`` is the growing-concat cache, whose key length grows
+  every step (the retrace sentinel warns once);
 * static prefill: a 3-tuple ``(k_buf, v_buf, 0)`` whose length is the
   Python int 0 — the new keys/values land at the head of the buffers and
   the prompt attends causally through the flash kernel;
+* static: ``(k_buf, v_buf, length)`` over ``[B, L, H, D]`` buffers with a
+  0-d tensor length (``HybridParallelInferenceHelper``'s step: one
+  fixed-shape write at ``length``, the read over the whole buffer under
+  the causal-plus-validity mask, nothing read on the host) or a per-slot
+  ``[B]`` length (the serving engine's dense pool), and the dense int8
+  5-tuple ``(..., k_scale, v_scale)``;
 * paged: the 4-tuple ``(k_pages, v_pages, lengths[B], page_table[B,
   n_pt])`` and the int8 6-tuple ``(..., k_scale, v_scale)``.  Position
   ``p`` of row ``r`` lives at ``pages[page_table[r, p // P], p % P]``.
   The new keys/values are written into the pools in place, then read
-  back through the paged decode kernel.  Either tuple may end in
-  :data:`SPARE_PAGE` (the serving engine's form): the pools then hold a
-  spare page past the mappable ones, and the write has a fixed shape.
+  back through the paged decode kernel, or under
+  ``kernels.paged_attention.gather_read()`` by gathering the row's pages
+  (the JAX package's XLA read, ``Engine(decode_kernel="xla")``).  A
+  per-slot static or paged tuple may end in :data:`SPARE_PAGE` (the
+  serving engine's form): the buffers then hold a spare column, or the
+  pools a spare page, past the readable ones, and the write has a fixed
+  shape.
+
+The masked reads are the plain masked attention (``sdpa_ref``), as JAX's
+are XLA math.  ``GPTForPretraining.generate`` runs a batch through the
+serving engine.
 
 The LayerNorms are the port's ``nn.LayerNorm`` (``F.layer_norm``), so
 ``kernels.layer_norm.enable_fused_layernorm("full" | "bwd")`` sends them
@@ -77,9 +95,6 @@ forward sum to ``GPTModel.moe_aux_loss()``, which
 computes: the JAX model reads the flag nowhere either.  ``activation``
 is any name of ``nn.functional.ACTIVATIONS`` (JAX's ``getattr(F,
 activation)``).
-
-Not ported: growing-concat and dense per-slot caches, and serving a MoE
-model (ROADMAP module entry 4).
 """
 from __future__ import annotations
 
@@ -87,6 +102,7 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as tF
 from torch import nn
@@ -97,11 +113,14 @@ from ..core.op import apply_op
 from ..device import resolve_device
 from ..incubate.distributed.models.moe import MoELayer
 from ..kernels.ln_matmul import ln_matmul_enabled
-from ..kernels.paged_attention import SPARE_PAGE, paged_decode_attention
+from ..kernels.paged_attention import (SPARE_PAGE, gather_read_active,
+                                       paged_decode_attention,
+                                       paged_decode_attention_plain)
 from ..nn import LayerNorm
 from ..nn import functional as F
 from ..serving.adapters.lora import active as _lora_active
-from ..serving.kv_quant import quantize_rows
+from ..observability.retrace import note_dynamic_cache_growth
+from ..serving.kv_quant import dequantize_pool, quantize_rows
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTSelfAttention",
            "GPTMLP", "GPTMoEMLP", "GPTDecoderLayer", "GPTEmbeddings",
@@ -208,7 +227,7 @@ class GPTSelfAttention(nn.Module):
             "qkv_layout", torch.tensor(QKV_LAYOUT_HEAD_MAJOR,
                                        dtype=torch.int32))
 
-    def forward(self, x, cache=None, pre_norm=None):
+    def forward(self, x, cache=None, pre_norm=None, use_cache=False):
         b, t = x.shape[0], x.shape[1]
         if pre_norm is not None:
             # the pre-LN fused into the qkv projection (kernels/ln_matmul.py)
@@ -225,39 +244,141 @@ class GPTSelfAttention(nn.Module):
             # exactly zero, so base rows keep the adapter-free qkv)
             qkv = qkv + scope.delta_qkv(x)
         qkv = qkv.view(b, t, self.num_heads, 3, self.head_dim)
-        if cache is None:
+        if cache is None and not use_cache:
             return _linear(self.out_proj, F.fused_qkv_attention(
                 qkv, dropout_p=self.attn_dropout_prob, is_causal=True,
                 training=self.training))
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-        if len(cache) == 3:
-            k_buf, v_buf, pos0 = cache
-            if not (isinstance(pos0, int) and pos0 == 0):
-                raise NotImplementedError(
-                    "the dense per-slot cache (a 3-tuple with a tensor "
-                    "length) is ROADMAP module entry 4; the port "
-                    "takes the static prefill form (k_buf, v_buf, 0)")
+        n = 0 if cache is None else len(cache) - (cache[-1] is SPARE_PAGE)
+        if n in (0, 2):
+            if cache is not None:
+                # growing-concat cache: every decode step has a new key
+                # length, so a caller that builds per signature rebuilds
+                # per token; the sentinel points at the static path once
+                note_dynamic_cache_growth("models.gpt.GPTSelfAttention")
+                k = torch.cat([cache[0], k], dim=1)
+                v = torch.cat([cache[1], v], dim=1)
+            out = F.scaled_dot_product_attention(
+                q, k, v, dropout_p=self.attn_dropout_prob, is_causal=True,
+                training=self.training)
+            new_cache = (k, v)
+        elif n in (4, 6):
+            out, new_cache = self._paged(q, k, v, cache)
+        elif n == 3 and isinstance(cache[2], int) and cache[2] == 0:
             # static prefill: no past to attend over, so the prompt keeps
             # the causal flash path; the buffers take the new keys/values
+            k_buf, v_buf, _ = cache
             k_buf[:, :t] = k.to(k_buf.dtype)
             v_buf[:, :t] = v.to(v_buf.dtype)
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
             new_cache = (k_buf, v_buf, t)
-        elif len(cache) - (cache[-1] is SPARE_PAGE) in (4, 6):
-            out, new_cache = self._paged(q, k, v, cache)
+        elif n in (3, 5):
+            out, new_cache = self._static(q, k, v, cache)
         else:
-            raise NotImplementedError(
-                f"a {len(cache)}-tuple cache: the port takes the static "
-                f"prefill 3-tuple and the paged 4/6-tuples, each paged one "
-                f"with or without SPARE_PAGE (ROADMAP module entry 4)")
+            raise ValueError(
+                f"a {len(cache)}-tuple cache: the model takes (k, v), the "
+                f"static (k_buf, v_buf, length) with a scalar or per-slot "
+                f"[B] length and its int8 5-tuple, and the paged 4/6-tuples "
+                f"(each static per-slot or paged one with or without "
+                f"SPARE_PAGE)")
         out = _linear(self.out_proj,
                       out.reshape(b, t, self.num_heads * self.head_dim))
         return out, new_cache
 
     @staticmethod
+    def _static(q, k, v, cache):
+        """The static cache ``(k_buf, v_buf, length[, k_scale, v_scale])``
+        over ``[B, L, H, D]`` buffers (JAX's dense branch): write the
+        span's keys/values at ``length`` in place, then read the whole
+        buffer under the causal-plus-validity mask with the plain masked
+        attention.
+
+        A scalar ``length`` (a 0-d tensor, or a Python int) is one
+        position for every row: the span lands at ``length`` (clamped so
+        it fits, as ``dynamic_update_slice`` clamps) through one
+        fixed-shape index write, and nothing reads the length on the
+        host, so the step can be captured in a CUDA graph.  A ``[B]``
+        length is the serving engine's per-slot form (the int8 5-tuple
+        only takes this form): row ``r`` writes at ``length[r] + j``.
+        With :data:`SPARE_PAGE` at the end of the tuple the buffers hold
+        one spare column past the ``L`` readable ones: every position past
+        ``L`` (a parked row's, or a verify span's that runs off the end)
+        is written there by one fixed-shape ``index_put_`` and no read
+        sees it.  Without the marker those positions are dropped by a
+        boolean filter, which syncs the host."""
+        spare = cache[-1] is SPARE_PAGE
+        if spare:
+            cache = cache[:-1]
+        k_buf, v_buf, start = cache[:3]
+        quant = len(cache) == 5
+        t = q.shape[1]
+        L = k_buf.shape[1] - int(spare)               # readable positions
+        ar = torch.arange(t, device=q.device)
+        if not torch.is_tensor(start):
+            start = torch.tensor(start, dtype=torch.int32, device=q.device)
+        if start.dim() == 0:
+            if quant or spare:
+                raise ValueError(
+                    "the int8 (5-tuple) and spare-column static caches take "
+                    "per-slot [B] lengths, as the serving engine passes")
+            cols = start.long() + ar                                # [t]
+            w = (start.long().clamp(max=L - t) + ar) if t <= L else ar
+            k_buf[:, w] = k.to(k_buf.dtype)
+            v_buf[:, w] = v.to(v_buf.dtype)
+            mask = (torch.arange(L, device=q.device)[None, :]
+                    <= cols[:, None])[None, None]                   # [t, L]
+            out = F.scaled_dot_product_attention(
+                q, k_buf.to(q.dtype), v_buf.to(q.dtype), attn_mask=mask)
+            return out, (k_buf, v_buf, start + t)
+        B = k_buf.shape[0]
+        cols = start.long()[:, None] + ar[None]                     # [B, t]
+        rows = torch.arange(B, device=q.device)[:, None].expand(B, t)
+        if spare:
+            # off-the-end positions go to the spare column, never clamped
+            # onto a readable one
+            idx = (rows.flatten(), cols.clamp(max=L).flatten())
+
+            def sel(x):
+                return x.flatten(0, 1)
+        else:
+            # ... or are dropped
+            keep = cols < L
+            idx = (rows[keep], cols[keep])
+
+            def sel(x):
+                return x[keep]
+        if quant:
+            k_scale, v_scale = cache[3], cache[4]
+            kq, ksc = quantize_rows(k)
+            vq, vsc = quantize_rows(v)
+            k_buf.index_put_(idx, sel(kq))
+            v_buf.index_put_(idx, sel(vq))
+            k_scale.index_put_(idx, sel(ksc))
+            v_scale.index_put_(idx, sel(vsc))
+            k_att = dequantize_pool(k_buf[:, :L], k_scale[:, :L], q.dtype)
+            v_att = dequantize_pool(v_buf[:, :L], v_scale[:, :L], q.dtype)
+        else:
+            k_buf.index_put_(idx, sel(k).to(k_buf.dtype))
+            v_buf.index_put_(idx, sel(v).to(v_buf.dtype))
+            k_att, v_att = k_buf[:, :L].to(q.dtype), v_buf[:, :L].to(q.dtype)
+        mask = (torch.arange(L, device=q.device)[None, None, :]
+                <= cols[:, :, None])                             # [B, t, L]
+        out = F.scaled_dot_product_attention(q, k_att, v_att,
+                                             attn_mask=mask[:, None])
+        new_cache = (k_buf, v_buf, start + t)
+        if quant:
+            new_cache = new_cache + (k_scale, v_scale)
+        if spare:
+            new_cache = new_cache + (SPARE_PAGE,)
+        return out, new_cache
+
+    @staticmethod
     def _paged(q, k, v, cache):
         """Write the span's keys/values through the page table, then read
-        the row's pages with the paged decode kernel.
+        the row's pages with the paged decode kernel, or, inside
+        :func:`~paddle_tpu_torch.kernels.paged_attention.gather_read`,
+        by gathering them under the validity mask (JAX's XLA read, which
+        is the kernel's plain version on any device).
 
         With :data:`SPARE_PAGE` at the end of the cache tuple the pools
         hold one page past those a table may map: every span position is
@@ -314,8 +435,12 @@ class GPTSelfAttention(nn.Module):
         read = [k_pages, v_pages, k_scale, v_scale]
         if spare:
             read = [None if x is None else x[:n_pages] for x in read]
-        out = paged_decode_attention(q, read[0], read[1], pt, start,
-                                     k_scale=read[2], v_scale=read[3])
+        # JAX's XLA read (the kernel's plain version: gather the rows'
+        # pages, mask, softmax) or the kernel
+        read_fn = (paged_decode_attention_plain if gather_read_active()
+                   else paged_decode_attention)
+        out = read_fn(q, read[0], read[1], pt, start, k_scale=read[2],
+                      v_scale=read[3])
         new_cache = (k_pages, v_pages, start + t, pt)
         if quant:
             new_cache = new_cache + (k_scale, v_scale)
@@ -393,16 +518,17 @@ class GPTDecoderLayer(nn.Module):
         the port; the caller checks that there is no cache."""
         return ln_matmul_enabled() and not isinstance(self.mlp, GPTMoEMLP)
 
-    def forward(self, x, cache=None):
-        if cache is None and self._fuse_ln_proj():
+    def forward(self, x, cache=None, use_cache=False):
+        use_cache = use_cache or cache is not None
+        if not use_cache and self._fuse_ln_proj():
             x = x + self.dropout1(self.self_attn(x, pre_norm=self.norm1))
             return x + self.dropout2(self.mlp(x, pre_norm=self.norm2))
-        y = self.self_attn(self.norm1(x), cache=cache)
-        if cache is not None:
+        y = self.self_attn(self.norm1(x), cache=cache, use_cache=use_cache)
+        if use_cache:
             y, new_cache = y
         x = x + self.dropout1(y)
         x = x + self.dropout2(self.mlp(self.norm2(x)))
-        return x if cache is None else (x, new_cache)
+        return (x, new_cache) if use_cache else x
 
 
 class GPTEmbeddings(nn.Module):
@@ -441,33 +567,45 @@ class GPTModel(nn.Module):
     def _positions(self, input_ids, caches):
         t = input_ids.shape[1]
         ar = torch.arange(t, device=input_ids.device)
-        if caches is None:
+        if caches is None or caches[0] is None:
             pos = ar[None]
+        elif len(caches[0]) == 2:
+            # growing-concat cache: the past is the cached key length
+            pos = (ar + caches[0][0].shape[1])[None]
         else:
+            # every static and paged form keeps its length at [2]: a
+            # Python int (static prefill), a 0-d tensor (the static
+            # cache's step, never read on the host) or per-slot [B]
             past = caches[0][2]
-            if torch.is_tensor(past) and past.dim() == 1:
+            if not torch.is_tensor(past):
+                pos = (ar + int(past))[None]
+            elif past.dim() == 1:
                 pos = past.long()[:, None] + ar[None]  # per-slot lengths
             else:
-                pos = (ar + int(past))[None]
+                pos = (past.long() + ar)[None]
         # parked rows sit at n_pt*P, so past + j can run off the table;
         # the JAX gather clamps such ids, a CUDA embedding would fault
         return pos.clamp(max=self.config.max_position_embeddings - 1)
 
-    def forward(self, input_ids, position_ids=None, caches=None):
+    def forward(self, input_ids, position_ids=None, caches=None,
+                use_cache=False):
+        use_cache = use_cache or caches is not None
+        if caches is None and use_cache:
+            caches = [None] * len(self.layers)
         if position_ids is None:
             position_ids = self._positions(input_ids, caches)
         else:
             position_ids = position_ids.clamp(
                 max=self.config.max_position_embeddings - 1)
         x = self.embeddings(input_ids, position_ids)
-        new_caches = [] if caches is not None else None
+        new_caches = [] if use_cache else None
         recompute = self.config.use_recompute and self.training
-        scope = _lora_active() if caches is not None else None
+        scope = _lora_active() if use_cache else None
         for i, layer in enumerate(self.layers):
-            if caches is not None:
+            if use_cache:
                 if scope is not None:
                     scope.layer = i        # each layer gathers its bank slice
-                x, c = layer(x, cache=caches[i])
+                x, c = layer(x, cache=caches[i], use_cache=True)
                 new_caches.append(c)
             elif recompute and not isinstance(layer.mlp, GPTMoEMLP):
                 # (a MoE layer runs outside recompute, as in JAX: its
@@ -481,7 +619,7 @@ class GPTModel(nn.Module):
             else:
                 x = layer(x)
         x = self.final_norm(x)
-        return x if caches is None else (x, new_caches)
+        return (x, new_caches) if use_cache else x
 
     def moe_aux_loss(self):
         """The sum of the gates' balance losses of the last forward (None
@@ -518,9 +656,11 @@ class GPTForPretraining(nn.Module):
     def config(self) -> GPTConfig:
         return self.gpt.config
 
-    def forward(self, input_ids, position_ids=None, caches=None):
-        if caches is not None:
-            x, new_caches = self.gpt(input_ids, position_ids, caches=caches)
+    def forward(self, input_ids, position_ids=None, caches=None,
+                use_cache=False):
+        if use_cache or caches is not None:
+            x, new_caches = self.gpt(input_ids, position_ids, caches=caches,
+                                     use_cache=True)
             return self.lm_head(x), new_caches
         x = self.gpt(input_ids, position_ids)
         if self.config.fuse_head_loss and self.training:
@@ -537,6 +677,44 @@ class GPTForPretraining(nn.Module):
             return apply_op(lambda h, e: torch.matmul(h, e.t()), "matmul",
                             (hidden_states, w), {})
         return torch.matmul(hidden_states, w.t())
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 eos_token_id=None, temperature: float = 0.0, top_k: int = 0,
+                 seed: int = 0, max_slots: int = 8,
+                 timeout_s: float = 600.0, **engine_kwargs) -> np.ndarray:
+        """Batch generation over the serving engine
+        (:class:`paddle_tpu_torch.serving.Engine`): each row is one request
+        (seed ``seed + i``) over a shared slot pool, so generation and
+        serving run the same code.  Returns ``[batch, prompt + longest]``
+        ids; rows that stopped at ``eos_token_id`` are right-padded with it
+        (0 when no eos is set).  Extra keyword arguments reach the engine
+        (``kv_dtype="int8"``, ``speculative_k=``, ``prefix_cache=``,
+        ``sample_on_device=``, ``paged_kv=True`` with ``decode_kernel=``)."""
+        from ..serving import Engine
+
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids).astype(np.int64)
+        if ids.ndim == 1:
+            ids = ids[None]
+        b, t = ids.shape
+        engine = Engine(self, max_slots=min(int(max_slots), b),
+                        max_len=t + int(max_new_tokens), **engine_kwargs)
+        try:
+            handles = [engine.submit(row, max_new_tokens=max_new_tokens,
+                                     eos_token_id=eos_token_id,
+                                     temperature=temperature, top_k=top_k,
+                                     seed=seed + i)
+                       for i, row in enumerate(ids)]
+            gen = [h.result(timeout=timeout_s) for h in handles]
+        finally:
+            engine.shutdown()
+        width = max(len(g) for g in gen)
+        pad = 0 if eos_token_id is None else int(eos_token_id)
+        out = np.full((b, t + width), pad, np.int64)
+        out[:, :t] = ids
+        for i, g in enumerate(gen):
+            out[i, t:t + len(g)] = g
+        return out
 
 
 class GPTPretrainingCriterion(nn.Module):

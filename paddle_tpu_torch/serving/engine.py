@@ -1,35 +1,50 @@
-"""Continuous-batching serving engine over the paged KV pool.
+"""Continuous-batching serving engine.
 
-The port of ``paddle_tpu/serving/engine.py`` for its main serving path,
-``Engine(paged_kv=True, decode_kernel="pallas")``, with the decode fast
-path's flags, multi-LoRA adapters, int8 base weights, the supervision
-surface and the host prefix tier:
+The port of ``paddle_tpu/serving/engine.py``: the same constructor (its
+parameters, order and defaults), both KV pools, both decode reads, both
+samplers, the decode fast path's flags, multi-LoRA adapters, int8 base
+weights, MoE models, the supervision surface and the host prefix tier:
 
-* a **slot pool** of ``max_slots`` decode lanes plus one scratch lane, and
-  a **paged KV pool** per layer: ``[num_pages + 1, page_size, heads,
-  head_dim]`` K and V tensors (int8 with ``[num_pages + 1, page_size]``
-  f32 scales under ``kv_dtype="int8"``).  Each lane carries an int32 page
-  table; a host-side :class:`PageAllocator` owns the ``num_pages``
-  mappable pages.  The last page is the **spare**: no table maps it, the
-  read never sees it, and every write a table cannot place (a sentinel
-  entry, a position past the table, a parked lane) lands there, so the
-  write has a fixed shape and syncs nothing (the cache tuples end in
-  ``kernels.paged_attention.SPARE_PAGE``; ``models/gpt.py`` writes).
+* a **slot pool** of ``max_slots`` decode lanes plus one scratch lane,
+  and per layer one of two **KV pools**:
+
+  - dense (``paged_kv=False``, the default): a ``[max_slots + 1, max_len
+    + 1, heads, head_dim]`` row per lane in the model's dtype (int8 with
+    ``[..., max_len + 1]`` f32 scales under ``kv_dtype="int8"``).  Column
+    ``max_len`` is the **spare**: parked lanes sit at ``max_len`` and a
+    write past a row's end lands there (JAX drops it), so the write has a
+    fixed shape and syncs nothing.  A completed request's row can be
+    retained by the prefix cache (the lane's ``cached`` state); a hit
+    copies the row on the device and prefills the tail;
+  - paged (``paged_kv=True``): ``[num_pages + 1, page_size, heads,
+    head_dim]`` f32 pages (int8 with ``[num_pages + 1, page_size]`` scales).
+    Each lane carries an int32 page table; a host-side
+    :class:`PageAllocator` owns the ``num_pages`` mappable pages.  The
+    last page is the spare: no table maps it, the read never sees it, and
+    every write a table cannot place (a sentinel entry, a position past
+    the table, a parked lane) lands there.  The decode read is the paged
+    kernel (``decode_kernel="pallas"``) or the gather of the row's pages
+    under the validity mask (``"xla"``, the default, JAX's XLA read).
+
+  The cache tuples end in ``kernels.paged_attention.SPARE_PAGE``
+  (``models/gpt.py`` writes and reads).
 * a **scheduler thread**: each iteration sweeps cancellations and
-  deadlines, admits queued requests (each reserves every page it can
-  ever write, ``ceil((prompt + max_new_tokens) / page_size)`` less the
-  full pages a prefix hit shares; page exhaustion leaves the head of the
-  queue waiting), prefills them as one batch padded to a power-of-two
-  bucket, then runs one batched decode step over all ``max_slots + 1``
-  lanes.  Idle lanes are parked at the pool's virtual end with
-  all-sentinel tables, so their writes land on the spare page.  On the
+  deadlines, admits queued requests (on the paged pool each reserves
+  every page it can ever write, ``ceil((prompt + max_new_tokens) /
+  page_size)`` less the full pages a prefix hit shares; page exhaustion
+  leaves the head of the queue waiting), prefills them as one batch
+  padded to a power-of-two bucket, then runs one batched decode step
+  over all ``max_slots + 1`` lanes.  Idle lanes are parked at the pool's
+  end (with all-sentinel tables on the paged pool), so their writes land
+  on the spare page or column.  On the
   card all of the thread's device work runs on the engine's own CUDA
   stream (non-blocking, so another engine's capture in the same process
   is never invalidated by it).
 * **one decode graph**: the decode step's inputs are static device
-  buffers (``ids [n_rows, W]``, ``lengths``, ``page_tables`` and, with
-  adapters, the per-row bank ids ``[n_rows]``) filled from pinned host
-  arrays; on the card the forward, the LM head and the argmax are
+  buffers (``ids [n_rows, W]``, ``lengths``, and where the engine has
+  them the ``page_tables``, the per-row bank ids and the device
+  sampler's temperatures, top-ks and seeds) filled from pinned host
+  arrays; on the card the forward, the LM head and the sampling are
   captured once as a ``torch.cuda.CUDAGraph`` per engine config (W, the
   pool dtype, the LayerNorm routing) and replayed every step, and the
   token ids are the step's one device-to-host copy.  A failed capture or
@@ -37,11 +52,12 @@ surface and the host prefix tier:
   :meth:`Engine.compile_stats` counts the signatures (``decode_compiles``:
   graph captures on the card, distinct decode input signatures on the
   CPU), as the JAX engine's retrace sentinel does.
-* ``prefix_cache=True``: completed requests' pages are retained behind a
-  content-addressed :class:`PrefixIndex`, keyed by the namespace
-  ``(adapter, conversation)``; a hit shares the cached full pages by
-  reference (one copy-on-write page where the match ends inside a page)
-  and prefills only the prompt's tail through the paged read.  With a
+* ``prefix_cache=True``: completed requests' rows or pages are retained
+  behind a content-addressed :class:`PrefixIndex`, keyed by the namespace
+  ``(adapter, conversation)``; a paged hit shares the cached full pages by
+  reference (one copy-on-write page where the match ends inside a page),
+  a dense hit copies the cached row, and only the prompt's tail is
+  prefilled.  With a
   host tier (``host_prefix_mb=`` / ``host_prefix=``) an evicted entry's
   pages are gathered on the engine's stream and copied to pinned host
   memory by the tier (:class:`HostPrefixTier`); an admission that misses
@@ -66,10 +82,12 @@ surface and the host prefix tier:
   rebuilt engine); those that streamed fail with
   :class:`RequestInterruptedError`.  A dead or abandoned engine's thread
   checks that it is dead before every launch and exits without one.
-* on the card, prefill attention runs the flash kernel and every decode
-  step's and tail prefill's attention read runs the paged decode kernel
+* on the card, prefill attention runs the flash kernel, and with
+  ``decode_kernel="pallas"`` every decode step's and tail prefill's read
+  of the paged pool runs the paged decode kernel
   (``paddle_tpu_torch/kernels``); on the CPU the same code runs their
-  plain versions.
+  plain versions.  The dense pool's and the gather's reads are the plain
+  masked attention, as JAX's are XLA math.
 * **telemetry** (``paddle_tpu_torch.observability``), under the JAX
   engine's names and at its sites: the ``paddle_tpu_serving_*`` counters,
   gauges and histograms (requests by outcome, tokens, TTFT, per-token
@@ -92,17 +110,23 @@ surface and the host prefix tier:
   metric.
 
 **Sampling.**  Greedy decoding (temperature 0) is exact: the same
-weights give the JAX engine's tokens, speculative or not.  With a
-temperature (and optional top-k) each request draws from its own
-``torch.Generator`` seeded with ``seed``, so a request is reproducible
-within the port, but sampled tokens are *distributional*, not seed-equal
-to the JAX engine, which draws with threefry ``fold_in`` keys that this
-port does not reimplement.  Sampled rows take no drafts and emit one
-token a step.
+weights give the JAX engine's tokens, speculative or not, on either pool
+and either read.  With ``sample_on_device=True`` (the default) temperature
+and top-k sampling run inside the decode graph by Gumbel-max, with
+per-lane temperature, top-k and seed operands; each draw's key is a
+stateless function of the request's seed and the position its logits sit
+at, so the draw for "the token after position p" is the same whichever
+path (cold prefill, tail prefill, decode) produced it, and only the
+``[n_rows, W]`` token ids cross to the host.  With ``False`` each request
+draws on the host from its own ``torch.Generator`` seeded with ``seed``.
+Either way a request is reproducible within the port, but sampled tokens
+are *distributional*, not seed-equal to the JAX engine, which draws with
+threefry ``fold_in`` keys that this port does not reimplement.  Sampled
+rows take no drafts and emit one token a step.
 
-Flags of the JAX engine this port does not have raise
-``NotImplementedError`` naming their ROADMAP entry, and so does a model
-with MoE layers (entry 4).
+A MoE model is served as the JAX engine serves it: every lane of the
+decode step, parked ones too, goes through the layers' capacity dispatch
+(``MoELayer`` has no host sync, so the step stays capturable).
 """
 from __future__ import annotations
 
@@ -118,7 +142,6 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..kernels import layer_norm as _ln
 from ..kernels import paged_attention as _pa
 from ..kernels.paged_attention import SPARE_PAGE
@@ -375,10 +398,49 @@ def _sample_row(logits_row, temperature: float, top_k: int,
     return int(torch.multinomial(probs, 1, generator=gen))
 
 
-def _unported(flag: str):
-    return NotImplementedError(
-        f"{flag} is not ported yet: ROADMAP section 1, module entry 4 (the "
-        f"rest of the serving engine)")
+# the device sampler's counter-based draws: a 32-bit integer hash (Thomas
+# Mueller's; each multiplier < 2**31, so int64 products never overflow)
+_M32 = 0xFFFFFFFF
+_HASH_MUL = 0x45D9F3B
+
+
+def _mix32(x):
+    """A 32-bit integer hash of an int64 tensor of values in [0, 2**32)."""
+    x = ((x >> 16) ^ x) * _HASH_MUL & _M32
+    x = ((x >> 16) ^ x) * _HASH_MUL & _M32
+    return (x >> 16) ^ x
+
+
+def _draw_keys(seeds, positions):
+    """Each row's key for the draw of "the token after ``positions``":
+    a stateless function of the request's seed and that position, so the
+    draw is the same whichever path (cold prefill, tail prefill, decode)
+    produced the logits, and no key state returns to the host."""
+    s = seeds.long()
+    k = _mix32((s & _M32) ^ 0x9E3779B9)
+    k = _mix32(k ^ ((s >> 32) & _M32))
+    return _mix32(k ^ _mix32((positions.long() & _M32) ^ 0x85EBCA6B))
+
+
+def _device_sample(logits, temps, topks, seeds, positions):
+    """The device sampler, one token a row of ``logits [B, V]``: the
+    argmax at temperature 0, else a temperature (and top-k, when > 0) draw
+    by Gumbel-max (JAX engine ``_sample_rows``) with Gumbel noise from the
+    counter-based keys of :func:`_draw_keys`.  Fixed shapes, no host
+    sync: it runs inside the decode graph.  The draws have the JAX
+    sampler's distribution, not its threefry bits."""
+    greedy = logits.argmax(dim=-1)
+    V = logits.shape[-1]
+    l32 = logits.float() / temps.float().clamp(min=1e-6)[:, None]
+    srt = torch.sort(l32, dim=-1).values                       # ascending
+    kth = srt.gather(1, (V - topks.long()).clamp(0, V - 1)[:, None])
+    keep = (topks[:, None] <= 0) | (l32 >= kth)
+    masked = torch.where(keep, l32, torch.full_like(l32, -1e30))
+    vocab = _mix32(torch.arange(V, device=logits.device) ^ 0x27D4EB2F)
+    h = _mix32(_draw_keys(seeds, positions)[:, None] ^ vocab[None])
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))           # (0, 1)
+    sampled = (masked - torch.log(-torch.log(u))).argmax(dim=-1)
+    return torch.where(temps > 0, sampled, greedy)
 
 
 class _DecodeGraph(NamedTuple):
@@ -426,40 +488,24 @@ def _kernel_launches() -> dict:
 
 
 class Engine:
-    """Continuous-batching inference engine over a paged KV pool.
+    """Continuous-batching inference engine over a dense or paged KV pool.
 
     Args:
-        model: a port ``GPTForPretraining`` (trunk ``.gpt`` + ``.lm_head``)
-            on ``device``.
+        model: a port ``GPTForPretraining`` (trunk ``.gpt`` + ``.lm_head``,
+            dense or MoE); the engine serves on the device its parameters
+            lie on.
+        tokenizer: optional — lets ``submit`` accept strings (``encode``)
+            and the gateway take string prompts.
         max_slots: concurrent requests sharing the batched decode step.
-        max_len: per-slot length; ``len(prompt) + max_new_tokens`` may not
-            exceed ``max_pages_per_slot * page_size`` (capped by the
-            model's position table).
+        max_len: per-slot length: the dense row's, or on the paged pool
+            the default table width; ``len(prompt) + max_new_tokens`` may
+            not exceed it (paged: ``max_pages_per_slot * page_size``,
+            capped by the model's position table).
         max_queue: admission-queue bound (default ``2 * max_slots``);
             submits beyond it raise :class:`QueueFullError`.
         prefill_batch: requests admitted per batched prefill (default
             ``min(4, max_slots)``).
         eos_token_id: default end-of-sequence id.
-        paged_kv: must be True (the dense pool is not ported).
-        page_size: positions per page (default ``prefix_block``, 16: a
-            block-aligned prefix hit then shares only whole pages).
-        num_pages: mappable pages in the pool (default ``max_slots *
-            ceil(max_len / page_size)``); the pool holds one spare page
-            more.
-        max_pages_per_slot: page-table width (default
-            ``ceil(max_len / page_size)``).
-        kv_dtype: None (f32 pools) or ``"int8"`` (per-position scales).
-        prefix_cache: retain completed requests' pages behind a
-            content-addressed prefix index; an admission whose prompt
-            starts with a cached prefix shares its pages and prefills only
-            the tail.
-        prefix_block: prefix-match granularity in tokens.
-        speculative_k: verify ``k`` positions a decode step (``k - 1``
-            drafted tokens; 0 and 1 disable).  The decode width is
-            ``max(1, k)`` for every step of the engine.
-        drafter: ``drafter(context_ids, n) -> n proposed ids`` (default
-            :class:`NgramDrafter` when ``speculative_k > 1``).
-        device: ``"cuda"`` by default; raises without a card.
         auto_start: start the scheduler on the first submit (tests pass
             False to stage a queue, then call :meth:`start`).
         admission_hook: ``hook(request, load)`` called by ``submit`` after
@@ -472,6 +518,38 @@ class Engine:
             engine).  Requests not taken fail with
             :class:`EngineDeadError`; requests that streamed tokens fail
             with :class:`RequestInterruptedError`.
+        decode_timeout_s: arm the crash-dump watchdog around every batched
+            prefill, tail prefill and decode step (default: the
+            ``PADDLE_TPU_DECODE_TIMEOUT_S`` env var): a stalled dispatch
+            writes a bundle naming the stuck phase (the flight tail, the
+            open spans, every thread's stack) instead of a silent hang.
+        prefix_cache: retain completed requests' rows (dense) or pages
+            (paged) behind a content-addressed prefix index; an admission
+            whose prompt starts with a cached prefix copies the row or
+            shares the pages, and prefills only the tail.
+        prefix_block: prefix-match granularity in tokens.
+        speculative_k: verify ``k`` positions a decode step (``k - 1``
+            drafted tokens; 0 and 1 disable).  The decode width is
+            ``max(1, k)`` for every step of the engine.
+        drafter: ``drafter(context_ids, n) -> n proposed ids`` (default
+            :class:`NgramDrafter` when ``speculative_k > 1``).
+        kv_dtype: None (model-dtype dense rows, f32 pages) or ``"int8"``
+            (per-position scales).
+        sample_on_device: draw temperature / top-k tokens inside the
+            decode graph (Gumbel-max, counter-based keys); False draws on
+            the host from each request's ``torch.Generator``.
+        paged_kv: the paged pool instead of the dense rows.
+        page_size: positions per page (default ``prefix_block``, 16: a
+            block-aligned prefix hit then shares only whole pages).
+        num_pages: mappable pages in the pool (default ``max_slots *
+            ceil(max_len / page_size)``); the pool holds one spare page
+            more.
+        max_pages_per_slot: page-table width (default
+            ``ceil(max_len / page_size)``).
+        decode_kernel: the paged pool's read: ``"xla"`` gathers the row's
+            pages under the validity mask (the JAX flag value for its XLA
+            read), ``"pallas"`` (paged only) launches the CUDA paged decode
+            kernel.
         adapters: an ``AdapterRegistry``: ``submit(adapter=name)`` rows
             add that adapter's LoRA delta, gathered from stacked device
             banks in the same decode step (bank row 0 is the base model).
@@ -485,62 +563,38 @@ class Engine:
             many MiB (closed by :meth:`shutdown`).
         host_prefix: a shared :class:`HostPrefixTier` (outlives this
             engine: a supervisor's factory hands the same tier to every
-            build).  Either tier needs ``prefix_cache=True``.
-        decode_kernel: ``"pallas"``, the JAX flag value for the fused
-            paged read; here it is the CUDA paged decode kernel.
-        tokenizer: optional — lets ``submit`` accept strings (``encode``)
-            and the gateway take string prompts.
-        decode_timeout_s: arm the crash-dump watchdog around every batched
-            prefill, tail prefill and decode step (default: the
-            ``PADDLE_TPU_DECODE_TIMEOUT_S`` env var): a stalled dispatch
-            writes a bundle naming the stuck phase (the flight tail, the
-            open spans, every thread's stack) instead of a silent hang.
+            build).  Either tier needs ``paged_kv=True`` and
+            ``prefix_cache=True``.
     """
 
-    def __init__(self, model, max_slots: int = 8, max_len: int = 256,
-                 max_queue: Optional[int] = None,
+    def __init__(self, model, tokenizer=None, max_slots: int = 8,
+                 max_len: int = 256, max_queue: Optional[int] = None,
                  prefill_batch: Optional[int] = None, eos_token_id=None,
-                 paged_kv: bool = True, page_size: Optional[int] = None,
-                 num_pages: Optional[int] = None,
-                 max_pages_per_slot: Optional[int] = None,
-                 kv_dtype: Optional[str] = None, device=None,
-                 auto_start: bool = True, prefix_cache: bool = False,
-                 prefix_block: int = 16, speculative_k: int = 0,
-                 drafter: Optional[Callable] = None, adapters=None,
-                 weight_dtype: Optional[str] = None,
-                 host_prefix_mb: Optional[float] = None, host_prefix=None,
+                 auto_start: bool = True,
                  admission_hook: Optional[Callable] = None,
                  redispatch_hook: Optional[Callable] = None,
                  decode_timeout_s: Optional[float] = None,
-                 sample_on_device: bool = False,
-                 decode_kernel: str = "pallas", tokenizer=None):
-        self.device = resolve_device(device)
-        if decode_kernel not in ("xla", "pallas"):
-            raise ValueError(f"decode_kernel must be 'xla' or 'pallas', "
-                             f"got {decode_kernel!r}")
-        if kv_dtype not in (None, "int8"):
-            raise ValueError(f"kv_dtype must be None or 'int8', "
-                             f"got {kv_dtype!r}")
-        if weight_dtype not in (None, "int8"):
-            raise ValueError(f"weight_dtype must be None or 'int8', "
-                             f"got {weight_dtype!r}")
-        k = int(speculative_k)
-        if k < 0:
-            raise ValueError(f"speculative_k must be >= 0, got {k}")
-        if not paged_kv:
-            raise _unported("the dense slot pool (paged_kv=False)")
-        if decode_kernel == "xla":
-            raise _unported("decode_kernel='xla' (the gather read)")
-        if sample_on_device:
-            raise _unported("sample_on_device (device-fused sampling)")
-        if model.gpt.config.moe_num_experts > 0:
-            raise _unported("serving a model with MoE layers (capacity "
-                            "routing over the decode graph's padded slots)")
-        if host_prefix is not None and host_prefix_mb is not None:
-            raise ValueError(
-                "pass host_prefix_mb= (engine-owned tier) OR host_prefix= "
-                "(shared tier), not both")
+                 prefix_cache: bool = False,
+                 prefix_block: int = 16,
+                 speculative_k: int = 0,
+                 drafter: Optional[Callable] = None,
+                 kv_dtype: Optional[str] = None,
+                 sample_on_device: bool = True,
+                 paged_kv: bool = False,
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 max_pages_per_slot: Optional[int] = None,
+                 decode_kernel: str = "xla",
+                 adapters=None,
+                 weight_dtype: Optional[str] = None,
+                 host_prefix_mb: Optional[float] = None,
+                 host_prefix=None):
+        # the engine serves where the model lies
+        self.device = next(model.parameters()).device
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model
+        self.tokenizer = tokenizer
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         if self.max_slots < 1 or self.max_len < 2:
@@ -551,18 +605,15 @@ class Engine:
             raise ValueError(
                 f"max_len={self.max_len} exceeds the model's "
                 f"max_position_embeddings={limit}")
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        if any(p.device != self.device for p in model.parameters()):
-            raise ValueError(f"the model does not lie on the engine's "
-                             f"device {self.device}")
         self.max_queue = (2 * self.max_slots if max_queue is None
                           else int(max_queue))
         self.prefill_batch = (min(4, self.max_slots) if prefill_batch is None
                               else max(1, min(int(prefill_batch),
                                               self.max_slots)))
         self.eos_token_id = eos_token_id
-        self.tokenizer = tokenizer
+        self._auto_start = bool(auto_start)
+        self.admission_hook = admission_hook
+        self.redispatch_hook = redispatch_hook
         if decode_timeout_s is None:
             raw = os.environ.get("PADDLE_TPU_DECODE_TIMEOUT_S", "")
             try:
@@ -572,23 +623,87 @@ class Engine:
         self._decode_timeout_s = (float(decode_timeout_s)
                                   if decode_timeout_s and
                                   decode_timeout_s > 0 else None)
+        # -- the decode fast path's flags (each composes with the others
+        # at one decode signature) --------------------------------------
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', "
+                             f"got {kv_dtype!r}")
         self.kv_dtype = kv_dtype
         self._quant = kv_dtype == "int8"
-        self._auto_start = bool(auto_start)
-        self.admission_hook = admission_hook
-        self.redispatch_hook = redispatch_hook
+        k = int(speculative_k)
+        if k < 0:
+            raise ValueError(f"speculative_k must be >= 0, got {k}")
         self.speculative_k = k
         self._W = max(1, k)                     # decode width
         self._drafter = (drafter if drafter is not None
                          else NgramDrafter() if self._W > 1 else None)
+        self.sample_on_device = bool(sample_on_device)
         self._prefix = (PrefixIndex(block=prefix_block) if prefix_cache
                         else None)
+        # adapters: the registry persists across rebuilds; residency (bank
+        # rows, pins, LRU) is this build's
+        self.adapter_registry = adapters
+        self._adapters = adapters.residency() if adapters is not None \
+            else None
+        self._adapter_uploads: dict = {}     # name -> bank row, pending
+        self._adapter_stalled = False
+        if weight_dtype not in (None, "int8"):
+            raise ValueError(f"weight_dtype must be None or 'int8', "
+                             f"got {weight_dtype!r}")
+        self.weight_dtype = weight_dtype
+        # -- the KV pool: paged, or dense slot rows -----------------------
+        self.paged_kv = bool(paged_kv)
+        if not self.paged_kv and (page_size is not None or
+                                  num_pages is not None or
+                                  max_pages_per_slot is not None):
+            raise ValueError("page_size/num_pages/max_pages_per_slot "
+                             "require paged_kv=True")
+        if decode_kernel not in ("xla", "pallas"):
+            raise ValueError(f"decode_kernel must be 'xla' or 'pallas', "
+                             f"got {decode_kernel!r}")
+        if decode_kernel == "pallas" and not self.paged_kv:
+            raise ValueError(
+                "decode_kernel='pallas' requires paged_kv=True — the "
+                "fused kernel reads the pool through the page table")
+        self.decode_kernel = decode_kernel
+        n_rows = self.max_slots + 1             # + scratch lane
+        self._page_alloc: Optional[PageAllocator] = None
+        if self.paged_kv:
+            P = int(prefix_block if page_size is None else page_size)
+            if P < 1:
+                raise ValueError(f"page_size must be >= 1, got {P}")
+            dense_pages = -(-self.max_len // P)
+            n_pt = dense_pages if max_pages_per_slot is None \
+                else int(max_pages_per_slot)
+            if n_pt < 1:
+                raise ValueError(
+                    f"max_pages_per_slot must be >= 1, got {n_pt}")
+            n_pages = self.max_slots * dense_pages if num_pages is None \
+                else int(num_pages)
+            self._page_alloc = PageAllocator(n_pages, P)
+            self._max_pages_per_slot = n_pt
+            # virtual per-slot length: how far a lane's table can address,
+            # capped by the model's position table
+            self._limit = min(n_pt * P, limit)
+            # idle lanes park at the pool's virtual end with all-sentinel
+            # tables: their decode writes land on the spare page
+            self._park = n_pt * P
+        else:
+            self._limit = self.max_len
+            # idle and prefix-retained rows park at max_len: their decode
+            # writes land on the spare column, never on a cached row
+            self._park = self.max_len
+
         # the host tier: engine-owned (host_prefix_mb=, closed by
         # shutdown) or shared (host_prefix=, outlives every build)
         self._host_tier = None
         self._own_host_tier = False
+        if host_prefix is not None and host_prefix_mb is not None:
+            raise ValueError(
+                "pass host_prefix_mb= (engine-owned tier) OR host_prefix= "
+                "(shared tier), not both")
         if host_prefix is not None or host_prefix_mb is not None:
-            if self._prefix is None:
+            if not (self.paged_kv and self._prefix is not None):
                 raise ValueError("the host prefix tier requires "
                                  "paged_kv=True and prefix_cache=True")
             if host_prefix is not None:
@@ -602,29 +717,7 @@ class Engine:
                     capacity_mb=float(host_prefix_mb),
                     block=self._prefix.block)
                 self._own_host_tier = True
-        # adapters: the registry persists across rebuilds; residency (bank
-        # rows, pins, LRU) is this build's
-        self.adapter_registry = adapters
-        self._adapters = adapters.residency() if adapters is not None \
-            else None
-        self._adapter_uploads: dict = {}     # name -> bank row, pending
-        self._adapter_stalled = False
 
-        P = int(prefix_block if page_size is None else page_size)
-        if P < 1:
-            raise ValueError(f"page_size must be >= 1, got {P}")
-        dense_pages = -(-self.max_len // P)
-        n_pt = dense_pages if max_pages_per_slot is None \
-            else int(max_pages_per_slot)
-        if n_pt < 1:
-            raise ValueError(f"max_pages_per_slot must be >= 1, got {n_pt}")
-        n_pages = self.max_slots * dense_pages if num_pages is None \
-            else int(num_pages)
-        self._page_alloc = PageAllocator(n_pages, P)
-        self._max_pages_per_slot = n_pt
-        self._limit = min(n_pt * P, limit)
-
-        n_rows = self.max_slots + 1             # + scratch lane
         self._pool = SlotPool(self.max_slots)
         self._queue: deque = deque()
         self._lock = threading.Lock()
@@ -635,13 +728,15 @@ class Engine:
         self._last_progress = time.perf_counter()
         self._thread: Optional[threading.Thread] = None
         self._ids = np.zeros((n_rows, self._W), np.int64)
-        # idle lanes park at the pool's virtual end with all-sentinel
-        # tables: their decode writes land on the spare page and their
-        # reads are skipped
-        self._park = n_pt * P
         self._lengths = np.full(n_rows, self._park, np.int32)
-        self._page_tables = np.full((n_rows, n_pt), n_pages, np.int32)
+        self._page_tables = (np.full((n_rows, n_pt), n_pages, np.int32)
+                             if self.paged_kv else None)
         self._aids = np.zeros(n_rows, np.int64)   # bank row per lane
+        # per-lane sampling operands of the device sampler (a draw's key
+        # folds the request's seed with its position on the device)
+        self._temps = np.zeros(n_rows, np.float32)
+        self._topks = np.zeros(n_rows, np.int64)
+        self._seeds = np.zeros(n_rows, np.int64)
         self._counts = {"submitted": 0, "completed": 0, "rejected": 0,
                         "cancelled": 0, "deadline_expired": 0, "failed": 0,
                         "resubmitted": 0, "redispatched": 0,
@@ -695,11 +790,20 @@ class Engine:
         H = cfg.num_attention_heads
         D = cfg.hidden_size // H
         self._heads, self._head_dim = H, D
-        pool_dtype = torch.int8 if self._quant else torch.float32
-        shape = (n_pages + 1, P, H, D)          # + the spare page
         L = cfg.num_layers
         dev = self.device
         on_card = dev.type == "cuda"
+        if self.paged_kv:
+            # f32 pages (int8 under kv_dtype="int8"), one spare page past
+            # the mappable ones
+            pool_dtype = torch.int8 if self._quant else torch.float32
+            shape = (n_pages + 1, P, H, D)
+        else:
+            # a row per lane in the model's dtype (int8 with scales), one
+            # spare column past max_len
+            pool_dtype = (torch.int8 if self._quant else
+                          model.gpt.embeddings.word_embeddings.weight.dtype)
+            shape = (n_rows, self.max_len + 1, H, D)
         # the thread's own stream (the caller's stream waits for the
         # allocations below, the engine's for the model's weights)
         self._stream = _take_stream(dev) if on_card else None
@@ -737,7 +841,7 @@ class Engine:
         # the device memory ledger's rows (observability/perfscope.py): one
         # per long-lived allocation this build owns, released by shutdown
         # (a rebuilt engine registers its own), and the prefix cache's
-        # pages as a nested sub-account of the pool bytes
+        # pages or rows as a nested sub-account of the pool bytes
         led = _perfscope.ledger()
         self._ledger_rows = [led.register(
             "weights", self._weight_bytes,
@@ -752,14 +856,19 @@ class Engine:
                        f"+ zero adapter"))
         self._ledger_rows.append(led.register(
             "kv_pool", self._pool_bytes,
-            detail=f"paged KV pool, {n_pages} pages + the spare"))
+            detail=(f"paged KV pool, {n_pages} pages + the spare"
+                    if self.paged_kv else
+                    f"dense KV pool, {n_rows} slot rows + the spare column")))
         self._ledger_prefix = (led.register(
             "prefix_cache", 0, nested=True,
-            detail="retained KV pages (bytes inside kv_pool)")
+            detail="retained KV rows/pages (bytes inside kv_pool)")
             if self._prefix is not None else None)
         if self._ledger_prefix is not None:
             self._ledger_rows.append(self._ledger_prefix)
-        self._page_bytes = self._pool_bytes // (n_pages + 1)
+        if self.paged_kv:
+            self._page_bytes = self._pool_bytes // (n_pages + 1)
+        else:
+            self._row_bytes = self._pool_bytes // n_rows
         reg = registry()
         reg.gauge(SERVING_WEIGHT_BYTES,
                   "device bytes of the serving weight operands as stored"
@@ -774,12 +883,25 @@ class Engine:
             if isinstance(m, torch.nn.Linear)) + \
             model.gpt.embeddings.word_embeddings.weight.numel()
         # the decode step's static inputs (what the graph reads), their
-        # host staging arrays (pinned on the card) and the ids' way back
+        # host staging arrays (pinned on the card) and the ids' way back:
+        # ids [n_rows, W] and lengths, then the page tables (paged), the
+        # bank ids (adapters) and the sampling operands (device sampler)
+        names = ["ids", "lengths"]
         dec = [torch.zeros((n_rows, self._W), dtype=torch.int64, device=dev),
-               torch.zeros(n_rows, dtype=torch.int32, device=dev),
-               torch.zeros((n_rows, n_pt), dtype=torch.int32, device=dev)]
+               torch.zeros(n_rows, dtype=torch.int32, device=dev)]
+        if self.paged_kv:
+            names.append("tables")
+            dec.append(torch.zeros((n_rows, n_pt), dtype=torch.int32,
+                                   device=dev))
         if adapters is not None:
+            names.append("aids")
             dec.append(torch.zeros(n_rows, dtype=torch.int64, device=dev))
+        if self.sample_on_device:
+            names += ["temps", "topks", "seeds"]
+            dec += [torch.zeros(n_rows, dtype=torch.float32, device=dev),
+                    torch.zeros(n_rows, dtype=torch.int64, device=dev),
+                    torch.zeros(n_rows, dtype=torch.int64, device=dev)]
+        self._in_names = tuple(names)
         self._dec_in = tuple(dec)
         self._dec_host = tuple(torch.zeros(t.shape, dtype=t.dtype,
                                            pin_memory=on_card)
@@ -851,14 +973,18 @@ class Engine:
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if ids.size + int(max_new_tokens) > self._limit:
+            what = ("the paged limit (max_pages_per_slot * page_size, "
+                    "capped by the model's positions)" if self.paged_kv
+                    else "max_len")
             raise ValueError(
                 f"prompt ({ids.size}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds the paged limit (max_pages_per_slot * page_size, "
-                f"capped by the model's positions)={self._limit}")
-        need = self._pages_for(ids.size + int(max_new_tokens))
-        if need > self._page_alloc.num_pages:
-            raise ValueError(f"request needs {need} pages but the pool has "
-                             f"only {self._page_alloc.num_pages}")
+                f"exceeds {what}={self._limit}")
+        if self.paged_kv:
+            need = self._pages_for(ids.size + int(max_new_tokens))
+            if need > self._page_alloc.num_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool has only "
+                    f"{self._page_alloc.num_pages}")
         if adapter is not None:
             if self._adapters is None:
                 raise ValueError(
@@ -1044,7 +1170,8 @@ class Engine:
             self._thread.join(timeout=30 if self._dead is None else 5)
         with self._lock:
             queued, active = self._drop_all_locked()
-            self._page_alloc.check()     # zero leaked pages at teardown
+            if self.paged_kv:
+                self._page_alloc.check()  # zero leaked pages at teardown
             if self._adapters is not None:
                 self._adapters.check()   # zero leaked adapter pins
             self._gauges_locked()
@@ -1112,6 +1239,12 @@ class Engine:
             return (self._adapters is not None and
                     self._adapters.slot_of(name) is not None)
 
+    def pool_bytes(self) -> int:
+        """Device bytes of the KV pools (int8 scales included): the paged
+        pool's pages and spare page, or the dense pool's rows and spare
+        column."""
+        return self._pool_bytes
+
     def weight_bytes(self) -> int:
         """Device bytes of the serving weights as stored (int8 values and
         f32 scales under ``weight_dtype="int8"``)."""
@@ -1120,16 +1253,19 @@ class Engine:
     def load(self) -> dict:
         """One-lock load snapshot for admission and routing."""
         with self._lock:
-            return {"queue_depth": len(self._queue),
-                    "slots_in_use": self._pool.n_active,
-                    "max_slots": self.max_slots,
-                    "max_queue": self.max_queue,
-                    "max_len": self.max_len,
-                    "alive": (self._dead is None and not self._stop and
-                              not self._draining),
-                    "draining": self._draining,
-                    "kv_pages_free": self._page_alloc.n_free,
-                    "kv_num_pages": self._page_alloc.num_pages}
+            out = {"queue_depth": len(self._queue),
+                   "slots_in_use": self._pool.n_active,
+                   "cached_slots": self._pool.n_cached,
+                   "max_slots": self.max_slots,
+                   "max_queue": self.max_queue,
+                   "max_len": self.max_len,
+                   "alive": (self._dead is None and not self._stop and
+                             not self._draining),
+                   "draining": self._draining}
+            if self.paged_kv:
+                out["kv_pages_free"] = self._page_alloc.n_free
+                out["kv_num_pages"] = self._page_alloc.num_pages
+            return out
 
     def health(self) -> dict:
         """Liveness: ``alive`` while the engine can take and make progress
@@ -1161,6 +1297,7 @@ class Engine:
             out["queue_depth"] = len(self._queue)
             out["slot_allocs"] = self._pool.alloc_total
             out["slot_reuses"] = self._pool.reuse_total
+            out["cached_slots"] = self._pool.n_cached
             out["prefix_entries"] = (0 if self._prefix is None
                                      else len(self._prefix))
             out["kv_pool_bytes"] = self._pool_bytes
@@ -1169,12 +1306,13 @@ class Engine:
                 out["adapters_resident"] = self._adapters.n_resident
                 out["adapters_pinned"] = self._adapters.n_pinned
                 out["adapter_bank_capacity"] = self._adapters.capacity
-            out["kv_num_pages"] = self._page_alloc.num_pages
-            out["kv_page_size"] = self._page_alloc.page_size
-            out["kv_pages_free"] = self._page_alloc.n_free
-            out["kv_pages_used"] = self._page_alloc.n_used
-            out["kv_pages_active"] = self._active_pages
-            out["kv_pages_cached"] = self._cached_pages
+            if self.paged_kv:
+                out["kv_num_pages"] = self._page_alloc.num_pages
+                out["kv_page_size"] = self._page_alloc.page_size
+                out["kv_pages_free"] = self._page_alloc.n_free
+                out["kv_pages_used"] = self._page_alloc.n_used
+                out["kv_pages_active"] = self._active_pages
+                out["kv_pages_cached"] = self._cached_pages
             out.update(self._compile_stats_locked())
         if self._host_tier is not None:
             out["host_prefix"] = self._host_tier.stats()
@@ -1257,11 +1395,14 @@ class Engine:
             if self._adapters is not None:
                 self._unpin_adapter_locked(req)
         if self._prefix is not None:
+            # the pool the cached rows / pages point into is going away
             for e in self._prefix.drop_all():
                 if e.pages:
                     for p in e.pages:
                         self._page_alloc.deref(p)
                     self._cached_pages -= len(e.pages)
+            for slot in list(self._pool.cached()):
+                self._pool.release_cached(slot)
         return queued, active
 
     def _fail_as_dead(self, cause: BaseException):
@@ -1460,7 +1601,56 @@ class Engine:
                     for grp in self._pool_groups()]
         self._host_tier.demote_async(e.ns, e.tokens, gathered)
 
-    def _admit_locked(self) -> list:
+    def _admit_dense_locked(self) -> list:
+        """Dense-pool admission: head-of-queue requests admit while a free
+        lane and (when they name one) a pinnable adapter bank row are
+        available.  Under lane pressure unreferenced prefix rows are
+        evicted LRU-first back to the free list, sparing those this wave
+        is about to hit; an unpinnable adapter keeps the head queued."""
+        want = min(self.prefill_batch, len(self._queue))
+        if want == 0 or self._dead is not None or self._stop:
+            self._adapter_stalled = False
+            return []
+        if self._prefix is not None and want > self._pool.n_free:
+            protect = set()
+            for req in itertools.islice(self._queue, want):
+                hit = self._prefix.lookup(req.prompt, peek=True,
+                                          ns=self._req_ns(req))
+                if hit is not None:
+                    protect.add(id(hit[0]))
+            for e in self._prefix.evict_lru(want - self._pool.n_free,
+                                            protect=protect):
+                self._pool.release_cached(e.slot)
+                self._counts["prefix_evictions"] += 1
+                self._evicted_wave += 1
+                flight.record("serving", "prefix_evict", slot=e.slot,
+                              cached_tokens=e.n)
+        batch = []
+        while self._queue and len(batch) < want and self._pool.n_free > 0:
+            req = self._queue[0]
+            if not self._pin_adapter_locked(req):
+                break
+            self._queue.popleft()
+            req.slot = self._pool.alloc(req)
+            req._state = "active"
+            req.t_admit = time.perf_counter()
+            self._journey_admit_locked(req, slot=req.slot)
+            if self._prefix is not None:
+                hit = self._prefix.lookup(req.prompt, ns=self._req_ns(req))
+                if hit is not None:
+                    entry, matched = hit
+                    self._prefix.acquire(entry)
+                    req._prefix_src = entry
+                    req._prefix_match = matched
+                    req.prefix_hit = True
+                    self._counts["prefix_hits"] += 1
+                else:
+                    self._counts["prefix_misses"] += 1
+            self._aids[req.slot] = req._adapter_slot
+            batch.append(req)
+        return batch
+
+    def _admit_paged_locked(self) -> list:
         """Head-of-queue requests admit while a lane, their adapter's bank
         row and their page reservation fit.  A request reserves every
         page it can ever write less the full pages a prefix hit shares (a
@@ -1588,7 +1778,8 @@ class Engine:
     def _admit(self) -> bool:
         with self._lock:
             self._evicted_wave = 0
-            batch = self._admit_locked()
+            batch = (self._admit_paged_locked() if self.paged_kv
+                     else self._admit_dense_locked())
             evicted = self._evicted_wave
             prefix_metrics = None
             if self._prefix is not None and batch:
@@ -1615,10 +1806,14 @@ class Engine:
                 reg.counter(SERVING_PREFIX_MISSES,
                             "admissions with no usable cached prefix").inc(
                     float(misses))
-        for req in batch:
-            if req.temperature > 0:
-                req._gen = torch.Generator(device=self.device)
-                req._gen.manual_seed(req.seed)
+        with self._lock:
+            for req in batch:
+                self._set_slot_params_locked(req)
+        if not self.sample_on_device:
+            for req in batch:
+                if req.temperature > 0:
+                    req._gen = torch.Generator(device=self.device)
+                    req._gen.manual_seed(req.seed)
         self._flush_adapter_uploads(batch)
         self._flush_promotes(batch)
         cold = [r for r in batch if r._prefix_src is None]
@@ -1628,6 +1823,12 @@ class Engine:
         if hits:
             self._prefill_hits(hits)
         return True
+
+    def _set_slot_params_locked(self, req: RequestHandle):
+        """The lane's sampling operands for the device sampler."""
+        self._temps[req.slot] = req.temperature
+        self._topks[req.slot] = req.top_k
+        self._seeds[req.slot] = req.seed
 
     def _flush_adapter_uploads(self, batch=()):
         """Cold loads: write each scheduled adapter's zero-padded factors
@@ -1786,34 +1987,54 @@ class Engine:
         """Cold prefill of one admission wave: prompts padded to a pow2
         bucket over ``prefill_batch`` lanes run the static-prefill
         forward (the flash kernel on the card); every real prompt
-        position is then written into its slot's pages."""
+        position is then written into its lane's pages (paged) or its
+        slot row (dense), and each request's first token is sampled from
+        its last prompt position."""
         bucket = _bucket(max(r.prompt.size for r in batch),
                          min(8, self._limit), self._limit)
         n = self.prefill_batch
-        NP = self._page_alloc.num_pages
-        P = self._page_alloc.page_size
-        n_pt = self._max_pages_per_slot
         ids = np.zeros((n, bucket), np.int64)
         plens = np.ones(n, np.int64)
-        tables = np.full((n, n_pt), NP, np.int32)
+        slots = np.zeros(n, np.int64)
         aids = np.zeros(n, np.int64)
+        temps = np.zeros(n, np.float32)
+        topks = np.zeros(n, np.int64)
+        seeds = np.zeros(n, np.int64)
+        if self.paged_kv:
+            NP = self._page_alloc.num_pages
+            P = self._page_alloc.page_size
+            n_pt = self._max_pages_per_slot
+            tables = np.full((n, n_pt), NP, np.int32)
         with self._lock:
             for i, req in enumerate(batch):
                 ids[i, :req.prompt.size] = req.prompt
                 plens[i] = req.prompt.size
-                tables[i] = self._page_tables[req.slot]
+                slots[i] = req.slot
                 aids[i] = req._adapter_slot
+                temps[i] = req.temperature
+                topks[i] = req.top_k
+                seeds[i] = req.seed
+                if self.paged_kv:
+                    tables[i] = self._page_tables[req.slot]
                 flight.record("serving", "admit", request=req.request_id,
                               slot=req.slot,
                               prompt_len=int(req.prompt.size),
                               queue_wait_ms=round(
                                   1e3 * (req.t_admit - req.t_submit), 3))
-        # host-side scatter plan: prompt positions map through the lane's
-        # table; padding positions and padding lanes are not written
+        # host-side scatter plan: the real prompt positions of the real
+        # lanes map through the lane's table (paged) or into its slot row
+        # (dense); padding positions and lanes are not written
         pos = np.arange(bucket)
-        pid = np.where(pos[None, :] < plens[:, None],
-                       tables[:, np.minimum(pos // P, n_pt - 1)], NP)
-        lane, col = np.nonzero(pid < NP)
+        real = (pos[None, :] < plens[:, None]) & \
+            (np.arange(n) < len(batch))[:, None]
+        lane, col = np.nonzero(real)
+        if self.paged_kv:
+            pid = tables[:, np.minimum(pos // P, n_pt - 1)]
+            dst = (pid[lane, col], col % P)
+            buf_dtype = torch.float32
+        else:
+            dst = (slots[lane], col)
+            buf_dtype = self.model.gpt.embeddings.word_embeddings.weight.dtype
         dev = self.device
         H, D = self._heads, self._head_dim
         t0 = time.perf_counter()
@@ -1824,8 +2045,10 @@ class Engine:
             self._check_live()
             with torch.no_grad(), span("serving.prefill", n=len(batch),
                                        bucket=bucket):
-                caches = [(torch.zeros((n, bucket, H, D), device=dev),
-                           torch.zeros((n, bucket, H, D), device=dev), 0)
+                caches = [(torch.zeros((n, bucket, H, D), dtype=buf_dtype,
+                                       device=dev),
+                           torch.zeros((n, bucket, H, D), dtype=buf_dtype,
+                                       device=dev), 0)
                           for _ in self._kpools]
                 with self._scope(torch.from_numpy(aids).to(dev)):
                     x, new_caches = self._net.gpt(
@@ -1833,13 +2056,19 @@ class Engine:
                 h_last = x[torch.arange(n, device=dev),
                            torch.from_numpy(plens - 1).to(dev)]
                 logits = self._net.lm_head(h_last)
-                idx = (torch.from_numpy(pid[lane, col]).long().to(dev),
-                       torch.from_numpy(col % P).long().to(dev))
+                idx = tuple(torch.from_numpy(np.asarray(a)).long().to(dev)
+                            for a in dst)
                 src = (torch.from_numpy(lane).to(dev),
                        torch.from_numpy(col).to(dev))
                 for i, (kb, vb, _) in enumerate(new_caches):
-                    self._write_pages(i, idx, kb[src], vb[src])
-                toks = self._sample(logits, batch)
+                    self._write_kv(i, idx, kb[src], vb[src])
+                if self.sample_on_device:
+                    toks = _device_sample(
+                        logits, *(torch.from_numpy(a).to(dev) for a in
+                                  (temps, topks, seeds, plens - 1))
+                    ).cpu().numpy()
+                else:
+                    toks = self._sample(logits, batch)
         dt = time.perf_counter() - t0
         with self._lock:
             self._counts["prefill_batches"] += 1
@@ -1864,21 +2093,33 @@ class Engine:
             return nullcontext()
         return _armed(name, self._decode_timeout_s)
 
+    def _read_scope(self):
+        """The paged pool's read for this engine's forwards over the pool:
+        the gather read under ``decode_kernel="xla"``, the paged kernel
+        under ``"pallas"`` (the dense pool reads its rows either way)."""
+        return (_pa.gather_read() if self.paged_kv and
+                self.decode_kernel == "xla" else nullcontext())
+
     def _prefill_hits(self, hits) -> None:
-        """Prefix-hit admission: the hits already share the cached pages
-        through their tables (host-side integer writes); the boundary
-        pages that copy on write are cloned, then ONLY the prompt tails
-        run, through the paged cache over all lanes (ids ``[n_rows, tail
+        """Prefix-hit admission.  Paged pool: the hits already share the
+        cached pages through their tables (host-side integer writes); the
+        boundary pages that copy on write are cloned.  Dense pool: each
+        hit's cached row is copied into its slot row on the device (padding
+        lanes copy the scratch row onto itself).  Then ONLY the prompt
+        tails run, through the pool over all lanes (ids ``[n_rows, tail
         bucket]``; lanes that are not this wave's hits are parked, so
-        their writes land on the spare page), and each hit's first-token
-        logits come from its last tail position.  On the card the read
-        is the paged kernel in column groups of at most 8 queries."""
+        their writes land on the spare page or column), and each hit's
+        first token comes from its last tail position.  On the card a
+        paged read with ``decode_kernel="pallas"`` is the paged kernel in
+        column groups of at most 8 queries."""
         lanes = self.prefill_batch
-        NP = self._page_alloc.num_pages
         n_rows = self.max_slots + 1
-        # copy-on-write pairs, padded to the lanes with the spare page
-        src = np.full(lanes, NP, np.int64)
-        dst = np.full(lanes, NP, np.int64)
+        paged = self.paged_kv
+        # copy pairs (paged: copy-on-write pages; dense: cached rows),
+        # padded to the lanes with the spare page / the scratch row
+        pad = self._page_alloc.num_pages if paged else self.max_slots
+        src = np.full(lanes, pad, np.int64)
+        dst = np.full(lanes, pad, np.int64)
         n_copy = 0
         cow_ids: list = []           # requests whose boundary page COWs
         tb = _bucket(max(r.prompt.size - r._prefix_match for r in hits), 1,
@@ -1888,7 +2129,11 @@ class Engine:
         gidx = np.zeros(n_rows, np.int64)
         with self._lock:
             for req in hits:
-                if req._cow is not None:
+                e = req._prefix_src
+                if not paged:
+                    src[n_copy], dst[n_copy] = e.slot, req.slot
+                    n_copy += 1
+                elif req._cow is not None:
                     src[n_copy], dst[n_copy] = req._cow
                     n_copy += 1
                     cow_ids.append(req.request_id)
@@ -1900,12 +2145,15 @@ class Engine:
                 gidx[req.slot] = tail.size - 1
                 flight.record("serving", "prefix_admit",
                               request=req.request_id, slot=req.slot,
-                              src_slot=-1, cached_tokens=m,
+                              src_slot=-1 if e.slot is None else e.slot,
+                              cached_tokens=m,
                               tail=int(tail.size),
                               queue_wait_ms=round(
                                   1e3 * (req.t_admit - req.t_submit), 3))
-            tables = np.array(self._page_tables)
+            tables = np.array(self._page_tables) if paged else None
             aids = np.array(self._aids)
+            samp = (np.array(self._temps), np.array(self._topks),
+                    np.array(self._seeds))
         dev = self.device
         t0 = time.perf_counter()
         with self._deadline("serving.tail_prefill"):
@@ -1914,27 +2162,38 @@ class Engine:
             with torch.no_grad():
                 if n_copy:
                     with span("serving.prefix_copy", n=n_copy):
-                        self._copy_pages(torch.from_numpy(src).to(dev),
-                                         torch.from_numpy(dst).to(dev))
-                    registry().counter(
-                        SERVING_KV_COW_COPIES,
-                        "shared KV pages cloned for a diverging writer"
-                    ).inc(float(n_copy))
-                    flight.record("serving", "page_cow", copies=n_copy,
-                                  requests=",".join(map(str, cow_ids)))
+                        self._copy_blocks(torch.from_numpy(src).to(dev),
+                                          torch.from_numpy(dst).to(dev))
+                    if paged:
+                        registry().counter(
+                            SERVING_KV_COW_COPIES,
+                            "shared KV pages cloned for a diverging writer"
+                        ).inc(float(n_copy))
+                        flight.record("serving", "page_cow", copies=n_copy,
+                                      requests=",".join(map(str, cow_ids)))
                 t_copy_end = time.perf_counter()
                 with span("serving.tail_prefill", n=len(hits), bucket=tb):
-                    caches = self._caches(torch.from_numpy(lens).to(dev),
-                                          torch.from_numpy(tables).to(dev))
-                    with self._scope(torch.from_numpy(aids).to(dev)):
+                    lens_t = torch.from_numpy(lens).to(dev)
+                    caches = self._caches(
+                        lens_t, torch.from_numpy(tables).to(dev)
+                        if paged else None)
+                    with self._scope(torch.from_numpy(aids).to(dev)), \
+                            self._read_scope():
                         x, _ = self._net.gpt(torch.from_numpy(ids).to(dev),
                                              caches=caches)
-                    h_last = x[torch.arange(n_rows, device=dev),
-                               torch.from_numpy(gidx).to(dev)]
-                    rows = [None] * n_rows
-                    for req in hits:
-                        rows[req.slot] = req
-                    toks = self._sample(self._net.lm_head(h_last), rows)
+                    gidx_t = torch.from_numpy(gidx).to(dev)
+                    h_last = x[torch.arange(n_rows, device=dev), gidx_t]
+                    logits = self._net.lm_head(h_last)
+                    if self.sample_on_device:
+                        toks = _device_sample(
+                            logits, *(torch.from_numpy(a).to(dev)
+                                      for a in samp),
+                            lens_t.long() + gidx_t).cpu().numpy()
+                    else:
+                        rows = [None] * n_rows
+                        for req in hits:
+                            rows[req.slot] = req
+                        toks = self._sample(logits, rows)
         t_end = time.perf_counter()
         registry().histogram(SERVING_BATCH_SECONDS,
                              "prefill/decode batch wall time").observe(
@@ -1944,21 +2203,23 @@ class Engine:
             if req.journey is None:
                 continue
             m = req._prefix_match
-            # paged hits share pages by reference (zero copy) unless a
-            # boundary page was cloned
-            if req.request_id in cow_set:
+            # dense hits copy their cached row; paged hits share pages by
+            # reference (zero copy) unless a boundary page was cloned
+            if not paged or req.request_id in cow_set:
                 req.journey.phase("prefix_copy", t0, t_copy_end - t0,
                                   cached_tokens=m)
             req.journey.phase("tail_prefill", t_copy_end,
                               t_end - t_copy_end, cached_tokens=m,
                               tail=int(req.prompt.size - m),
-                              zero_copy=req.request_id not in cow_set)
+                              zero_copy=paged and
+                              req.request_id not in cow_set)
         with self._lock:
             self._counts["prefill_batches"] += 1
             self._counts["prefill_seconds"] += t_end - t0
-            self._counts["page_cow_copies"] += n_copy
-            self._counts["tail_prefill_read_groups"] += len(
-                _pa.paged_groups(tb))
+            if paged:
+                self._counts["page_cow_copies"] += n_copy
+                self._counts["tail_prefill_read_groups"] += len(
+                    _pa.paged_groups(tb))
             fresh = [("tail", (n_rows, tb), t_end - t_copy_end)
                      ] if self._add_sig("tail", (n_rows, tb)) else []
             if n_copy and self._add_sig("copy", (lanes,)):
@@ -1967,27 +2228,33 @@ class Engine:
             self._note_build(kind, sig, dt)
         self._emit_first_tokens(hits, toks, by_slot=True)
 
-    def _copy_pages(self, src, dst):
-        """Copy-on-write: clone pages ``src`` into ``dst`` over every
-        layer's K, V (and scale) pools, one index copy each.  Padding
-        lanes copy the spare page onto itself."""
+    def _copy_blocks(self, src, dst):
+        """Clone blocks ``src`` into ``dst`` over every layer's K, V (and
+        scale) pools, one index copy each: the copy-on-write pages of the
+        paged pool (padding lanes copy the spare page onto itself), or the
+        cached rows of the dense pool (padding lanes copy the scratch row
+        onto itself)."""
         for group in self._pool_groups():
             for pool in group:
                 pool.index_copy_(0, dst, pool.index_select(0, src))
 
-    def _caches(self, lengths, tables):
-        """The model's paged cache tuples over the engine's pools, in the
-        spare-page form."""
+    def _caches(self, lengths, tables=None):
+        """The model's cache tuples over the engine's pools, in the spare
+        form: the paged 4/6-tuples (spare page) or the dense per-slot
+        3/5-tuples (spare column)."""
+        lead = ((lambda kp, vp: (kp, vp, lengths, tables)) if self.paged_kv
+                else (lambda kp, vp: (kp, vp, lengths)))
         if self._quant:
-            return [(kp, vp, lengths, tables, ks, vs, SPARE_PAGE)
+            return [lead(kp, vp) + (ks, vs, SPARE_PAGE)
                     for kp, vp, ks, vs in zip(self._kpools, self._vpools,
                                               self._kscales, self._vscales)]
-        return [(kp, vp, lengths, tables, SPARE_PAGE)
+        return [lead(kp, vp) + (SPARE_PAGE,)
                 for kp, vp in zip(self._kpools, self._vpools)]
 
-    def _write_pages(self, layer, idx, k, v):
-        """Write ``k``/``v`` ``[N, H, D]`` at ``idx = (page ids, offsets)``
-        of one layer's pools, in place (quantized for int8 pools)."""
+    def _write_kv(self, layer, idx, k, v):
+        """Write ``k``/``v`` ``[N, H, D]`` at ``idx`` (page ids and
+        offsets, or slot rows and columns) of one layer's pools, in place
+        (quantized for int8 pools)."""
         if self._quant:
             kq, ks = quantize_rows(k)
             vq, vs = quantize_rows(v)
@@ -1996,8 +2263,10 @@ class Engine:
             self._kscales[layer].index_put_(idx, ks)
             self._vscales[layer].index_put_(idx, vs)
         else:
-            self._kpools[layer].index_put_(idx, k)
-            self._vpools[layer].index_put_(idx, v)
+            self._kpools[layer].index_put_(
+                idx, k.to(self._kpools[layer].dtype))
+            self._vpools[layer].index_put_(
+                idx, v.to(self._vpools[layer].dtype))
 
     def _sample(self, logits, rows) -> np.ndarray:
         """Token per row: argmax, or a draw with the request's generator
@@ -2053,39 +2322,64 @@ class Engine:
     # -- decode --------------------------------------------------------------
     def _decode_forward(self):
         """The decode step over the static inputs: the forward through
-        the paged cache (with each row's adapter), the LM head at every
-        position and the argmax.  What the graph captures; on the CPU it
-        runs as it is."""
-        ids, lengths, tables = self._dec_in[:3]
-        with self._scope(self._dec_in[3] if self._adapters is not None
-                         else None):
-            x, _ = self._net.gpt(ids, caches=self._caches(lengths, tables))
+        the pool (with each row's adapter), the LM head at every position
+        and the argmax; with the device sampler, the first position's
+        token is drawn (Gumbel-max at the row's temperature and top-k,
+        keyed by its seed and position).  What the graph captures; on the
+        CPU it runs as it is."""
+        d = dict(zip(self._in_names, self._dec_in))
+        with self._scope(d.get("aids")), self._read_scope():
+            x, _ = self._net.gpt(d["ids"], caches=self._caches(
+                d["lengths"], d.get("tables")))
         logits = self._net.lm_head(x)                 # [n_rows, W, V]
-        return logits, logits.argmax(dim=-1)
+        toks = logits.argmax(dim=-1)
+        if self.sample_on_device:
+            first = _device_sample(logits[:, 0], d["temps"], d["topks"],
+                                   d["seeds"], d["lengths"])
+            toks = torch.cat([first[:, None], toks[:, 1:]], dim=1)
+        return logits, toks
 
     def _decode_signature(self) -> tuple:
         return (tuple((tuple(t.shape), t.dtype) for t in self._dec_in),
                 self._kpools[0].dtype, _ln.fused_layernorm_mode())
 
     def _stage(self, *arrays):
-        """Copy one step's inputs (ids, lengths, tables and, with
-        adapters, the bank ids) into the static buffers (through the
-        pinned staging arrays on the card)."""
+        """Copy one step's inputs (in the order of ``_in_names``: ids,
+        lengths, then the page tables, the bank ids and the sampling
+        operands, each where the engine has them) into the static buffers
+        (through the pinned staging arrays on the card)."""
         for dev_t, host_t, arr in zip(self._dec_in, self._dec_host, arrays):
             host_t.numpy()[...] = arr
             dev_t.copy_(host_t, non_blocking=True)
+
+    def _step_inputs(self, park: bool = False) -> tuple:
+        """A decode step's inputs in the order of ``_in_names``: copies of
+        the lanes' host state (under ``_lock``), or (``park``) every lane
+        parked, for the capture's warm-up."""
+        if park:
+            NP = self._page_alloc.num_pages if self.paged_kv else 0
+            vals = {"ids": np.zeros(self._ids.shape, np.int64),
+                    "lengths": np.full(self._lengths.shape, self._park,
+                                       np.int32),
+                    "tables": (np.full(self._page_tables.shape, NP, np.int32)
+                               if self.paged_kv else None),
+                    "aids": np.zeros(self._aids.shape, np.int64),
+                    "temps": np.zeros(self._temps.shape, np.float32),
+                    "topks": np.zeros(self._topks.shape, np.int64),
+                    "seeds": np.zeros(self._seeds.shape, np.int64)}
+        else:
+            vals = {"ids": self._ids, "lengths": self._lengths,
+                    "tables": self._page_tables, "aids": self._aids,
+                    "temps": self._temps, "topks": self._topks,
+                    "seeds": self._seeds}
+        return tuple(np.array(vals[n]) for n in self._in_names)
 
     def _capture(self, sig) -> _DecodeGraph:
         """Warm up on the engine's stream with every lane parked (the
         writes land on the spare page), then capture the step there.  The
         pools and banks are never reallocated while the graph lives: the
         kernels' tensor maps hold their addresses."""
-        NP = self._page_alloc.num_pages
-        park = (np.zeros(self._ids.shape, np.int64),
-                np.full(self._lengths.shape, self._park, np.int32),
-                np.full(self._page_tables.shape, NP, np.int32),
-                np.zeros(self._aids.shape, np.int64))
-        self._stage(*park)
+        self._stage(*self._step_inputs(park=True))
         side = self._stream
         with _capture_lock:
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -2115,14 +2409,23 @@ class Engine:
     def _decode_cost(self, lengths) -> dict:
         """perfscope's cost of one decode step whose rows start at
         ``lengths``: the GEMMs' operations (2 x the linears' and the tied
-        head's parameters x the rows' tokens) and the paged reads'
-        (``paged_cost`` a layer), the weights read once, the reads' bytes
-        and the logits written."""
+        head's parameters x the rows' tokens) and the attention reads'
+        (``paged_cost`` a layer, or the dense rows' whole-buffer read),
+        the weights read once, the reads' bytes and the logits written."""
         n_rows, W = self._ids.shape
-        P = self._page_alloc.page_size
-        f_att, b_att = _pa.paged_cost(lengths, W, self._heads,
-                                      self._head_dim, P,
-                                      self._max_pages_per_slot, self._quant)
+        if self.paged_kv:
+            f_att, b_att = _pa.paged_cost(
+                lengths, W, self._heads, self._head_dim,
+                self._page_alloc.page_size, self._max_pages_per_slot,
+                self._quant)
+        else:
+            # every row reads its whole row (max_len positions) under the
+            # mask: q k^T and p v, and the row's K and V bytes
+            hd = self._heads * self._head_dim
+            f_att = 4.0 * n_rows * W * self.max_len * hd
+            b_att = 2.0 * n_rows * self.max_len * (
+                hd * self._kpools[0].element_size() +
+                (4 if self._quant else 0))
         L = len(self._kpools)
         V = self.model.gpt.config.vocab_size
         tokens = n_rows * W
@@ -2224,8 +2527,7 @@ class Engine:
                     d = drafts.get(slot)
                     self._ids[slot, 1:] = (d if d is not None
                                            else self._ids[slot, 0])
-            inputs = (np.array(self._ids), np.array(self._lengths),
-                      np.array(self._page_tables), np.array(self._aids))
+            inputs = self._step_inputs()
         lengths = inputs[1]
         t0 = time.perf_counter()
         with self._deadline("serving.decode"):
@@ -2234,7 +2536,8 @@ class Engine:
                 logits, toks = self._run_decode(*inputs)
                 toks = np.array(toks)
                 for slot, req in active.items():
-                    if req.temperature > 0 and not req.done():
+                    if req.temperature > 0 and not req.done() and \
+                            not self.sample_on_device:
                         toks[slot, 0] = _sample_row(
                             logits[slot, 0], req.temperature, req.top_k,
                             req._gen)
@@ -2350,14 +2653,34 @@ class Engine:
             req._pages = None
         req._cow = None
         if req.slot is not None:
-            self._page_tables[req.slot, :] = self._page_alloc.num_pages
+            if self.paged_kv:
+                self._page_tables[req.slot, :] = self._page_alloc.num_pages
             self._lengths[req.slot] = self._park
 
     def _evict_locked(self, req: RequestHandle, outcome: str):
         if req._prefix_src is not None:
             self._prefix.release(req._prefix_src)
             req._prefix_src = None
-        if self._prefix is not None and outcome == "completed":
+        retained = False
+        if self._prefix is not None and outcome == "completed" and \
+                not self.paged_kv:
+            # the slot row holds the K/V of prompt + generated[:-1]
+            # (exactly `lengths[slot]` positions): retain it as a
+            # reusable prefix instead of recycling it (parked, so no
+            # decode write lands on it); a duplicate frees normally
+            n = int(self._lengths[req.slot])
+            cached = np.concatenate(
+                [req.prompt, np.asarray(req._tokens, np.int64)])[:n]
+            entry = (self._prefix.insert(req.slot, cached,
+                                         ns=self._req_ns(req))
+                     if n > 0 else None)
+            if entry is not None:
+                self._pool.retain(req.slot, entry)
+                self._counts["prefix_inserts"] += 1
+                flight.record("serving", "prefix_insert", slot=req.slot,
+                              request=req.request_id, cached_tokens=n)
+                retained = True
+        elif self._prefix is not None and outcome == "completed":
             # the lane holds the K/V of prompt + generated[:-1] (exactly
             # `lengths[slot]` positions): the entry takes the pages that
             # cover them (no device work), the rest of the reservation is
@@ -2380,7 +2703,8 @@ class Engine:
                 flight.record("serving", "prefix_insert", pages=keep,
                               request=req.request_id, cached_tokens=n)
         self._release_pages_locked(req)
-        self._pool.free(req.slot)
+        if not retained:
+            self._pool.free(req.slot)
         if self._adapters is not None:
             self._unpin_adapter_locked(req)
             self._aids[req.slot] = 0
@@ -2398,8 +2722,11 @@ class Engine:
     def _gauges_locked(self):
         reg = registry()
         if self._ledger_prefix is not None:
-            # the cached pages' bytes: a sub-account of the kv_pool owner
-            self._ledger_prefix.update(self._cached_pages * self._page_bytes)
+            # the cached pages' or rows' bytes: a sub-account of the
+            # kv_pool owner
+            self._ledger_prefix.update(
+                self._cached_pages * self._page_bytes if self.paged_kv
+                else self._pool.n_cached * self._row_bytes)
         reg.gauge(SERVING_ACTIVE_SLOTS,
                   "slots currently owned by requests").set(
             float(self._pool.n_active))
@@ -2409,6 +2736,8 @@ class Engine:
             reg.gauge(SERVING_ADAPTERS_RESIDENT,
                       "adapters resident in the device bank").set(
                 float(self._adapters.n_resident))
+        if not self.paged_kv:
+            return
         reg.gauge(SERVING_KV_PAGES_FREE,
                   "KV pages on the free list").set(
             float(self._page_alloc.n_free))

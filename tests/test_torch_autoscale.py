@@ -552,8 +552,9 @@ def test_scale_up_then_drain_down_end_to_end(tiny):
 
     def factory():
         def build():
-            e = Engine(tiny, max_slots=2, max_len=48, max_queue=32,
-                       device="cpu")
+            e = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                       sample_on_device=False, max_slots=2, max_len=48,
+                       max_queue=32)
             built.append(e)
             return e
         return EngineSupervisor(build, poll_interval_s=0.02)
@@ -626,7 +627,8 @@ def test_debug_fleet_endpoint_and_metrics_export(tiny):
     """GET /debug/fleet serves the fleet state with the JAX gateway's
     keys, and /metrics exports the fleet gauges."""
     registry().reset()
-    eng = Engine(tiny, max_slots=2, max_len=48, device="cpu")
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=48)
     stack = start_gateway([eng], own_engines=True,
                           tenants=[TenantConfig("t")])
     auto = Autoscaler(stack, lambda: StubEngine(), min_replicas=1,

@@ -144,7 +144,8 @@ def test_process_default_and_crash_section():
 
 def test_gateway_records_every_admission(tmp_path):
     pm = build_gpt("gpt-tiny", device="cpu", max_position_embeddings=128)
-    eng = Engine(pm, device="cpu", max_slots=2, max_len=64, page_size=8)
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8)
     shedder = gw.LoadShedder()
     shedder.seed(prefill_s=10.0, token_s=1.0)    # every deadline blows
     with gw.start_gateway([eng], own_engines=True, capture_mode="full",

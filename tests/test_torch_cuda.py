@@ -229,7 +229,8 @@ def _tiny_engine(dev, **kw):
         m = build_gpt("gpt-tiny", device=d, max_position_embeddings=128)
         load_jax_state(m, state)
         models.append(m)
-    return models[0], Engine(models[1], device=dev, **kw)
+    return models[0], Engine(models[1], paged_kv=True, decode_kernel="pallas",
+                             sample_on_device=False, **kw)
 
 
 def _live_step(engine, rs, step):
@@ -436,6 +437,33 @@ def test_backward_repeats_bitwise(cuda):
     one = fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do)
     two = fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do)
     assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_repeats_bitwise_beside_a_copy(cuda):
+    """The bf16 dk/dv kernel's second warpgroup skips its first causal q
+    tile and still waits on that tile's stage, so its later wait on the
+    stage cannot pass on an older phase: 8000 launches at the training
+    shape (B=16 T=1024 H=12 D=64), every second one beside a 1 GiB device
+    copy on another stream, give one result.  (Without that wait, a few
+    launches in 10^4 differed on an H100.)"""
+    qkv, do = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _bwd_case(16, 1024, 1024, 12, 64, fused=True))
+    out, lse = fa._fused_fwd(qkv, True, 0.125)
+    first = fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do)
+    src = torch.empty(1 << 30, dtype=torch.uint8, device=cuda)
+    dst = torch.empty_like(src)
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for i in range(8000):
+        if i % 2:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                dst.copy_(src)
+        differ += (fa.flash_attention_qkv_fused_bwd(qkv, out, lse, do)
+                   != first).any()
+    main.wait_stream(side)
+    assert int(differ) == 0
 
 
 @pytest.mark.cuda
@@ -1356,14 +1384,16 @@ def test_lora_engine_on_card(cuda):
     prompts = _tiny_prompts(12, 3)
     names = [None, "t0", "t1", None, "t2", "t0", None, "t1", "t2", None,
              "t0", "t2"]
-    kw = dict(max_slots=4, max_len=64, page_size=8, max_queue=32,
-              device=cuda)
-    eng = Engine(model, adapters=reg, **kw)
+    kw = dict(max_slots=4, max_len=64, page_size=8, max_queue=32)
+    eng = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, adapters=reg, **kw)
     eng.submit(prompts[0], max_new_tokens=2).result(timeout=300)
     base = pa.paged_decode_attention.launches
     outs, st = _served_tokens(eng, prompts, names=names)
     eager = pa.paged_decode_attention.launches - base
-    plain, _ = _served_tokens(Engine(model, **kw), prompts)
+    plain, _ = _served_tokens(Engine(model, paged_kv=True,
+                                     decode_kernel="pallas",
+                                     sample_on_device=False, **kw), prompts)
     assert st["decode_compiles"] == 1 and eager == 0
     assert st["decode_graph_replays"] == st["decode_steps"] > 0
     assert st["replayed_paged_launches"] == 2 * st["decode_steps"]
@@ -1391,9 +1421,11 @@ def test_int8_weights_engine_on_card(cuda):
 
     cpu_model, model = _tiny_models(cuda)
     prompts = _tiny_prompts(6, 4)
-    kw = dict(max_slots=4, max_len=64, page_size=8, device=cuda)
-    f32 = Engine(model, **kw)
-    eng = Engine(model, weight_dtype="int8", **kw)
+    kw = dict(max_slots=4, max_len=64, page_size=8)
+    f32 = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, **kw)
+    eng = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, weight_dtype="int8", **kw)
     assert eng.weight_bytes() <= 0.26 * f32.weight_bytes()
     f32.shutdown()
     outs, st = _served_tokens(eng, prompts)
@@ -1424,11 +1456,12 @@ def test_supervisor_rebuilds_on_card(cuda):
     _, model = _tiny_models(cuda)
     reg = _lora_reg(model)
     kw = dict(max_slots=4, max_len=64, page_size=8, max_queue=32,
-              device=cuda, adapters=reg)
+              adapters=reg)
     builds = []
 
     def factory():
-        builds.append(Engine(model, **kw))
+        builds.append(Engine(model, paged_kv=True, decode_kernel="pallas",
+                             sample_on_device=False, **kw))
         return builds[-1]
 
     sup = EngineSupervisor(factory, poll_interval_s=0.005)
@@ -1462,9 +1495,11 @@ def test_supervisor_rebuilds_on_card(cuda):
     assert len(builds_stats) == 4
     assert all(b["decode_compiles"] == 1 for b in builds_stats)
     assert abs(allocated[-1] - allocated[0]) <= 64 * 2 ** 20
-    want, _ = _served_tokens(Engine(model, **kw), [p for _, p, _ in
-                                                   redispatched],
-                             names=[nm for *_, nm in redispatched])
+    want, _ = _served_tokens(
+        Engine(model, paged_kv=True, decode_kernel="pallas",
+               sample_on_device=False, **kw),
+        [p for _, p, _ in redispatched],
+        names=[nm for *_, nm in redispatched])
     for (got, _, _), w in zip(redispatched, want):
         np.testing.assert_array_equal(got, w)
 
@@ -1487,7 +1522,7 @@ def test_host_tier_on_card(cuda, kv_dtype):
     turn1 = [np.concatenate([system, rs.randint(0, 1024, 8)])
              for _ in range(6)]
     kw = dict(max_slots=4, max_len=128, prefix_cache=True, prefix_block=8,
-              kv_dtype=kv_dtype, device=cuda)
+              kv_dtype=kv_dtype)
 
     def two_rounds(eng):
         eng.submit(turn1[0][:12], max_new_tokens=2).result(timeout=300)
@@ -1507,9 +1542,14 @@ def test_host_tier_on_card(cuda, kv_dtype):
         hold.set()
         assert tier.flush(60)
 
-    want1, want2, _ = two_rounds(Engine(model, num_pages=200, **kw))
+    want1, want2, _ = two_rounds(Engine(model, paged_kv=True,
+                                        decode_kernel="pallas",
+                                        sample_on_device=False, num_pages=200,
+                                        **kw))
     shared = HostPrefixTier(64, block=8) if kv_dtype else None
-    eng = Engine(model, num_pages=20, **kw, **(
+    eng = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, num_pages=20, **kw,
+                 **(
         dict(host_prefix=shared) if shared is not None
         else dict(host_prefix_mb=64)))
     tier = eng._host_tier

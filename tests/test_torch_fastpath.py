@@ -1,15 +1,16 @@
 """The port's serving fast path against the JAX package's, on gpt-tiny.
 
-The JAX side is ``Engine(paged_kv=True, decode_kernel="pallas")`` (its
-paged kernel in Pallas interpret mode on the CPU) with the same flags; the
-port's ``Engine(device="cpu")`` runs the plain versions of its kernels.
-Covered: the port's copies of ``NgramDrafter`` and ``PrefixIndex``, prefix
-hits (zero-copy page sharing, the copy-on-write boundary page, the tail
-prefill), speculative decoding, every flag at once at one decode
-signature, the pools' bytes after the same traffic, the spare page that
-takes the writes a page table cannot place, and paged reads wider than the
-kernel's 8 queries as column groups.  Greedy tokens must be identical
-(f32 and int8 pools); pool bytes and the grouped read agree to 1e-5.
+The JAX side is ``Engine(paged_kv=True, decode_kernel="pallas")`` (its paged
+kernel in Pallas interpret mode on the CPU) with the same flags; the port's
+``Engine(paged_kv=True, decode_kernel="pallas")`` on a CPU model runs the
+plain versions of its kernels. Covered: the port's copies of
+``NgramDrafter`` and ``PrefixIndex``, prefix hits (zero-copy page sharing,
+the copy-on-write boundary page, the tail prefill), speculative decoding,
+every flag at once at one decode signature, the pools' bytes after the same
+traffic, the spare page that takes the writes a page table cannot place, and
+paged reads wider than the kernel's 8 queries as column groups. Greedy
+tokens must be identical (f32 and int8 pools); pool bytes and the grouped
+read agree to 1e-5.
 """
 import numpy as np
 import pytest
@@ -80,7 +81,8 @@ def _jax(jm, **kw):
 
 
 def _port(pm, **kw):
-    return Engine(pm, device="cpu", **kw)
+    return Engine(pm, paged_kv=True, decode_kernel="pallas",
+                  sample_on_device=False, **kw)
 
 
 def _assert_same(got, want):

@@ -79,8 +79,8 @@ def stack(tmp_path_factory):
         fast_burn=5.0, slow_window_s=30.0, slow_burn=2.0, fire_ticks=1,
         resolve_ticks=2, min_events=3)
     st = start_gateway(
-        [Engine(model, max_slots=2, max_len=64, max_queue=16,
-                device="cpu")],
+        [Engine(model, paged_kv=True, decode_kernel="pallas",
+                sample_on_device=False, max_slots=2, max_len=64, max_queue=16)],
         own_engines=True, slo_objectives=[objective], slo_tick_s=0.1,
         slo_incident_dir=str(tmp_path_factory.mktemp("incidents")),
         capture_mode="shape")

@@ -1,21 +1,21 @@
 """The port's HTTP gateway against the JAX package's, on gpt-tiny.
 
 The plain-Python layers are held to the JAX package's on the same inputs:
-the protocol (parsed fields, or the same ``ProtocolError`` text and
-status), admission (the dispatch order of the same arrivals: fair share,
-weights, the idle reset, strict priorities, caps), and the shedder (the
-same decisions and ``Retry-After``).  Then a JAX gateway over
-``Engine(paged_kv=True, page_size=8, decode_kernel="pallas")`` (interpret
-mode on the CPU) and a port gateway over ``Engine(device="cpu")`` with the
-same weights, each on port 0, take the same requests: greedy token ids
-are equal bitwise, whole and streamed; the SSE chunk bodies are equal
-once ids and timestamps are masked; sheds carry the same status, body and
-``Retry-After``; ``/healthz`` has the same keys; and ``/metrics`` the same
-families after the same traffic.  Then supervision and routing on the
-port: failover away from an engine killed through ``faults``, the journey
-id kept across a supervisor rebuild and across a cross-replica
-re-dispatch, the ``decode_timeout_s`` watchdog, ``model=`` routing to a
-LoRA adapter, and a clean shutdown.  Every wait is bounded.
+the protocol (parsed fields, or the same ``ProtocolError`` text and status),
+admission (the dispatch order of the same arrivals: fair share, weights, the
+idle reset, strict priorities, caps), and the shedder (the same decisions
+and ``Retry-After``). Then a JAX gateway over ``Engine(paged_kv=True,
+page_size=8, decode_kernel="pallas")`` (interpret mode on the CPU) and a
+port gateway over ``Engine(paged_kv=True, decode_kernel="pallas")`` on a CPU
+model with the same weights, each on port 0, take the same requests: greedy
+token ids are equal bitwise, whole and streamed; the SSE chunk bodies are
+equal once ids and timestamps are masked; sheds carry the same status, body
+and ``Retry-After``; ``/healthz`` has the same keys; and ``/metrics`` the
+same families after the same traffic. Then supervision and routing on the
+port: failover away from an engine killed through ``faults``, the journey id
+kept across a supervisor rebuild and across a cross-replica re-dispatch, the
+``decode_timeout_s`` watchdog, ``model=`` routing to a LoRA adapter, and a
+clean shutdown. Every wait is bounded.
 """
 import http.client
 import json
@@ -87,7 +87,8 @@ def stacks(models):
     jstack = jax_gw.start_gateway(
         [JaxEngine(jm, decode_kernel="pallas", **ENGINE_KW)],
         own_engines=True)
-    pstack = gw.start_gateway([Engine(pm, device="cpu", **ENGINE_KW)],
+    pstack = gw.start_gateway([Engine(pm, decode_kernel="pallas",
+                                      sample_on_device=False, **ENGINE_KW)],
                               own_engines=True)
     yield jstack, pstack
     pstack.close()
@@ -438,7 +439,8 @@ def _shed_pair(models, tenant_cap):
     out = []
     for mod, eng in ((jax_gw, JaxEngine(jm, decode_kernel="pallas",
                                         auto_start=False, **ENGINE_KW)),
-                     (gw, Engine(pm, device="cpu", auto_start=False,
+                     (gw, Engine(pm, decode_kernel="pallas",
+                                 sample_on_device=False, auto_start=False,
                                  **ENGINE_KW))):
         shedder = mod.LoadShedder()
         shedder.seed(prefill_s=0.05, token_s=0.01)
@@ -483,7 +485,8 @@ def test_shed_429_and_retry_after_match_jax(models):
 # -- supervision and routing on the port ---------------------------------------
 
 def _engine(pm, **kw):
-    return Engine(pm, device="cpu", page_size=8, max_len=64, **kw)
+    return Engine(pm, paged_kv=True, decode_kernel="pallas",
+                  sample_on_device=False, page_size=8, max_len=64, **kw)
 
 
 def test_router_failover_away_from_dead_engine(models):

@@ -227,7 +227,10 @@ def test_engine_phases_match_jax_engine(models):
     prompt = np.arange(3, 14).astype(np.int64)
     want, _, want_out = _engine_phases(
         jax_journey, JaxEngine(jm, decode_kernel="pallas", **kw), prompt, 5)
-    got, j, got_out = _engine_phases(journey, Engine(pm, device="cpu", **kw),
+    got, j, got_out = _engine_phases(journey, Engine(pm,
+                                                     decode_kernel="pallas",
+                                                     sample_on_device=False,
+                                                     **kw),
                                      prompt, 5)
     np.testing.assert_array_equal(got_out, want_out)
     assert got == want
@@ -243,7 +246,8 @@ def test_engine_phases_match_jax_engine(models):
 
 def test_speculative_decode_phases_carry_counts(models):
     _, pm = models
-    eng = Engine(pm, device="cpu", max_slots=2, max_len=64, page_size=8,
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8,
                  speculative_k=3)
     prompt = np.array([4, 5, 6, 4, 5, 6, 4, 5, 6], np.int64)
     _, j, out = _engine_phases(journey, eng, prompt, 8)
@@ -261,7 +265,8 @@ def test_page_stall_is_attributed(models):
     """The head-of-line request waits for pages a running request holds:
     its engine-queue window splits at the stall into ``page_stall``."""
     _, pm = models
-    eng = Engine(pm, device="cpu", max_slots=2, max_len=64, page_size=8,
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8,
                  num_pages=4, auto_start=False)
     try:
         first = eng.submit(np.arange(1, 20), max_new_tokens=10)

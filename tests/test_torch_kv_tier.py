@@ -1,13 +1,13 @@
 """The port's host prefix tier (``serving/kv_tier.py``) and the engine's
 use of it.
 
-The port's mirror of the 9 tests of ``tests/test_kv_tier.py`` on the
-port's tier and ``Engine(device="cpu")`` (gpt-tiny, weights loaded from
-the JAX model; tier payloads are torch tensors), then: demoted int8 pages
-come back byte for byte, and the port's tokens after a promote are the JAX
-package's (``Engine(paged_kv=True, decode_kernel="pallas")``, its kernel
-in Pallas interpret mode) on the same weights and prompts.  Greedy tokens
-must be identical.  Every wait is bounded.
+The port's mirror of the 9 tests of ``tests/test_kv_tier.py`` on the port's
+tier and ``Engine(paged_kv=True, decode_kernel="pallas")`` on a CPU model
+(gpt-tiny, weights loaded from the JAX model; tier payloads are torch
+tensors), then: demoted int8 pages come back byte for byte, and the port's
+tokens after a promote are the JAX package's (``Engine(paged_kv=True,
+decode_kernel="pallas")``, its kernel in Pallas interpret mode) on the same
+weights and prompts. Greedy tokens must be identical. Every wait is bounded.
 """
 import numpy as np
 import pytest
@@ -134,23 +134,29 @@ def test_tier_and_engine_knob_validation(models):
     with pytest.raises(ValueError):
         HostPrefixTier(block=0)
     with pytest.raises(ValueError):   # the tier needs the prefix index
-        Engine(pm, max_slots=1, max_len=32, device="cpu", host_prefix_mb=8)
+        Engine(pm, paged_kv=True, decode_kernel="pallas",
+               sample_on_device=False, max_slots=1, max_len=32,
+               host_prefix_mb=8)
     tier = HostPrefixTier(capacity_mb=8, block=8)
     with pytest.raises(ValueError):   # both knobs at once
-        Engine(pm, max_slots=1, max_len=32, device="cpu", prefix_cache=True,
-               prefix_block=4, num_pages=16, host_prefix_mb=8,
-               host_prefix=tier)
+        Engine(pm, paged_kv=True, decode_kernel="pallas",
+               sample_on_device=False, max_slots=1, max_len=32,
+               prefix_cache=True, prefix_block=4, num_pages=16,
+               host_prefix_mb=8, host_prefix=tier)
     with pytest.raises(ValueError):   # shared-tier block mismatch
-        Engine(pm, max_slots=1, max_len=32, device="cpu", prefix_cache=True,
-               prefix_block=4, num_pages=16, host_prefix=tier)
+        Engine(pm, paged_kv=True, decode_kernel="pallas",
+               sample_on_device=False, max_slots=1, max_len=32,
+               prefix_cache=True, prefix_block=4, num_pages=16,
+               host_prefix=tier)
     tier.close()
 
 
 # -- engine end-to-end --------------------------------------------------------
 
 def _engine(pm, **kw):
-    return Engine(pm, max_slots=2, max_len=48, prefix_cache=True,
-                  prefix_block=4, num_pages=24, device="cpu", **kw)
+    return Engine(pm, paged_kv=True, decode_kernel="pallas",
+                  sample_on_device=False, max_slots=2, max_len=48,
+                  prefix_cache=True, prefix_block=4, num_pages=24, **kw)
 
 
 def _conversation_round(eng, p1, fillers, extra):
@@ -247,8 +253,9 @@ def test_shared_tier_survives_engine_rebuild(models, conv_inputs):
 def test_conversation_namespaces_do_not_share_entries(models):
     _, pm = models
     p = np.random.RandomState(23).randint(0, 1024, 12).astype(np.int64)
-    eng = Engine(pm, max_slots=2, max_len=48, prefix_cache=True,
-                 prefix_block=4, num_pages=32, device="cpu")
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=48,
+                 prefix_cache=True, prefix_block=4, num_pages=32)
     ref = eng.submit(p, max_new_tokens=4,
                      conversation="a").result(timeout=TIMEOUT)
     hb = eng.submit(p, max_new_tokens=4, conversation="b")
@@ -278,11 +285,13 @@ def test_conversation_trace_warm_turns_hit(models):
         convs.setdefault(e["conversation"], []).append(e)
     turns = [e for c in list(convs.values())[:4] for e in c]
     assert any(e["turn"] > 0 for e in turns), "no warm turns"
-    tiered = Engine(pm, max_slots=2, max_len=112, prefix_cache=True,
-                    prefix_block=4, num_pages=40, device="cpu",
+    tiered = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                    sample_on_device=False, max_slots=2, max_len=112,
+                    prefix_cache=True, prefix_block=4, num_pages=40,
                     host_prefix_mb=16)
-    plain = Engine(pm, max_slots=2, max_len=112, num_pages=40,
-                   page_size=4, device="cpu")
+    plain = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                   sample_on_device=False, max_slots=2, max_len=112,
+                   num_pages=40, page_size=4)
     try:
         for e in turns:
             p = np.asarray(e["prompt"], np.int64)

@@ -491,11 +491,27 @@ def test_gpt_moe_config_guards():
 
 
 def test_engine_refuses_a_moe_model():
+    """The engine no longer refuses a model with MoE layers: it serves
+    one, every lane (parked ones too) routed through the layers' capacity
+    dispatch in the one decode signature, as the JAX engine does, and the
+    served tokens are the no-cache forward's argmax here (a lone request:
+    no other lane competes for capacity in the prompt's forward)."""
     from paddle_tpu_torch.serving import Engine
 
-    m = build_gpt("gpt-tiny", device="cpu", moe_num_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE.*entry 4"):
-        Engine(m, device="cpu", auto_start=False)
+    m = build_gpt("gpt-tiny", device="cpu", moe_num_experts=2,
+                  moe_gate="naive")
+    prompt = np.arange(3, 12, dtype=np.int64)
+    eng = Engine(m, max_slots=2, max_len=32)
+    try:
+        out = eng.submit(prompt, max_new_tokens=4).result(timeout=120)
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    assert st["decode_compiles"] == 1 and len(out) == 4
+    seq = np.concatenate([prompt, out[:-1]])
+    with torch.no_grad():
+        logits = m(torch.from_numpy(seq[None]))[0, len(prompt) - 1:]
+    np.testing.assert_array_equal(out, logits.argmax(-1).numpy())
 
 
 def test_gpt_moe_state_and_train_state_cross_exactly():

@@ -1,14 +1,14 @@
 """Multi-LoRA adapters and int8 base weights on the port's serving engine.
 
 The port's mirror of ``tests/test_multi_lora.py`` (all but the gateway
-routing and the metrics/flight test, which belong to the observability
-and gateway module), on the port's ``Engine(device="cpu")`` with gpt-tiny
-weights loaded from the JAX model; then the port against the JAX package
-on the same weights, factors and prompts: the JAX side is
-``Engine(paged_kv=True, page_size=8, decode_kernel="pallas")`` (its kernel
-in Pallas interpret mode).  Greedy tokens must be identical throughout;
-``quantize_state`` must give the JAX package's int8 values and scales
-exactly.
+routing and the metrics/flight test, which belong to the observability and
+gateway module), on the port's ``Engine(paged_kv=True,
+decode_kernel="pallas")`` on a CPU model with gpt-tiny weights loaded from
+the JAX model; then the port against the JAX package on the same weights,
+factors and prompts: the JAX side is ``Engine(paged_kv=True, page_size=8,
+decode_kernel="pallas")`` (its kernel in Pallas interpret mode). Greedy
+tokens must be identical throughout; ``quantize_state`` must give the JAX
+package's int8 values and scales exactly.
 """
 import copy
 import time
@@ -76,7 +76,8 @@ def _merged(pm, adapter):
 
 def _engine(model, **kw):
     kw.setdefault("max_queue", 32)
-    return Engine(model, device="cpu", **kw)
+    return Engine(model, paged_kv=True, decode_kernel="pallas",
+                  sample_on_device=False, **kw)
 
 
 def _run(engine, prompts, new=6, shutdown=True, **kw):
@@ -430,7 +431,8 @@ def _both(jm, pm, adapters, names, prompts, adapter_names, new=6,
                 reg = AdapterRegistry(pm, max_resident=2, max_rank=8)
                 for nm in names:
                     reg.register(adapters[nm])
-            eng = Engine(pm, device="cpu", adapters=reg, **kw)
+            eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                         sample_on_device=False, adapters=reg, **kw)
         try:
             hs = [eng.submit(p, max_new_tokens=new, adapter=nm)
                   for p, nm in zip(prompts, adapter_names)]

@@ -337,7 +337,8 @@ from paddle_tpu_torch.serving.gateway import start_gateway
 torch.set_num_threads(1)
 torch.manual_seed(3)
 model = build_gpt("gpt-tiny", device="cpu", max_position_embeddings=128)
-eng = Engine(model, device="cpu", max_slots=2, max_len=48, page_size=8)
+eng = Engine(model, paged_kv=True, decode_kernel="pallas",
+             sample_on_device=False, max_slots=2, max_len=48, page_size=8)
 stack = start_gateway([eng], own_engines=True)
 stack.install_sigterm_drain(deadline_s=120.0)
 statuses, lock = [], threading.Lock()

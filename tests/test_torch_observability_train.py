@@ -362,8 +362,9 @@ def test_engine_books_its_signatures():
     engine's entry-point names; the decode count stays at 1."""
     _, _, pm = _gpt_pair()
     obs.enable(True)
-    eng = Engine(pm, device="cpu", max_slots=2, max_len=64, paged_kv=True,
-                 page_size=8, max_queue=8)
+    eng = Engine(pm, decode_kernel="pallas", sample_on_device=False,
+                 max_slots=2, max_len=64, paged_kv=True, page_size=8,
+                 max_queue=8)
     try:
         rs = np.random.RandomState(3)
         hs = [eng.submit(rs.randint(0, 1024, n).astype(np.int64),

@@ -157,7 +157,8 @@ def test_engine_sampling_cadence(tiny, monkeypatch, every):
     monkeypatch.setattr(perfscope, "block_ready",
                         lambda x: (calls.append(x), barrier(x)))
     perfscope.set_sample_every(every)
-    outs, st = _serve(Engine(tiny, device="cpu", max_slots=2, max_len=64,
+    outs, st = _serve(Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                             sample_on_device=False, max_slots=2, max_len=64,
                              page_size=8))
     steps = st["decode_steps"]
     stats = perfscope.program_stats("serving.decode")
@@ -173,7 +174,8 @@ def test_engine_sampling_cadence(tiny, monkeypatch, every):
 
 
 def test_decode_signature_cost_from_shapes(tiny):
-    eng = Engine(tiny, device="cpu", max_slots=2, max_len=64, page_size=8)
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8)
     _serve(eng, n=1, new=3)
     cfg = tiny.config
     h, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
@@ -216,7 +218,8 @@ def test_ledger_matches_jax():
 def test_engine_ledger_rows_follow_the_build(tiny):
     led = perfscope.ledger()
     before = led.rows()
-    eng = Engine(tiny, device="cpu", max_slots=2, max_len=64, page_size=8,
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8,
                  prefix_cache=True, prefix_block=8)
     st = eng.stats()
     mine = [r for r in led.rows() if r not in before]
@@ -270,7 +273,8 @@ def test_oom_forensics(tmp_path):
 
 def test_debug_perf_and_memory_endpoints(tiny):
     perfscope.set_sample_every(1)
-    eng = Engine(tiny, device="cpu", max_slots=2, max_len=64, page_size=8)
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8)
     with gw.start_gateway([eng], own_engines=True) as stack:
         def get(path):
             conn = http.client.HTTPConnection("127.0.0.1", stack.port,
@@ -312,8 +316,9 @@ def test_cuda_event_timer_books_the_replays(cuda):
     perfscope.reset_peaks()
     perfscope.set_sample_every(1)
     model = build_gpt("gpt-tiny", device=cuda, max_position_embeddings=128)
-    outs, st = _serve(Engine(model, max_slots=2, max_len=64, page_size=8,
-                             device=cuda))
+    outs, st = _serve(Engine(model, paged_kv=True, decode_kernel="pallas",
+                             sample_on_device=False, max_slots=2, max_len=64,
+                             page_size=8))
     stats = perfscope.program_stats("serving.decode")
     assert st["decode_compiles"] == 1
     assert stats["sampled"] == st["decode_graph_replays"] == \
@@ -332,7 +337,8 @@ def test_cuda_event_timer_books_the_replays(cuda):
 @pytest.mark.cuda
 def test_ledger_reconciles_with_memory_allocated(cuda):
     model = build_gpt("gpt-tiny", device=cuda, max_position_embeddings=128)
-    eng = Engine(model, max_slots=2, max_len=64, page_size=8, device=cuda)
+    eng = Engine(model, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8)
     try:
         eng.submit(np.arange(1, 9), max_new_tokens=4).result(
             timeout=TIMEOUT)

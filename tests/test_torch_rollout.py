@@ -575,7 +575,8 @@ def tiny():
 
 
 def test_drain_on_never_warmed_engine_returns_promptly_and_undrains(tiny):
-    eng = Engine(tiny, max_slots=2, max_len=48, device="cpu")
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=48)
     try:
         t0 = time.perf_counter()
         assert eng.drain(deadline_s=30.0) is True
@@ -617,8 +618,9 @@ def test_rollout_upgrades_real_fleet_over_http_zero_lost(tiny):
     built = []
 
     def factory_for_revision(revision):
-        e = Engine(tiny, max_slots=2, max_len=48, max_queue=32,
-                   device="cpu")
+        e = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                   sample_on_device=False, max_slots=2, max_len=48,
+                   max_queue=32)
         built.append((revision, e))
         return e
 

@@ -1,15 +1,15 @@
 """The port's supervision surface and ``EngineSupervisor``.
 
 The port's mirror of the engine and supervisor tests of
-``tests/test_self_healing.py`` (death classification, the crash matrix
-over the same seams, the redispatch hook, restart with the same handles,
-no replay of streamed requests, the stall watchdog, the restart budget,
-a fault inside the rebuild, drain), on the port's ``Engine(device="cpu")``
-with gpt-tiny weights loaded from the JAX model; the flight-recorder
-checks of the JAX tests become counter checks (the recorder belongs to the
-observability module).  Then the handles a supervisor re-dispatches must
-give the JAX package's greedy tokens for the same prompts.  Every wait is
-bounded.
+``tests/test_self_healing.py`` (death classification, the crash matrix over
+the same seams, the redispatch hook, restart with the same handles, no
+replay of streamed requests, the stall watchdog, the restart budget, a fault
+inside the rebuild, drain), on the port's ``Engine(paged_kv=True,
+decode_kernel="pallas")`` on a CPU model with gpt-tiny weights loaded from
+the JAX model; the flight-recorder checks of the JAX tests become counter
+checks (the recorder belongs to the observability module). Then the handles
+a supervisor re-dispatches must give the JAX package's greedy tokens for the
+same prompts. Every wait is bounded.
 """
 import time
 
@@ -62,7 +62,8 @@ def _clean_faults():
 
 
 def _engine(pm, **kw):
-    return Engine(pm, device="cpu", page_size=8, **kw)
+    return Engine(pm, paged_kv=True, decode_kernel="pallas",
+                  sample_on_device=False, page_size=8, **kw)
 
 
 def _wait(pred, timeout=60.0, period=0.01):
@@ -341,7 +342,8 @@ def test_redispatched_tokens_match_jax(models):
                                  **kw)
         else:
             def factory():
-                return Engine(pm, device="cpu", **kw)
+                return Engine(pm, paged_kv=True, decode_kernel="pallas",
+                              sample_on_device=False, **kw)
         sup = sup_cls(factory, name=f"parity-{side}", poll_interval_s=0.02)
         try:
             flt.arm("serving.prefill", times=1)

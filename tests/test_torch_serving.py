@@ -1,9 +1,10 @@
 """The port's serving engine against the JAX package's, on gpt-tiny.
 
 The JAX side is ``Engine(paged_kv=True, page_size=8,
-decode_kernel="pallas")`` (its decode kernel in Pallas interpret mode on
-the CPU); the port's ``Engine(device="cpu")`` runs the plain versions of
-its kernels.  Greedy tokens must be identical, f32 and int8 pools alike.
+decode_kernel="pallas")`` (its decode kernel in Pallas interpret mode on the
+CPU); the port's ``Engine(paged_kv=True, decode_kernel="pallas")`` on a CPU
+model runs the plain versions of its kernels. Greedy tokens must be
+identical, f32 and int8 pools alike.
 
 Sampling is distributional by decision: the port draws with a
 per-request ``torch.Generator`` seeded from ``seed``, the JAX engine with
@@ -80,7 +81,8 @@ def test_greedy_tokens_match_jax_engine(models, kv_dtype, slots):
     kw = dict(max_slots=slots, max_len=64, paged_kv=True, page_size=8,
               kv_dtype=kv_dtype, max_queue=len(prompts))
     want, _ = _serve(JaxEngine(jm, decode_kernel="pallas", **kw), prompts)
-    got, st = _serve(Engine(pm, device="cpu", **kw), prompts)
+    got, st = _serve(Engine(pm, decode_kernel="pallas",
+                            sample_on_device=False, **kw), prompts)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
     assert st["completed"] == len(prompts)
@@ -123,7 +125,8 @@ def test_bucket_and_pools_match_jax():
 def test_sampling_is_reproducible_and_in_top_k(models):
     _, pm = models
     prompts = _prompts(3)
-    kw = dict(max_slots=2, max_len=64, page_size=8, device="cpu")
+    kw = dict(max_slots=2, max_len=64, page_size=8, paged_kv=True,
+              decode_kernel="pallas", sample_on_device=False)
     one, _ = _serve(Engine(pm, **kw), prompts, new=5, temperature=0.8,
                     top_k=4, seed=3)
     two, _ = _serve(Engine(pm, **kw), prompts, new=5, temperature=0.8,
@@ -143,34 +146,38 @@ def test_sampling_is_reproducible_and_in_top_k(models):
 
 
 def test_unported_flags_raise(models):
-    _, pm = models
-    for kw, what in [(dict(paged_kv=False), "dense slot pool"),
-                     (dict(decode_kernel="xla"), "decode_kernel")]:
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*module entry 4"):
-            Engine(pm, max_slots=2, max_len=32, device="cpu", **kw)
-    # the ported flags refuse bad values as the JAX engine does
-    with pytest.raises(ValueError, match="weight_dtype"):
-        Engine(pm, max_slots=2, max_len=32, device="cpu",
-               weight_dtype="int4")
-    with pytest.raises(ValueError, match="not both"):
-        Engine(pm, max_slots=2, max_len=32, device="cpu", prefix_cache=True,
-               host_prefix_mb=1.0, host_prefix=object())
-    plain = Engine(pm, max_slots=2, max_len=32, device="cpu",
-                   auto_start=False)
+    """The flags this test once saw refused (the dense pool,
+    ``decode_kernel="xla"``, the device sampler) are ported: a bad value
+    or combination of any flag raises the JAX engine's ``ValueError``,
+    word for word."""
+    jm, pm = models
+    bad = [dict(decode_kernel="pallas"),          # the kernel needs pages
+           dict(page_size=8), dict(num_pages=4), dict(max_pages_per_slot=2),
+           dict(paged_kv=True, page_size=0),
+           dict(paged_kv=True, max_pages_per_slot=0),
+           dict(decode_kernel="cuda"), dict(kv_dtype="fp8"),
+           dict(speculative_k=-1), dict(weight_dtype="int4"),
+           dict(prefix_cache=True, host_prefix_mb=1.0, host_prefix=object()),
+           dict(host_prefix_mb=1.0), dict(paged_kv=True, host_prefix_mb=1.0),
+           dict(max_len=1024), dict(max_slots=0)]
+    for case in bad:
+        kw = dict(dict(max_slots=2, max_len=32), **case)
+        with pytest.raises(ValueError) as want:
+            JaxEngine(jm, **kw)
+        with pytest.raises(ValueError) as got:
+            Engine(pm, **kw)
+        assert str(got.value) == str(want.value), case
+    plain = Engine(pm, max_slots=2, max_len=32, auto_start=False)
     with pytest.raises(ValueError, match="no adapter registry"):
         plain.submit(np.arange(1, 5), adapter="tenant-a")
     plain.shutdown()
-    with pytest.raises(ValueError, match="kv_dtype"):
-        Engine(pm, max_slots=2, max_len=32, device="cpu", kv_dtype="fp8")
-    with pytest.raises(ValueError, match="speculative_k"):
-        Engine(pm, max_slots=2, max_len=32, device="cpu", speculative_k=-1)
 
 
 def test_admission_limits_queue_and_shutdown(models):
     _, pm = models
-    eng = Engine(pm, max_slots=1, max_len=32, page_size=8, max_queue=2,
-                 device="cpu", auto_start=False)
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=1, max_len=32, page_size=8,
+                 max_queue=2, auto_start=False)
     with pytest.raises(ValueError, match="exceeds the paged limit"):
         eng.submit(np.arange(30), max_new_tokens=5)
     h1 = eng.submit(np.arange(4), max_new_tokens=3)
@@ -197,8 +204,9 @@ def test_page_exhaustion_is_backpressure(models):
     """Three requests that each reserve 3 of 4 pages run one at a time
     through two lanes: the head waits for pages, nobody fails."""
     _, pm = models
-    eng = Engine(pm, max_slots=2, max_len=32, page_size=8, num_pages=4,
-                 device="cpu")
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=32, page_size=8,
+                 num_pages=4)
     out, st = _serve(eng, _prompts(3), new=10)
     assert [len(o) for o in out] == [10, 10, 10]
     assert st["page_alloc_stalls"] >= 1 and st["completed"] == 3
@@ -206,8 +214,9 @@ def test_page_exhaustion_is_backpressure(models):
 
 def test_background_submitter_and_deadline(models):
     _, pm = models
-    eng = Engine(pm, max_slots=2, max_len=64, page_size=8, max_queue=16,
-                 device="cpu")
+    eng = Engine(pm, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=64, page_size=8,
+                 max_queue=16)
     handles = []
 
     def feed():

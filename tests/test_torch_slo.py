@@ -423,7 +423,8 @@ def test_gateway_shed_sites_attribute_tenant(tiny):
     """Every gateway shed path records (tenant, priority) in the keyed
     window, and the journey carries both though the request never
     enqueues."""
-    eng = Engine(tiny, max_slots=1, max_len=32, device="cpu",
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=1, max_len=32,
                  auto_start=False)
     gw = Gateway([eng], tenants=[
         TenantConfig("acme", priority="interactive", max_queue=1)],
@@ -507,7 +508,8 @@ def test_http_slo_engine_end_to_end(tiny, tmp_path):
     export, and decode stays one signature."""
     from tools.incident_report import render
 
-    eng = Engine(tiny, max_slots=2, max_len=32, max_queue=16, device="cpu")
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=2, max_len=32, max_queue=16)
     objective = dict(name="ttft-tight", signal="ttft_p99", target=0.9,
                      threshold_s=1e-4, fast_window_s=5.0, fast_burn=5.0,
                      slow_window_s=30.0, slow_burn=2.0, fire_ticks=2,
@@ -571,7 +573,8 @@ def test_http_slo_engine_end_to_end(tiny, tmp_path):
 
 
 def test_http_slo_404_without_engine(tiny):
-    eng = Engine(tiny, max_slots=1, max_len=32, device="cpu",
+    eng = Engine(tiny, paged_kv=True, decode_kernel="pallas",
+                 sample_on_device=False, max_slots=1, max_len=32,
                  auto_start=False)
     with start_gateway([eng], own_engines=True) as stack:
         for path in ("/debug/slo", "/debug/incidents",
