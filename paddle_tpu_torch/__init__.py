@@ -23,8 +23,12 @@ workers over a shared-memory ring, ``DevicePrefetcher``),
 and ``paddle.summary``; ``paddle.profiler`` (over ``torch.profiler``),
 the legacy readers (``paddle.batch``, ``paddle.reader``,
 ``paddle.dataset`` over ``vision.datasets`` and ``paddle.text``) and
-``paddle.quantization`` (QAT / PTQ, simulated int8).  A ``Tensor`` wraps a ``torch.Tensor`` (``.value``);
-autograd is torch's.  Without a card the default place raises: CPU
+``paddle.quantization`` (QAT / PTQ, simulated int8); sparse gradients
+(``Embedding(sparse=True)``, ``core.selected_rows``) and
+``paddle.sparse`` (COO / CSR tensors, 3-D sparse convolutions); the
+runtime names (``set_flags`` / ``get_flags``, ``version``, ``sysconfig``,
+``compat``, ``hub``, ``LazyGuard``, ``flops``, the other places).  A
+``Tensor`` wraps a ``torch.Tensor`` (``.value``); autograd is torch's.  Without a card the default place raises: CPU
 scripts call ``paddle.set_device("cpu")`` first.
 
 The models, the serving engine and the trainers (``models``,
@@ -39,10 +43,12 @@ rather than fall back to the CPU (``device.resolve_device``).
 This package never imports ``jax`` or ``paddle_tpu``; only the tests
 import both, to hold the port against the reference.
 """
+import contextlib as _contextlib
+
 import torch as _torch
 
 from .core import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,  # noqa: F401
-                   Tensor, bfloat16, bool_, complex64, complex128,
+                   Tensor, TPUPlace, bfloat16, bool_, complex64, complex128,
                    enable_grad, float16, float32, float64,
                    get_default_dtype, get_device, get_rng_state, grad, int8,
                    int16, int32, int64, is_compiled_with_cuda,
@@ -59,6 +65,9 @@ from . import framework, io, metric, observability, utils  # noqa: F401,E402
 from . import callbacks, hapi  # noqa: F401,E402
 from . import (dataset, profiler, quantization, reader,  # noqa: F401,E402
                text)
+from . import compat, flags, hub, sparse, sysconfig, version  # noqa: F401,E402
+from .core.op import apply_op, defop, register_tensor_method  # noqa: F401,E402
+from .flags import get_flags, set_flags  # noqa: F401,E402
 from .batch import batch  # noqa: F401,E402
 from .device import resolve_device  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402
@@ -76,6 +85,102 @@ bool = bool_  # noqa: A001 — the reference exports `paddle.bool`
 dtype = _torch.dtype
 iinfo = _torch.iinfo
 finfo = _torch.finfo
+
+# the reference's remaining top-level names (paddle/__init__.py __all__)
+VarBase = Tensor                      # the legacy eager tensor
+CustomPlace = IPUPlace = MLUPlace = NPUPlace = XPUPlace = Place
+get_cuda_rng_state = get_rng_state    # the port's per-device generators
+set_cuda_rng_state = set_rng_state
+commit = version.commit
+full_version = version.full_version
+__version__ = version.full_version
+
+
+def is_compiled_with_cinn() -> bool:
+    return False
+
+
+def is_compiled_with_ipu() -> bool:
+    return False
+
+
+def is_compiled_with_mlu() -> bool:
+    return False
+
+
+def is_compiled_with_npu() -> bool:
+    return False
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int (``torch.backends.cudnn.version()``),
+    None where torch has no cuDNN."""
+    return _torch.backends.cudnn.version()
+
+
+def disable_signal_handler():
+    """Nothing to undo: the port installs no fault handlers (the reference
+    unhooks its C++ ones here)."""
+
+
+class LazyGuard:
+    """Layers built inside hold shape and dtype only (``nn.abstract_init``),
+    their parameters and buffers on torch's ``meta`` device: nothing is
+    allocated, on the card or the host."""
+
+    def __enter__(self):
+        from .nn import abstract_init
+        self._stack = _contextlib.ExitStack()
+        self._stack.enter_context(abstract_init())
+        self._stack.enter_context(_torch.device("meta"))
+        return self
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+
+# paddle's static-graph switches: the port is always eager, so these only
+# keep the flag the reference scripts read back
+_static_mode = False
+
+
+def enable_static():
+    global _static_mode
+    _static_mode = True
+
+
+def disable_static():
+    global _static_mode
+    _static_mode = False
+
+
+def in_dynamic_mode() -> bool:
+    return not _static_mode
+
+
+def is_grad_enabled_():  # the legacy alias
+    return is_grad_enabled()
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """FLOPs of ``net``'s forward at ``input_size``: a zero input on the
+    net's device under ``torch.utils.flop_counter.FlopCounterMode``, which
+    counts products (2 per multiply-add of a matmul or convolution) and no
+    element-wise op; the JAX package takes XLA's cost analysis, which
+    counts those too.  ``custom_ops`` is taken for the API and unused."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from .core.place import current_device
+    p = next(_torch.nn.Module.parameters(net), None)
+    dev = p.device if p is not None else current_device()
+    x = _torch.zeros(tuple(input_size), device=dev)
+    with _torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net(x)
+    total = int(counter.get_total_flops())
+    if print_detail:
+        n = sum(q.numel() for q in _torch.nn.Module.parameters(net))
+        print(f"Total Flops: {total}  Total Params: {n}")
+    return total
 
 from .core.tensor_methods import install_tensor_methods as _itm  # noqa: E402
 

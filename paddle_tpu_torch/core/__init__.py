@@ -8,6 +8,7 @@ from .dtype import (bfloat16, bool_, complex64, complex128, float16,  # noqa: F4
                     float32, float64, get_default_dtype, int8, int16, int32,
                     int64, set_default_dtype, uint8)
 from .place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,  # noqa: F401
+                    TPUPlace,
                     device_count, get_device, is_compiled_with_cuda,
                     is_compiled_with_distribute, is_compiled_with_rocm,
                     is_compiled_with_tpu, is_compiled_with_xpu, set_device)

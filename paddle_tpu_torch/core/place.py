@@ -6,13 +6,15 @@ card ``i``, ``CUDAPinnedPlace()`` page-locked host memory (a real
 resolved through :func:`paddle_tpu_torch.device.resolve_device`, so a
 tensor made with no place and no card raises instead of landing on the
 CPU (the JAX package falls back to the CPU quietly).  CPU scripts call
-``set_device("cpu")`` first, as the tests do.  There is no ``TPUPlace``.
+``set_device("cpu")`` first, as the tests do.  ``TPUPlace(i)`` names the
+accelerator, card ``i``, as the JAX package's ``CUDAPlace`` names its
+TPU.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "CUDAPinnedPlace",
            "set_device", "get_device", "device_count",
            "is_compiled_with_cuda", "is_compiled_with_rocm",
            "is_compiled_with_xpu", "is_compiled_with_tpu",
@@ -59,6 +61,10 @@ class CPUPlace(Place):
 class CUDAPlace(Place):
     def __init__(self, device_id: int = 0):
         super().__init__("gpu", device_id)
+
+
+class TPUPlace(CUDAPlace):
+    """The accelerator place of TPU-era code: card ``device_id``."""
 
 
 class CUDAPinnedPlace(CPUPlace):

@@ -179,12 +179,22 @@ class Tensor:
 
     @property
     def grad(self):
+        """The leaf's gradient: a Tensor, or a ``SelectedRows`` where it
+        is sparse (``Embedding(sparse=True)``)."""
         v = self._value
         g = v.grad if v.is_leaf else None
-        return None if g is None else Tensor._wrap(g)
+        if g is None:
+            return None
+        if g.is_sparse:
+            from .selected_rows import SelectedRows
+            return SelectedRows.of(g)
+        return Tensor._wrap(g)
 
     @grad.setter
     def grad(self, g):
+        from .selected_rows import SelectedRows
+        if isinstance(g, SelectedRows):
+            g = g.torch_value
         self._value.grad = None if g is None else (
             g._value if isinstance(g, Tensor) else torch.as_tensor(
                 g, dtype=self._value.dtype, device=self._value.device))

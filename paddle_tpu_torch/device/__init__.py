@@ -6,18 +6,18 @@ from __future__ import annotations
 import torch
 
 from ..core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401
-                          Place, device_count, get_device,
+                          Place, TPUPlace, device_count, get_device,
                           is_compiled_with_cuda, is_compiled_with_distribute,
                           is_compiled_with_rocm, is_compiled_with_tpu,
                           is_compiled_with_xpu, set_device)
 
-__all__ = ["resolve_device", "Place", "CPUPlace", "CUDAPlace",
+__all__ = ["resolve_device", "Place", "CPUPlace", "CUDAPlace", "TPUPlace",
            "CUDAPinnedPlace", "set_device", "get_device", "device_count",
            "is_compiled_with_cuda", "is_compiled_with_rocm",
            "is_compiled_with_xpu", "is_compiled_with_tpu",
            "is_compiled_with_distribute", "get_all_device_type",
            "get_available_device", "get_available_custom_device",
-           "synchronize", "cuda"]
+           "synchronize", "cuda", "tpu"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,4 +51,4 @@ def synchronize(device=None):
         torch.cuda.synchronize(device)
 
 
-from . import cuda  # noqa: E402,F401
+from . import cuda, tpu  # noqa: E402,F401

@@ -13,6 +13,8 @@ update on the model's device, as the JAX step does in one jitted program:
   labels and the loss stay in full precision;
 * the loss comes back as an f32 scalar tensor (not synchronised);
 * the model runs in training mode, the JAX model's default;
+* ``Embedding(sparse=True)`` tables get dense gradients, as the JAX
+  step's do (``core.selected_rows.dense_gradients``);
 * buffers (batch norm's running statistics) are not cast: they stay f32
   and update in place inside the forward, as the JAX step carries its
   ``buffers`` through ``functional_call`` uncast;
@@ -76,6 +78,7 @@ import torch
 
 from ..core import op as _op
 from ..core import random as random_mod
+from ..core import selected_rows
 from ..core.tensor import Tensor
 from ..observability import instrument_jit
 from ..observability import steps as _steps
@@ -192,7 +195,9 @@ class ShardedTrainStep:
                 self.num_labels, self.compute_dtype)
         self.model.train()
         self.optimizer.clear_grad()
-        loss = self._loss(plan, batch)
+        # the tables get dense gradients here, as in the JAX step
+        with selected_rows.dense_gradients():
+            loss = self._loss(plan, batch)
         loss.backward()
         self._step += 1
         with torch.no_grad():

@@ -1,6 +1,6 @@
 """``paddle_tpu.incubate`` counterparts: the MoE layer
-(``distributed.models.moe``) and auto-checkpoint (``checkpoint``:
-``TrainEpochRange``)."""
-from . import checkpoint, distributed
+(``distributed.models.moe``), auto-checkpoint (``checkpoint``:
+``TrainEpochRange``) and ``sparse`` (the port's ``sparse``)."""
+from . import checkpoint, distributed, sparse
 
-__all__ = ["checkpoint", "distributed"]
+__all__ = ["checkpoint", "distributed", "sparse"]

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as tF
 
 from ...core import random as rnd
+from ...core import selected_rows
 from ...core.op import apply_op, defop
 from ...core.tensor import Tensor
 from ...ops.manipulation import pad  # noqa: F401  (re-exported as F.pad)
@@ -118,6 +119,13 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
 
 @defop
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """``weight[x]`` with the ``padding_idx`` rows zero.  ``sparse=True``
+    with grad enabled gives the weight a sparse gradient
+    (``core.selected_rows``; ids clipped to the table as the JAX lookup
+    clips them); inside the train step it stays dense."""
+    if sparse and weight.requires_grad and \
+            selected_rows.sparse_gradients_enabled():
+        return selected_rows.sparse_embedding_lookup(weight, x, padding_idx)
     out = tF.embedding(x.long(), weight)
     if padding_idx is not None:
         out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)

@@ -7,11 +7,12 @@ form; ``bias_attr=False`` drops the bias.  It is not a
 ``torch.nn.Linear``, so ``models.convert`` carries its weight as it is.
 
 ``Embedding`` zeroes its ``padding_idx`` row at construction and its
-output rows for that index (``F.embedding``); ``sparse=True`` is accepted
-and computes the dense gradient (the JAX package's selected-rows gradient
-waits for ``core/selected_rows.py``).  ``Upsample`` calls
-``F.interpolate`` with its settings; the dropouts draw from the port's
-generators and are the identity outside training.
+output rows for that index (``F.embedding``); with ``sparse=True`` its
+weight gets a sparse gradient in eager mode, ``.grad`` a
+``core.selected_rows.SelectedRows`` that the optimizers update row by
+row, and a dense one inside the train step, as in the JAX package.
+``Upsample`` calls ``F.interpolate`` with its settings; the dropouts draw
+from the port's generators and are the identity outside training.
 """
 from __future__ import annotations
 
@@ -122,7 +123,8 @@ class Embedding(Layer):
 
     def forward(self, x):
         return F.embedding(x, param(self, "weight"),
-                           padding_idx=self._padding_idx)
+                           padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"

@@ -21,14 +21,12 @@ import paddle_tpu_torch
 from paddle_tpu.core.op import OP_REGISTRY as JAX_OPS
 from paddle_tpu_torch.core.op import OP_REGISTRY as PORT_OPS
 
-# every module of the JAX package's ops/ is ported (ROADMAP module entry
-# 6); core/selected_rows.py and device/tpu.py wait, and name nothing here
+# every module of the JAX package's core/, ops/ and device/ is ported
+# (ROADMAP module entry 6, done)
 DEFERRED = set()
 
 # names the port does not have, by reason
 NOT_PORTED = {
-    # there is no TPU in the port
-    "TPUPlace": "no TPU",
     # JAX objects: the port's places resolve to torch devices
     # (Place.torch_device) and its dtypes are torch dtypes
     "default_jax_device": "a jax.Device", "to_jax": "a jnp dtype",
@@ -44,6 +42,7 @@ NOT_PORTED = {
 
 MODULES = ["core", "core.dtype", "core.place", "core.random", "core.tensor",
            "core.autograd", "core.op", "core.pylayer", "core.tensor_methods",
+           "core.selected_rows", "device.tpu",
            "ops", "ops.creation", "ops.math", "ops.manipulation",
            "ops.linalg", "ops.logic", "ops.reduction", "ops.search",
            "ops.random_ops", "ops.extended", "ops.compat_surface", "tensor",
