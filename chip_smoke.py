@@ -552,6 +552,25 @@ run with a non-zero exit, and nothing is caught):
    gradients match the CPU path (1e-4 relative); ``fused_attention``
    (B=2, 12 heads, M=1024, d=64, a 128-wide band and 2 global tokens) and
    a sweep of the value-wise, binary and CSR ops match the CPU (1e-5).
+50. (run after 49) YOLOv3 training at full width: ``yolov3()`` at its
+   defaults, batch 8 x 608^2 with up to 16 gt boxes an image, bf16 over
+   f32 masters, the yolov3_darknet53_270e_coco recipe's Momentum; step
+   ms, images/s, peak memory, busy share, host syncs a step, the profiled
+   step's top kernels; ``predict`` on the 8 images.  Gated: falling
+   losses, no kernel launched, ``predict``'s rows, a half-width f32 copy
+   within 1e-4 of the CPU over three steps.
+51. the classification zoo: one factory a family at its defaults, 3
+   timed Momentum steps at batch 32 bf16 (images/s, peak memory); gated
+   on the card against the CPU at the smallest input: f32 eval logits
+   and two f64 steps' losses within 1e-4.
+52. the detection ops against the CPU at a Faster R-CNN-like shape
+   (``roi_align``, ``deform_conv2d``, ``generate_proposals``, the NMS
+   family, ``yolo_box`` / ``yolo_loss`` on phase 50's heads): ms and
+   host syncs a call; gated at 1e-4, kept indices equal.
+53. an ImageNet-style input pipeline (FakeData -> crop, flip, ToTensor,
+   Normalize -> 4 workers -> prefetcher -> ``mobilenet_v2``): images/s,
+   stalls, the loader's share of the step; gated: the 0-worker batch
+   equal to the host transforms bit for bit, every batch on the card.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -9237,6 +9256,612 @@ def phase_second(dev, seed, smi, cfg=None, attn=None, steps=5):
     return res
 
 
+# -- the rest of vision (phases 50-53) ----------------------------------------
+
+YOLOV3_PARAMS = 4004893      # yolov3() at its defaults, counted in JAX
+YOLO_B, YOLO_SIZE, YOLO_GT = 8, 608, 16
+ZOO_B, ZOO_STEPS, ZOO_TOL = 32, 3, 1e-4
+# (factory, input size for the timed steps, input size for the card-vs-CPU
+# check, channels): the smallest inputs the models accept where the JAX
+# tests' 64^2 is too small (GoogLeNet's auxiliary heads want 224^2;
+# InceptionV3 at 128^2, where its last batch norms see more than the
+# batch's 2 values a channel)
+ZOO = (("LeNet", 28, 28, 1), ("alexnet", 224, 64, 3), ("vgg16", 224, 64, 3),
+       ("squeezenet1_1", 224, 64, 3), ("mobilenet_v1", 224, 64, 3),
+       ("mobilenet_v2", 224, 64, 3), ("mobilenet_v3_large", 224, 64, 3),
+       ("shufflenet_v2_x1_0", 224, 64, 3), ("densenet121", 224, 64, 3),
+       ("googlenet", 224, 224, 3), ("inception_v3", 299, 128, 3))
+OPS_TOL = 1e-4
+PIPE_B, PIPE_WORKERS, PIPE_WARM, PIPE_STEPS = 64, 4, 2, 10
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+
+
+def _yolo_gt(seed, batch, size, most=YOLO_GT):
+    """Up to ``most`` ground-truth boxes an image (xyxy pixels, 1 to
+    ``most`` of them, 80 classes), padded with zero boxes labelled -1."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((batch, most, 4), np.float32)
+    labels = -np.ones((batch, most), np.int64)
+    for i in range(batch):
+        n = rng.randint(1, most + 1)
+        c = rng.uniform(0, size, (n, 2))
+        wh = rng.uniform(size / 40, size / 2, (n, 2))
+        boxes[i, :n] = np.clip(np.concatenate([c - wh / 2, c + wh / 2], 1),
+                               0, size)
+        labels[i, :n] = rng.randint(0, 80, n)
+    return boxes, labels
+
+
+def _yolo_step(model, lr, compute_dtype=None):
+    """PaddleDetection's yolov3_darknet53_270e_coco optimizer: Momentum
+    0.9, L2 5e-4; ``YOLOv3Loss(model)`` on the padded ground truth."""
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import YOLOv3Loss
+
+    opt = Momentum(learning_rate=lr, momentum=0.9, parameters=model,
+                   weight_decay=5e-4)
+    return make_train_step(model, opt, loss_fn=YOLOv3Loss(model),
+                           num_labels=2, compute_dtype=compute_dtype)
+
+
+def phase_yolov3(dev, smi, seed, steps=5):
+    """Phase 50: YOLOv3 training at full width.  The repo's ``yolov3()``
+    at its defaults (80 classes, ``width=32``, ``neck_channel=128``, the
+    default anchors; 4.00M parameters) from the seeded generators on the
+    card, batch 8 x 3 x 608^2 with up to 16 gt boxes an image, bf16
+    compute over f32 masters (phase 34's), the yolov3_darknet53_270e_coco
+    recipe's Momentum (lr 0.001, 0.9, L2 5e-4): one warm-up and 5 timed
+    steps, one profiled step, the host syncs of one step; then
+    ``predict`` on the 8 images.  Gates: finite, falling losses, no
+    attention or LayerNorm kernel launched; ``predict`` gives an image at
+    most 100 finite rows of 6; a half-width f32 copy (``width=16``,
+    ``neck_channel=64``; batch 4 x 128^2) trains three steps on the card
+    and on the CPU from the same weights with losses within 1e-4
+    relative.  Returns the phase's numbers and, under ``heads``, the
+    trained model's f32 heads on the batch with its ground truth (phase
+    52 reads them)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.vision.models import conv_flops, yolov3
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    _seed_weights(seed)
+    model = yolov3(device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != YOLOV3_PARAMS:
+        _fail(f"yolov3 has {n_params} parameters, not {YOLOV3_PARAMS}")
+    flops_fwd = conv_flops(model, YOLO_SIZE, YOLO_SIZE)
+    x = torch.from_numpy(np.random.RandomState(seed).standard_normal(
+        (YOLO_B, 3, YOLO_SIZE, YOLO_SIZE)).astype(np.float32)).to(dev)
+    gtb, gtl = _yolo_gt(seed + 1, YOLO_B, YOLO_SIZE)
+    data = (x, torch.from_numpy(gtb).to(dev), torch.from_numpy(gtl).to(dev))
+    step = _yolo_step(model, 0.001, torch.bfloat16)
+    losses, wall, n, peak = _timed_steps(step, data, steps)
+    peak -= base
+    _falling("yolov3", losses)
+    if any(n.values()):
+        _fail(f"yolov3: kernels launched on a path with none: {n}")
+    prof = _device_profile(lambda: step(*data), top=8)
+    syncs = _count_syncs(lambda: step(*data))
+    ips = steps * YOLO_B / wall
+    res = dict(model="yolov3()", params=n_params, batch=YOLO_B,
+               size=YOLO_SIZE, gt_boxes=[int((lab >= 0).sum()) for lab in gtl],
+               steps=steps, losses=losses, step_ms=1e3 * wall / steps,
+               images_per_s=ips, flops_fwd_per_image=flops_fwd,
+               flops_share=ips * 3 * flops_fwd / BF16_PEAK,
+               peak_memory_bytes=peak, syncs_a_step=syncs, profile=prof,
+               launches=n)
+    print(f"[phase 50] yolov3() {n_params} parameters, B={YOLO_B} "
+          f"{YOLO_SIZE}x{YOLO_SIZE} bf16 over f32 masters, Momentum (0.001, "
+          f"0.9, L2 5e-4), gt boxes an image {res['gt_boxes']}: losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}")
+    print(f"[phase 50] {res['step_ms']:.3f} ms a step, {ips:.1f} images/s, "
+          f"flops share {100 * res['flops_share']:.2f}% of the 989 TFLOP/s "
+          f"dense bf16 peak ({flops_fwd / 1e9:.4f} GFLOP an image forward, "
+          f"x3), peak memory {peak} bytes above the phase's start, {syncs} "
+          f"host syncs a step, busy share "
+          + ("not measured" if prof["device_busy_share"] is None else
+             f"{100 * prof['device_busy_share']:.1f}%") + f" on {smi}")
+    _print_profile("phase 50 profile", "one step", prof)
+    img = torch.tensor([[YOLO_SIZE, YOLO_SIZE]] * YOLO_B, dtype=torch.int32,
+                       device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = model.predict(x, img)
+    res["predict_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["predict_syncs"] = _count_syncs(lambda: model.predict(x, img))
+    res["boxes_per_image"] = [int(r.shape[0]) for r in rows]
+    if len(rows) != YOLO_B or not all(
+            r.ndim == 2 and r.shape[1] == 6 and r.shape[0] <= 100
+            and np.isfinite(r).all() for r in rows):
+        _fail(f"yolov3 predict: rows {[r.shape for r in rows]}")
+    print(f"[phase 50] predict on {YOLO_B} images: boxes kept an image "
+          f"{res['boxes_per_image']} (conf 0.05, NMS 0.45, top 100), "
+          f"{res['predict_ms']:.1f} ms, {res['predict_syncs']} host syncs "
+          f"on {smi}")
+    model.eval()
+    with torch.no_grad():
+        heads = [h.float() for h in model(x)]
+    res["heads"] = dict(heads=heads, gtb=gtb, gtl=gtl,
+                        anchors=[a for s in model.anchors for a in s],
+                        strides=model.strides)
+    del model, step, data, x
+    torch.cuda.empty_cache()
+
+    px = np.random.RandomState(seed + 2).randn(4, 3, 128, 128).astype(
+        np.float32)
+    pgb, pgl = _yolo_gt(seed + 3, 4, 128)
+
+    def build(where):
+        _seed_weights(seed)
+        return yolov3(width=16, neck_channel=64, device=where)
+
+    def run(m):
+        st = _yolo_step(m, 0.001)
+        return [float(st(px, pgb, pgl)) for _ in range(3)]
+
+    res["parity"] = _parity("phase 50 parity", build, run, dev, 1e-4)
+    if any(res["parity"]["launches"].values()):
+        _fail(f"yolov3 parity: launches {res['parity']['launches']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return res
+
+
+def _zoo_loss(out, y):
+    """Cross entropy on the logits; GoogLeNet's training output adds 0.3
+    of each auxiliary head's."""
+    import paddle_tpu_torch.nn.functional as F
+
+    if isinstance(out, (tuple, list)):
+        return F.cross_entropy(out[0], y) + 0.3 * (
+            F.cross_entropy(out[1], y) + F.cross_entropy(out[2], y))
+    return F.cross_entropy(out, y)
+
+
+def _zoo_model(fname, where, seed):
+    from paddle_tpu_torch.vision import models
+
+    _seed_weights(seed)
+    return getattr(models, fname)(device=where)
+
+
+def _zoo_parity(fname, size, ch, dev, seed):
+    """The card against the CPU from one set of weights, batch 2: the f32
+    logits of one eval forward, then two Momentum steps' losses in f64
+    (in f32, batch norm over small maps in training mode makes the
+    second loss chaotic; tests/test_torch_vision_models.py)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.models import load_jax_state, to_jax_state
+    from paddle_tpu_torch.optimizer import Momentum
+
+    cpu = _zoo_model(fname, "cpu", seed)
+    card = _zoo_model(fname, dev, seed)
+    load_jax_state(card, to_jax_state(cpu))
+    for m in (cpu, card):
+        for sub in m.modules():
+            if type(sub).__name__ == "Dropout":
+                sub.p = 0.0
+    x = np.random.RandomState(seed).randn(2, ch, size, size).astype(
+        np.float32)
+    y = np.array([3, 7], np.int64)
+    logits = []
+    for m in (card, cpu):
+        m.eval()
+        with torch.no_grad():
+            out = m(torch.from_numpy(x).to(next(m.parameters()).device))
+        logits.append((out[0] if isinstance(out, (tuple, list))
+                       else out).float().cpu())
+    rel_logits = _rel_err(*logits)
+    losses = []
+    for m in (card, cpu):
+        m.train()
+        m.double()
+        st = make_train_step(m, Momentum(0.05, momentum=0.9, parameters=m,
+                                         weight_decay=1e-4),
+                             loss_fn=_zoo_loss)
+        losses.append([float(st(x.astype(np.float64), y)) for _ in range(2)])
+    a, b = np.array(losses[0]), np.array(losses[1])
+    rel_loss = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not (rel_logits <= ZOO_TOL and rel_loss <= ZOO_TOL):
+        _fail(f"{fname}: card against the CPU: logits {rel_logits}, "
+              f"two-step losses {losses[0]} / {losses[1]} ({rel_loss})")
+    return dict(size=size, logits_rel_err=rel_logits,
+                two_step_f64_losses=losses, two_step_rel_err=rel_loss)
+
+
+def phase_zoo(dev, smi, seed):
+    """Phase 51: the classification zoo, one factory a family at its
+    defaults (1000 classes, a pool): one warm-up and 3 timed Momentum
+    steps (lr 0.0125, the 0.1 a 256-image batch scaled to 32; 0.9; L2
+    1e-4) at batch 32 in bf16 over f32 masters, images/s and peak memory
+    each; then the card against the CPU (``_zoo_parity``) at the smallest
+    input.  Gates: finite losses, no attention or LayerNorm kernel
+    launched, the parity within 1e-4."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.optimizer import Momentum
+
+    t_phase = time.perf_counter()
+    rows = []
+    for i, (fname, size, psize, ch) in enumerate(ZOO):
+        t0 = time.perf_counter()
+        # the last family's parity models (a reference cycle through the
+        # train step) are freed before this family's base is read
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = _zoo_model(fname, dev, seed + i)
+        n_params = sum(p.numel() for p in model.parameters())
+        step = make_train_step(
+            model, Momentum(0.0125, momentum=0.9, parameters=model,
+                            weight_decay=1e-4),
+            loss_fn=_zoo_loss, compute_dtype=torch.bfloat16)
+        rs = np.random.RandomState(seed + i)
+        x = torch.from_numpy(rs.standard_normal((ZOO_B, ch, size, size))
+                             .astype(np.float32)).to(dev)
+        y = torch.from_numpy(rs.randint(0, model.num_classes, ZOO_B)).to(dev)
+        losses, wall, n, peak = _timed_steps(step, (x, y), ZOO_STEPS)
+        if not np.isfinite(losses).all() or any(n.values()):
+            _fail(f"{fname}: losses {losses}, launches {n}")
+        del model, step, x, y
+        torch.cuda.empty_cache()
+        row = dict(model=f"{fname}()", params=n_params, size=size,
+                   batch=ZOO_B, losses=losses,
+                   step_ms=1e3 * wall / ZOO_STEPS,
+                   images_per_s=ZOO_STEPS * ZOO_B / wall,
+                   peak_memory_bytes=peak - base)
+        row.update(_zoo_parity(fname, psize, ch, dev, seed + i))
+        row["s"] = time.perf_counter() - t0
+        rows.append(row)
+        print(f"[phase 51] {fname}() {n_params} parameters, B={ZOO_B} "
+              f"{size}x{size} bf16: {row['step_ms']:.3f} ms a step, "
+              f"{row['images_per_s']:.1f} images/s, peak memory "
+              f"{row['peak_memory_bytes']} bytes; card vs CPU at {psize}^2: "
+              f"f32 logits {row['logits_rel_err']:.3e}, f64 two-step losses "
+              f"{row['two_step_rel_err']:.3e} ({row['s']:.1f} s) on {smi}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, phase_s=time.perf_counter() - t_phase)
+
+
+def _op_case(dev, tag, fn, args, grad_idx=(), seed=0, host=False):
+    """``fn(*args)`` on the card and on CPU copies of ``args``: the
+    outputs' (and, for ``grad_idx``, the gradients of ``sum(out * w)``')
+    largest error relative to the CPU's largest magnitude; the card's ms
+    a call (CUDA events, or for ``host`` ops the host's clock around one
+    forward call) and its host syncs a call."""
+    import torch
+
+    def prep(where):
+        out = []
+        for i, a in enumerate(args):
+            if torch.is_tensor(a):
+                a = a.detach().to(where).clone()
+                if i in grad_idx:
+                    a.requires_grad_(True)
+            out.append(a)
+        return out
+
+    def flat(o):
+        return [t for t in (o if isinstance(o, (tuple, list)) else [o])
+                if torch.is_tensor(t)]
+
+    timed = {}
+
+    def run(where):
+        a = prep(where)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = flat(fn(*a))
+        torch.cuda.synchronize()
+        timed[str(where)] = 1e3 * (time.perf_counter() - t0)
+        grads = []
+        if grad_idx:
+            g = torch.Generator().manual_seed(seed)
+            loss = sum((o * torch.randn(o.shape, generator=g).to(o.device))
+                       .sum() for o in outs if o.is_floating_point())
+            loss.backward()
+            grads = [a[i].grad for i in grad_idx]
+        return [o.detach().cpu() for o in outs + grads]
+
+    card, cpu = run(dev), run("cpu")
+    errs = []
+    for c, h in zip(card, cpu):
+        if c.shape != h.shape:
+            _fail(f"{tag}: the card's shape {tuple(c.shape)}, the CPU's "
+                  f"{tuple(h.shape)}")
+        if not c.is_floating_point():
+            if not torch.equal(c, h):
+                _fail(f"{tag}: the card kept other indices than the CPU")
+            continue
+        errs.append(_rel_err(c, h) if h.numel() else 0.0)
+    err = max(errs) if errs else 0.0
+    if not err <= OPS_TOL:
+        _fail(f"{tag}: the card differs from the CPU by {err} relative")
+    a = prep(dev)
+
+    def call():
+        outs = flat(fn(*a))
+        if grad_idx:
+            sum(o.float().sum() for o in outs).backward()
+
+    # a host-side op's ms is its card call's wall above (forward only);
+    # a device op's, CUDA events around repeated calls
+    ms = timed[str(dev)] if host else _timed_ms(call, iters=5, warmup=2)
+    syncs = _count_syncs(call)
+    return dict(op=tag, rel_err=err, ms=ms, syncs=syncs,
+                clock="host" if host else "device")
+
+
+def phase_detection_ops(dev, smi, seed, heads):
+    """Phase 52: the detection ops on the card against the CPU, f32, at
+    a Faster R-CNN-like shape: ``roi_align`` forward and backward (1000
+    RoIs on ``[2, 256, 200, 304]``, 7 x 7, ``sampling_ratio`` 2),
+    ``deform_conv2d`` forward and backward (``[4, 256, 64, 64]``, 3 x 3,
+    one deformable group, with and without the mask), ``generate_proposals``
+    (15 anchors a cell on 50 x 76, 6000 before NMS, 1000 after),
+    ``multiclass_nms`` and ``matrix_nms`` (1000 boxes, 80 classes, scores
+    without ties), and ``yolo_box`` and ``yolo_loss`` (with gradients) on
+    phase 50's heads.  Gates: floats within 1e-4 relative (to the CPU's
+    largest magnitude), kept indices equal."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.vision import ops
+
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    rows = []
+    # roi_align: boxes in 800 x 1216 image coordinates, stride 4
+    feat = t(rs.standard_normal((2, 256, 200, 304)).astype(np.float32))
+    xy = rs.uniform(0, [1100, 700], (1000, 2))
+    wh = rs.uniform(16, 400, (1000, 2))
+    boxes = t(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+    num = t(np.array([500, 500], np.int32))
+    rows.append(_op_case(
+        dev, "roi_align fwd+bwd", lambda x, b, n: ops.roi_align(
+            x, b, n, 7, spatial_scale=0.25, sampling_ratio=2),
+        (feat, boxes, num), grad_idx=(0,), seed=seed))
+    rows.append(_op_case(
+        dev, "roi_align fwd", lambda x, b, n: ops.roi_align(
+            x, b, n, 7, spatial_scale=0.25, sampling_ratio=2),
+        (feat, boxes, num)))
+    del feat
+    # deform_conv2d, with and without the DCNv2 mask
+    x = t(rs.standard_normal((4, 256, 64, 64)).astype(np.float32))
+    off = t(rs.standard_normal((4, 18, 64, 64)).astype(np.float32))
+    w = t((rs.standard_normal((256, 256, 3, 3)) * 0.02).astype(np.float32))
+    b = t(rs.standard_normal(256).astype(np.float32))
+    mask = t(rs.uniform(0, 1, (4, 9, 64, 64)).astype(np.float32))
+    rows.append(_op_case(
+        dev, "deform_conv2d fwd+bwd", lambda x, o, w, b: ops.deform_conv2d(
+            x, o, w, b, padding=1), (x, off, w, b), grad_idx=(0, 1, 2, 3),
+        seed=seed))
+    rows.append(_op_case(
+        dev, "deform_conv2d+mask fwd+bwd", lambda x, o, w, b, m:
+        ops.deform_conv2d(x, o, w, b, padding=1, mask=m),
+        (x, off, w, b, mask), grad_idx=(0, 1, 2, 3, 4), seed=seed))
+    del x, off, w, mask
+    # RPN proposals: scores without ties
+    n, a, h, wd = 2, 15, 50, 76
+    scores = t((rs.permutation(n * a * h * wd).reshape(n, a, h, wd)
+                / (n * a * h * wd)).astype(np.float32))
+    deltas = t((rs.standard_normal((n, 4 * a, h, wd)) * 0.1).astype(
+        np.float32))
+    cy, cx = np.meshgrid((np.arange(h) + 0.5) * 16, (np.arange(wd) + 0.5)
+                         * 16, indexing="ij")
+    sizes = np.array([32, 64, 128, 256, 512] * 3, np.float32)
+    ratios = np.repeat([0.5, 1.0, 2.0], 5).astype(np.float32)
+    aw, ah = sizes * np.sqrt(ratios), sizes / np.sqrt(ratios)
+    anchors = np.stack([cx[..., None] - aw / 2, cy[..., None] - ah / 2,
+                        cx[..., None] + aw / 2, cy[..., None] + ah / 2],
+                       -1).astype(np.float32)          # [h, w, a, 4]
+    var = np.ones_like(anchors)
+    img = t(np.array([[800, 1216]] * n, np.float32))
+    rows.append(_op_case(
+        dev, "generate_proposals",
+        lambda s, d, i, an, v: ops.generate_proposals(
+            s, d, i, an, v, pre_nms_top_n=6000, post_nms_top_n=1000,
+            nms_thresh=0.7, return_rois_num=True),
+        (scores, deltas, img, t(anchors), t(var)), host=True))
+    # the NMS family on 1000 boxes x 80 classes (+ background)
+    xy = rs.uniform(0, 1000, (2, 1000, 2))
+    bx = t(np.concatenate([xy, xy + rs.uniform(8, 200, (2, 1000, 2))],
+                          -1).astype(np.float32))
+    sc = t((rs.permutation(2 * 81 * 1000).reshape(2, 81, 1000)
+            / (2 * 81 * 1000)).astype(np.float32))
+    rows.append(_op_case(
+        dev, "multiclass_nms", lambda bb, ss: ops.multiclass_nms(
+            bb, ss, score_threshold=0.3, nms_top_k=400, keep_top_k=100,
+            nms_threshold=0.5, normalized=False), (bx, sc), host=True))
+    rows.append(_op_case(
+        dev, "matrix_nms", lambda bb, ss: ops.matrix_nms(
+            bb, ss, score_threshold=0.3, post_threshold=0.1, nms_top_k=400,
+            keep_top_k=100, normalized=False, return_index=True),
+        (bx, sc), host=True))
+    # yolo_box and yolo_loss on phase 50's heads
+    hd = heads
+    img = t(np.array([[YOLO_SIZE, YOLO_SIZE]] * YOLO_B, np.int32))
+    gtb, gtl = hd["gtb"], hd["gtl"]
+    norm = np.concatenate([(gtb[..., :2] + gtb[..., 2:]) / 2,
+                           gtb[..., 2:] - gtb[..., :2]], -1) / YOLO_SIZE
+    for k, (head, stride) in enumerate(zip(hd["heads"], hd["strides"])):
+        anc = hd["anchors"][6 * k:6 * k + 6]
+        rows.append(_op_case(
+            dev, f"yolo_box s{stride}", lambda x, i, anc=anc, s=stride:
+            ops.yolo_box(x, i, anc, 80, 0.05, s), (head, img)))
+        mask = [3 * k, 3 * k + 1, 3 * k + 2]
+        rows.append(_op_case(
+            dev, f"yolo_loss s{stride} fwd+bwd",
+            lambda x, g, lab, m=mask, s=stride: ops.yolo_loss(
+                x, g, lab, hd["anchors"], m, 80, 0.7, s),
+            (head, t(norm.astype(np.float32)), t(gtl)), grad_idx=(0,),
+            seed=seed, host=True))
+    for r in rows:
+        print(f"[phase 52] {r['op']}: card vs CPU {r['rel_err']:.3e} "
+              f"relative, {r['ms']:.3f} ms a call ({r['clock']} clock), "
+              f"{r['syncs']} host syncs a call on {smi}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, phase_s=time.perf_counter() - t_phase)
+
+
+def _to_uint8(img):
+    """FakeData's f32 normal image as uint8 pixels (mean 128, sd 64)."""
+    import numpy as np
+
+    return np.clip(img * 64.0 + 128.0, 0, 255).astype(np.uint8)
+
+
+def _python_draws(i):
+    """A sample that is one draw of Python's ``random``."""
+    import random
+
+    import numpy as np
+
+    return np.array([random.random()])
+
+
+def phase_input_pipeline(dev, smi, seed):
+    """Phase 53: an ImageNet-style input pipeline.  ``FakeData`` images
+    (256^2 x 3, made uint8) through ``Compose([RandomResizedCrop(224),
+    RandomHorizontalFlip(), ToTensor(), Normalize(ImageNet mean, std)])``,
+    ``io.DataLoader(batch_size=64, num_workers=4, shuffle=True)`` and the
+    pinned ``DevicePrefetcher`` into ``mobilenet_v2()`` training (bf16,
+    Momentum 0.025): 2 warm-up and 10 timed batches; images/s, the
+    prefetcher's stalls after warm-up and the loader's share of the step
+    (its wait over the timed wall).  Gates: with ``num_workers=0`` and
+    the same seeds the first batch equals the transforms applied directly
+    on the host, bit for bit; with 4 workers every batch is finite, f32,
+    ``[64, 3, 224, 224]`` and on the card.  Also reports what Python's
+    ``random`` (the crops' and flips' generator) gives in 4 workers: the
+    loader reseeds ``np.random`` only (``seed + worker_id``), and CPython
+    reseeds ``random`` from the OS in every forked child, so the draws
+    differ between workers and between runs under one seed."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import make_train_step
+    from paddle_tpu_torch.io import DataLoader, Dataset, DevicePrefetcher
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import FakeData
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    t_phase = time.perf_counter()
+    tf = T.Compose([_to_uint8, T.RandomResizedCrop(224),
+                    T.RandomHorizontalFlip(), T.ToTensor(),
+                    T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    n_img = PIPE_B * (PIPE_WARM + PIPE_STEPS)
+    ds = FakeData(size=n_img, image_shape=(256, 256, 3), num_classes=1000,
+                  transform=tf, seed=seed)
+    res = {}
+    random.seed(seed)
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    xb, yb = next(iter(DataLoader(ds, batch_size=PIPE_B, num_workers=0)))
+    res["host_batch_ms"] = 1e3 * (time.perf_counter() - t0)
+    random.seed(seed)
+    np.random.seed(seed)
+    want = np.stack([ds[i][0].numpy() for i in range(PIPE_B)])
+    if not np.array_equal(xb.numpy(), want):
+        _fail("phase 53: the loader's first batch differs from the "
+              "transforms applied on the host")
+    res["first_batch_bitwise_equal"] = True
+
+    class Draws(Dataset):
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            return _python_draws(i)
+
+    draws = []
+    for _ in range(2):
+        random.seed(seed)
+        draws.append([float(b.numpy().reshape(-1)[0]) for b in DataLoader(
+            Draws(), batch_size=1, num_workers=PIPE_WORKERS)])
+    res["python_random_distinct_of_8"] = len(set(draws[0]))
+    res["python_random_repeats_under_one_seed"] = draws[0] == draws[1]
+
+    _seed_weights(seed)
+    model = mobilenet_v2(device=dev)
+    step = make_train_step(model, Momentum(0.025, momentum=0.9,
+                                           parameters=model,
+                                           weight_decay=4e-5),
+                           loss_fn=CrossEntropyLoss(),
+                           compute_dtype=torch.bfloat16)
+    loader = DataLoader(ds, batch_size=PIPE_B, num_workers=PIPE_WORKERS,
+                        shuffle=True)
+    pf = DevicePrefetcher(loader, depth=2, device=dev)
+    batches, losses = [], []
+    wait0 = stalls0 = 0
+    t_timed = None
+    _attention_counters(zero=True)
+    _ln_counters(zero=True)
+    for i, (x, y) in enumerate(pf):
+        if i == PIPE_WARM:
+            torch.cuda.synchronize()
+            st = pf.stats()
+            wait0, stalls0 = st["wait_seconds"], st["stalls"]
+            t_timed = time.perf_counter()
+        losses.append(step(x, y))
+        batches.append(x.value if hasattr(x, "value") else x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_timed
+    st = pf.stats()
+    pf.close()
+    n = {**_attention_counters(), **_ln_counters()}
+    losses = [float(v) for v in losses]
+    bad = [i for i, b in enumerate(batches)
+           if b.device.type != dev.type or b.dtype != torch.float32
+           or tuple(b.shape) != (PIPE_B, 3, 224, 224)
+           or not bool(torch.isfinite(b).all())]
+    if bad or len(batches) != PIPE_WARM + PIPE_STEPS or any(n.values()) \
+            or not np.isfinite(losses).all():
+        _fail(f"phase 53: batches {bad} wrong of {len(batches)}, launches "
+              f"{n}, losses {losses}")
+    res.update(batch=PIPE_B, workers=PIPE_WORKERS, batches=len(batches),
+               losses=losses, images_per_s=PIPE_STEPS * PIPE_B / wall,
+               step_ms=1e3 * wall / PIPE_STEPS,
+               stalls_after_warmup=st["stalls"] - stalls0,
+               loader_wait_s=st["wait_seconds"] - wait0,
+               loader_share=(st["wait_seconds"] - wait0) / wall)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 53] FakeData 256^2 uint8 -> RandomResizedCrop(224), "
+          f"flip, ToTensor, Normalize -> DataLoader(B={PIPE_B}, "
+          f"{PIPE_WORKERS} workers) -> DevicePrefetcher -> mobilenet_v2 "
+          f"bf16: {res['images_per_s']:.1f} images/s, {res['step_ms']:.1f} "
+          f"ms a step, {res['stalls_after_warmup']} stalls after warm-up, "
+          f"loader's share of the step {100 * res['loader_share']:.1f}%; "
+          f"one host batch {res['host_batch_ms']:.0f} ms (0 workers, equal "
+          f"bit for bit to the direct transforms); Python random in "
+          f"{PIPE_WORKERS} workers: {res['python_random_distinct_of_8']} "
+          f"distinct draws over 8 samples, the same draws under one seed "
+          f"twice: {res['python_random_repeats_under_one_seed']} on {smi}")
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -9426,6 +10051,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"[phases 48-49] {dlrm['phase_s']:.1f} s (DLRM) + "
           f"{second['phase_s']:.1f} s (SECOND) of wall time")
+    # the rest of vision (phases 50-53) follows
+    yolo = phase_yolov3(dev, smi, args.seed + 24)
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(dev, smi, args.seed + 25)
+    torch.cuda.empty_cache()
+    det_ops = phase_detection_ops(dev, smi, args.seed + 26,
+                                  yolo.pop("heads"))
+    torch.cuda.empty_cache()
+    pipeline = phase_input_pipeline(dev, smi, args.seed + 27)
+    torch.cuda.empty_cache()
+    print(f"[phases 50-53] {yolo['phase_s']:.1f} s (YOLOv3) + "
+          f"{zoo['phase_s']:.1f} s (zoo) + {det_ops['phase_s']:.1f} s "
+          f"(detection ops) + {pipeline['phase_s']:.1f} s (input pipeline) "
+          f"of wall time")
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -9737,7 +10376,9 @@ def main(argv=None) -> int:
                            profiled_step=profiled, quantization=quant,
                            gpt_decode=decode, serve_defaults=defaults,
                            moe_serve=moe_serve, dlrm=dlrm,
-                           second=second, kernels=kernels,
+                           second=second, yolov3=yolo, zoo=zoo,
+                           detection_ops=det_ops, input_pipeline=pipeline,
+                           kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -99,6 +99,11 @@ def _to_tensor_nest(obj, return_list):
 def _worker_loop(dataset, index_queue, data_queue, collate_fn, worker_id,
                  num_workers, seed, worker_init_fn=None):
     global _worker_info
+    # one intra-op thread, as torch's own loader sets in its workers: a
+    # worker forked after the parent ran threaded CPU ops would otherwise
+    # wait forever on the parent's OpenMP pool at its first torch op (a
+    # Tensor sample's host copy, ToTensor -> Normalize)
+    torch.set_num_threads(1)
     _worker_info = _WorkerInfo(worker_id, num_workers, dataset, seed)
     np.random.seed((seed + worker_id) % (2 ** 32))
     if worker_init_fn is not None:

@@ -63,23 +63,25 @@ def _reduce(val, reduction):
 
 
 class _FusedNLL(torch.autograd.Function):
-    """Saves the logits in their own type and the f32 lse; the backward
-    recomputes ``softmax - onehot`` in one f32 buffer, updated in place."""
+    """Saves the logits in their own type and the lse in f32 (f64 for f64
+    logits); the backward recomputes ``softmax - onehot`` in one buffer
+    of that type, updated in place."""
 
     @staticmethod
     def forward(ctx, logits, labels, ignore_index):
+        acc = torch.promote_types(logits.dtype, torch.float32)
         valid = labels != ignore_index
         safe = torch.where(valid, labels, torch.zeros_like(labels))
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        tgt = logits.gather(-1, safe.unsqueeze(-1)).squeeze(-1).float()
+        lse = torch.logsumexp(logits.to(acc), dim=-1)
+        tgt = logits.gather(-1, safe.unsqueeze(-1)).squeeze(-1).to(acc)
         ctx.save_for_backward(logits, safe, valid, lse)
         return torch.where(valid, lse - tgt, torch.zeros_like(lse))
 
     @staticmethod
     def backward(ctx, g):
         logits, safe, valid, lse = ctx.saved_tensors
-        gv = torch.where(valid, g.float(), torch.zeros_like(lse))
-        grad = torch.empty_like(logits, dtype=torch.float32).copy_(logits)
+        gv = torch.where(valid, g.to(lse.dtype), torch.zeros_like(lse))
+        grad = torch.empty_like(logits, dtype=lse.dtype).copy_(logits)
         grad.sub_(lse.unsqueeze(-1)).exp_()
         grad.mul_(gv.unsqueeze(-1))
         grad.scatter_add_(-1, safe.unsqueeze(-1), -gv.unsqueeze(-1))
@@ -167,9 +169,10 @@ def fused_linear_nll_loss(hidden, weight, labels, ignore_index=-100,
 
 @defop(register=False)
 def fused_nll_loss(logits, labels, ignore_index=-100):
-    """Per-position losses ``[...]`` in f32 over the last axis of
-    ``logits``; positions whose label is ``ignore_index`` give 0 (through
-    ``where``, so a non-finite row there cannot poison the loss)."""
+    """Per-position losses ``[...]`` in f32 (f64 for f64 logits) over the
+    last axis of ``logits``; positions whose label is ``ignore_index``
+    give 0 (through ``where``, so a non-finite row there cannot poison the
+    loss)."""
     return _FusedNLL.apply(logits, labels.long(), int(ignore_index))
 
 

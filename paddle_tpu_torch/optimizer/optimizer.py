@@ -401,13 +401,15 @@ class Adam(Optimizer):
         torch._foreach_add_(m, grads, alpha=1 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
-        # p - lr * mhat / (sqrt(vhat) + eps)
+        # p - lr * mhat / (sqrt(vhat) + eps), in the JAX expression's order:
+        # (lr * mhat) / den
         den = torch._foreach_div(v, 1 - b2 ** t)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self._eps)
         upd = torch._foreach_div(m, 1 - b1 ** t)
+        torch._foreach_mul_(upd, lrs[0] if len(set(lrs)) == 1 else lrs)
         torch._foreach_div_(upd, den)
-        self._descend(params, upd, lrs)
+        torch._foreach_sub_(params, upd)
 
     def _update(self, params, grads, slots, lrs, t, decay):
         # the regularizer folded into the gradient (Adam, not AdamW)

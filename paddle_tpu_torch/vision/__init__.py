@@ -1,13 +1,23 @@
-"""Vision of the port (``paddle_tpu.vision`` counterpart): the models,
-the detection ops, the datasets (``vision/datasets``, the JAX modules'
-copies over the port's ``io.Dataset``) and the image backend switch."""
-from . import datasets, models, ops  # noqa: F401
+"""Vision of the port (``paddle_tpu.vision`` counterpart): the model zoo
+(``vision/models``), the detection ops (``vision/ops``), the transforms
+(``vision/transforms``, host-side numpy), the datasets (``vision/datasets``,
+the JAX modules' copies over the port's ``io.Dataset``) and the image
+backend switch.  As in the JAX package, the models', datasets' and
+transforms' public names are also bound here."""
+from . import datasets  # noqa: F401
+from . import models  # noqa: F401
+from . import ops  # noqa: F401
+from . import transforms  # noqa: F401
+from .models import *  # noqa: F401,F403
 from .datasets import *  # noqa: F401,F403
+from .transforms import *  # noqa: F401,F403
+# the star imports above bind the inner ``transforms/transforms.py`` over
+# the package of that name; rebind the packages from sys.modules
+import sys as _sys  # noqa: E402
 
-__all__ = ["models", "ops", "datasets", "set_image_backend",
-           "get_image_backend", "image_load", "DatasetFolder", "ImageFolder",
-           "MNIST", "FashionMNIST", "Cifar10", "Cifar100", "FakeData",
-           "Flowers", "VOC2012"]
+datasets = _sys.modules[__name__ + ".datasets"]
+models = _sys.modules[__name__ + ".models"]
+transforms = _sys.modules[__name__ + ".transforms"]
 
 
 def set_image_backend(backend):
