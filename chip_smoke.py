@@ -571,6 +571,26 @@ run with a non-zero exit, and nothing is caught):
    Normalize -> 4 workers -> prefetcher -> ``mobilenet_v2``): images/s,
    stalls, the loader's share of the step; gated: the 0-worker batch
    equal to the host transforms bit for bit, every batch on the card.
+54. GPT-3 1.3B served through ``incubate.nn.functional.
+   fused_multi_transformer``: ``gpt3-1.3B-en`` from a seed, f32 (TF32
+   off), its blocks carried into the per-layer lists; batch 8, a 128-token
+   prompt with a causal mask, 32 greedy decode steps into fixed
+   ``[2, 8, 16, 160, 128]`` caches with ``time_step`` (row 1 at Tq = 1,
+   24 launches a step); gated: the greedy tokens equal the GPT's no-cache
+   forward (smallest top-1 / top-2 gap printed), the hidden states within
+   1e-4 of a decode with row 1's plain version, and the bf16 decode's
+   within 3e-2 of f32's; ms a step and tokens/s (f32, bf16), host syncs,
+   peak memory, and row 1 at the step's shape against its plain version
+   and SDPA.
+54b. 12 ``FusedTransformerEncoderLayer`` s at BERT-base width under
+   ``auto_cast`` bf16, batch 32 x 512, 5 AdamW steps (rows 1-4, 12 launches
+   of each a step); gated: losses falling, 2 layers' first two losses
+   within 2e-2 of the CPU's; ms a step.
+55. ``geometric`` and ``signal`` at ogbn-arxiv's size (synthetic): the
+   message-passing ops and segment reductions, a two-layer SAGE forward
+   and backward, neighbour sampling (1024 seeds, fan-out 10) and
+   reindexing, ``stft`` / ``istft`` of 32 clips of 10 s at 16 kHz; gated
+   against the CPU (1e-4; the sampling exactly); ms and host syncs a call.
 
 Every toggle a phase turns on is turned off in a ``finally`` that lets the
 error through.
@@ -9582,7 +9602,7 @@ def _op_case(dev, tag, fn, args, grad_idx=(), seed=0, host=False):
         if c.shape != h.shape:
             _fail(f"{tag}: the card's shape {tuple(c.shape)}, the CPU's "
                   f"{tuple(h.shape)}")
-        if not c.is_floating_point():
+        if not (c.is_floating_point() or c.is_complex()):
             if not torch.equal(c, h):
                 _fail(f"{tag}: the card kept other indices than the CPU")
             continue
@@ -9862,6 +9882,535 @@ def phase_input_pipeline(dev, smi, seed):
     return res
 
 
+# -- phases 54, 54b and 55: entry 12's numeric and incubate modules ----------
+
+# phase 54: GPT-3 1.3B served through fused_multi_transformer
+FMT_B, FMT_PROMPT, FMT_NEW = 8, 128, 32
+FMT_LEN = FMT_PROMPT + FMT_NEW        # the fixed cache [2, 8, 16, 160, 128]
+FMT_PLAIN_TOL = 1e-4   # (b) row 1 vs its plain version: max |dh| / max |h|
+FMT_BF16_TOL = 3e-2    # (c) bf16 vs f32 hidden states: |dh| / |h| (2-norms)
+# sub-phase 54b: FusedTransformerEncoderLayer at BERT-base width
+ENC_LAYERS, ENC_D, ENC_H, ENC_FFN = 12, 768, 12, 3072
+ENC_B, ENC_T, ENC_STEPS = 32, 512, 5
+ENC_PARITY_LAYERS, ENC_PARITY_B = 2, 4
+ENC_LOSS_RTOL = 2e-2   # card vs CPU under auto_cast bf16 (bf16 rounding)
+# phase 55: ogbn-arxiv's size (Open Graph Benchmark: 169,343 nodes,
+# 1,166,243 directed edges, 128 features, 40 classes), synthetic
+ARXIV_N, ARXIV_E, ARXIV_F, ARXIV_C = 169343, 1166243, 128, 40
+SAGE_HIDDEN = 256
+SAMPLE_SEEDS, SAMPLE_FANOUT = 1024, 10
+CLIPS, CLIP_S, STFT_NFFT, STFT_HOP = 32, 160000, 512, 160  # 10 s at 16 kHz
+FMT_KEYS = ("ln_scales", "ln_biases", "qkv_weights", "qkv_biases",
+            "linear_weights", "linear_biases", "ffn_ln_scales",
+            "ffn_ln_biases", "ffn1_weights", "ffn1_biases", "ffn2_weights",
+            "ffn2_biases")
+
+
+def _fused_lists(model, dtype=None):
+    """A port GPT's blocks as ``fused_multi_transformer``'s twelve
+    per-layer lists (``FMT_KEYS``' order).  GPT's fused qkv columns are
+    head-major ``[nh, 3, hd]`` (``models/gpt.py``), the fused op's weight
+    ``[3, nh, hd, e]`` and bias ``[3, nh, hd]`` role-major: those two are
+    permuted copies; the linear weights are the ``[in, out]`` views
+    ``weight.t()``; ``dtype`` casts every tensor."""
+    out = {k: [] for k in FMT_KEYS}
+    for layer in model.gpt.layers:
+        att, mlp = layer.self_attn, layer.mlp
+        nh, hd = att.num_heads, att.head_dim
+        n1, n2 = layer.norm1._parameters, layer.norm2._parameters
+        qkv_w = att.qkv_proj.weight.detach().view(nh, 3, hd, nh * hd)
+        qkv_b = att.qkv_proj.bias.detach().view(nh, 3, hd)
+        vals = (n1["weight"], n1["bias"],
+                qkv_w.transpose(0, 1).contiguous(),
+                qkv_b.transpose(0, 1).contiguous(),
+                att.out_proj.weight.t(), att.out_proj.bias,
+                n2["weight"], n2["bias"], mlp.fc0.weight.t(), mlp.fc0.bias,
+                mlp.fc1.weight.t(), mlp.fc1.bias)
+        for k, v in zip(FMT_KEYS, vals):
+            v = v.detach()
+            out[k].append(v if dtype is None else v.to(dtype))
+    return [out[k] for k in FMT_KEYS]
+
+
+def _fused_decode(model, lists, prompt, new, max_len, tokens=None,
+                  dtype=None, timer=None):
+    """Serve ``prompt`` ``[B, T]`` through ``fused_multi_transformer``:
+    the prompt with a causal ``attn_mask`` (the plain path) into fixed
+    caches ``[2, B, nh, max_len, hd]`` (``time_step`` 0), then ``new``
+    greedy decode steps of one token each at ``time_step`` T, T + 1, ...
+    (no mask: row 1 with Tq = 1), each writing its position into the
+    caches.  The embeddings, final LayerNorm and tied head are the GPT's
+    (in ``dtype``'s copy when given).  With ``tokens`` ``[B, new + 1]``
+    the steps are fed those tokens instead of their own (teacher forced).
+    Returns the greedy tokens ``[B, new + 1]`` (the prefill's and each
+    step's) and the hidden state of every decode step (f32, ``[B, e]``).
+    With a ``timer`` dict, the decode steps' wall time (synchronised
+    before and after) goes to ``timer["decode_s"]``.
+    """
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    gpt, cfg = model.gpt, model.config
+    dev = prompt.device
+    B, T = prompt.shape
+    nh = cfg.num_attention_heads
+    hd = cfg.hidden_size // nh
+    caches = [torch.zeros(2, B, nh, max_len, hd, dtype=lists[2][0].dtype,
+                          device=dev) for _ in lists[0]]
+    kw = dict(epsilon=cfg.layer_norm_epsilon, activation=cfg.activation,
+              dropout_rate=0.0, training=False)
+    emb_w = gpt.embeddings.word_embeddings.weight
+    pos_w = gpt.embeddings.position_embeddings.weight
+    fn = gpt.final_norm
+    if dtype is not None:
+        emb_w, pos_w = emb_w.to(dtype), pos_w.to(dtype)
+    ln_w, ln_b = fn._parameters["weight"], fn._parameters["bias"]
+    if dtype is not None:
+        ln_w, ln_b = ln_w.to(dtype), ln_b.to(dtype)
+
+    def head(h):
+        h = torch.nn.functional.layer_norm(h, (h.shape[-1],), ln_w, ln_b,
+                                           fn._epsilon)
+        return torch.matmul(h, emb_w.t()).argmax(-1)
+
+    with torch.no_grad():
+        x = emb_w[prompt] + pos_w[:T][None]
+        mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        h, grown = IF.fused_multi_transformer(
+            x, *lists, cache_kvs=caches, time_step=0, attn_mask=mask, **kw)
+        for c, g in zip(caches, grown):
+            c[:, :, :, :T] = g
+        toks = [head(h[:, -1:])]
+        hidden = []
+        if timer is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        for i in range(new):
+            t = T + i
+            tok = toks[-1] if tokens is None else tokens[:, i:i + 1]
+            x = emb_w[tok] + pos_w[t:t + 1][None]
+            h, grown = IF.fused_multi_transformer(
+                x, *lists, cache_kvs=caches, time_step=t, **kw)
+            for c, g in zip(caches, grown):
+                c[:, :, :, t] = g[:, :, :, t]
+            hidden.append(h[:, 0].float())
+            toks.append(head(h))
+        if timer is not None:
+            torch.cuda.synchronize()
+            timer["decode_s"] = time.perf_counter() - t0
+    return torch.cat(toks, 1), hidden
+
+
+def _greedy_gate(model, prompt, toks):
+    """The GPT's no-cache forward over ``prompt`` + ``toks[:, :-1]``: its
+    argmax at every served position must equal ``toks``.  Returns the
+    smallest top-1 / top-2 logit gap over those positions."""
+    import torch
+
+    T = prompt.shape[1]
+    with torch.no_grad():
+        logits = model(torch.cat([prompt, toks[:, :-1]], 1))[:, T - 1:]
+    want = logits.argmax(-1)
+    if not torch.equal(want, toks):
+        bad = int((want != toks).sum())
+        _fail(f"phase 54: {bad} of {toks.numel()} fused greedy tokens differ "
+              f"from the GPT's no-cache forward")
+    top2 = logits.float().topk(2, dim=-1).values
+    return float((top2[..., 0] - top2[..., 1]).min())
+
+
+def _row1_at_tq1(dev, dtype):
+    """Row 1 at the decode step's shape (B=8, Tq=1, Tk=160, H=16, D=128,
+    not causal): kernel, plain version, SDPA and the bound."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(54)
+    B, tk, H, D = FMT_B, FMT_LEN, 16, 128
+    q = torch.randn(B, 1, H, D, device=dev, generator=gen).to(dtype)
+    k = torch.randn(B, tk, H, D, device=dev, generator=gen).to(dtype)
+    v = torch.randn(B, tk, H, D, device=dev, generator=gen).to(dtype)
+    out = fa.flash_attention_bthd(q, k, v, causal=False)
+    ref = fa.flash_attention_plain(q, k, v, causal=False)
+    name = f"B={B} Tq=1 Tk={tk} H={H} D={D} {str(dtype)[6:]} full"
+    err = _max_err([out], [ref], dtype, f"row 1 at {name}")
+    ms, eager_ms = _times(lambda: fa.flash_attention_bthd(q, k, v, False),
+                          100)
+    plain_ms, _ = _times(lambda: fa.flash_attention_plain(q, k, v, False),
+                         20, calls=5)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms, _ = _times(lambda: tF.scaled_dot_product_attention(qh, kh, vh),
+                       100)
+    bf16 = dtype == torch.bfloat16
+    bound_ms, bound_by = _bound(
+        *fa.flash_cost(B, 1, tk, H, D, False, itemsize=2 if bf16 else 4),
+        BF16_PEAK if bf16 else F32_PEAK)
+    print(f"[phase 54] row 1 at {name}: max_abs_err={err:.3e} kernel "
+          f"{ms:.4f} ms (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=name, max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_fused_decode(dev, smi, seed):
+    """Phase 54: GPT-3 1.3B served through ``incubate.nn.functional.
+    fused_multi_transformer``.  The port's ``gpt3-1.3B-en`` (hidden 2048,
+    24 layers, 16 heads of 128, FFN 8192) from a seed, f32 with TF32 off,
+    its blocks carried into the fused op's per-layer lists
+    (``_fused_lists``); batch 8, a 128-token prompt with a causal mask,
+    then 32 greedy decode steps into fixed ``[2, 8, 16, 160, 128]`` caches
+    (``_fused_decode``).  Gates: (a) the 33 greedy tokens of every row
+    (the prefill's and the 32 steps') equal the GPT's no-cache forward's
+    argmax (the smallest top-1 / top-2 gap printed); (b) every step's
+    hidden state within ``FMT_PLAIN_TOL`` of the same decode with row 1
+    swapped for its plain version on the card; (c) the decode in bf16
+    runs and its hidden states lie within ``FMT_BF16_TOL`` of f32's; row 1
+    launched 24 times a decode step and no plain version.  Printed: ms a
+    decode step and tokens/s (f32 and bf16; host clock over the 32 steps,
+    synchronised), row 1's launches, the serve's host syncs, peak memory;
+    row 1 at the step's shape against its plain version and SDPA."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import build_gpt
+    from paddle_tpu_torch.nn.functional import attention as att
+
+    t_phase = time.perf_counter()
+    tag = "phase 54"
+    model = build_gpt("gpt3-1.3B-en", device=dev, seed=seed,
+                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    cfg = model.config
+    lists = _fused_lists(model)
+    prompt = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (FMT_B, FMT_PROMPT)).astype(np.int64)).to(dev)
+    n_layers = len(lists[0])
+
+    def run(lists_, **kw):
+        return _fused_decode(model, lists_, prompt, FMT_NEW, FMT_LEN, **kw)
+
+    run(lists)                                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer, timer16 = {}, {}
+    _attention_counters(zero=True)
+    with _no_plain():
+        toks, hidden = run(lists, timer=timer)
+    n = _attention_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(fwd=n_layers * FMT_NEW)
+    if {k: v for k, v in n.items() if v} != want:
+        _fail(f"{tag}: flash launches {n}, want {want} (row 1, 24 a step)")
+    by_d = _attention_by_head_size()
+    gap = _greedy_gate(model, prompt, toks)
+    # (b) the same decode, teacher forced, with row 1's plain version
+    kernel_fn = att.flash_attention_bthd
+    att.flash_attention_bthd = (
+        lambda q, k, v, causal=True, scale=None:
+        fa.flash_attention_plain(q, k, v, causal=causal, scale=scale))
+    try:
+        _attention_counters(zero=True)
+        _, plain_hidden = run(lists, tokens=toks)
+        n_plain = _attention_counters()
+    finally:
+        att.flash_attention_bthd = kernel_fn
+    if any(n_plain.values()):
+        _fail(f"{tag}: the plain decode launched kernels: {n_plain}")
+    plain_err = max(_rel_err(a, b) for a, b in zip(hidden, plain_hidden))
+    if not plain_err <= FMT_PLAIN_TOL:
+        _fail(f"{tag}: hidden states with row 1 differ from its plain "
+              f"version's by {plain_err} (limit {FMT_PLAIN_TOL})")
+    # the serve's host syncs: the prefill and its 32 steps
+    syncs = _count_syncs(lambda: run(lists, tokens=toks))
+    # (c) bf16: the lists, embeddings and head cast, teacher forced
+    lists16 = _fused_lists(model, torch.bfloat16)
+    bf16 = dict(tokens=toks, dtype=torch.bfloat16)
+    run(lists16, **bf16)                                    # warm-up
+    _attention_counters(zero=True)
+    with _no_plain():
+        _, hidden16 = run(lists16, timer=timer16, **bf16)
+    n16 = _attention_counters()
+    # where a serve's time goes: its busy share and top kernels, each dtype
+    prof = {name: _device_profile(
+        lambda l=l, dt=dt: run(l, tokens=toks, dtype=dt), top=6)
+        for name, l, dt in (("float32", lists, None),
+                            ("bfloat16", lists16, torch.bfloat16))}
+    bf16_err = max(float((a - b).norm() / b.norm())
+                   for a, b in zip(hidden16, hidden))
+    if n16["fwd"] != n_layers * FMT_NEW or not bf16_err <= FMT_BF16_TOL:
+        _fail(f"{tag}: bf16 decode launched {n16}; hidden states "
+              f"{bf16_err} from f32's (limit {FMT_BF16_TOL})")
+    del lists16
+    rows = [_row1_at_tq1(dev, torch.float32), _row1_at_tq1(dev,
+                                                          torch.bfloat16)]
+    wall, wall16 = timer["decode_s"], timer16["decode_s"]
+    step_ms, step16_ms = 1e3 * wall / FMT_NEW, 1e3 * wall16 / FMT_NEW
+    res = dict(
+        model="gpt3-1.3B-en", batch=FMT_B, prompt=FMT_PROMPT, new=FMT_NEW,
+        decode_wall_s=wall, decode_wall_bf16_s=wall16,
+        step_ms=step_ms, step_ms_bf16=step16_ms,
+        tokens_per_s=FMT_B * FMT_NEW / wall,
+        tokens_per_s_bf16=FMT_B * FMT_NEW / wall16,
+        launches=n, launches_by_head_size=by_d, launches_bf16=n16,
+        syncs_per_serve=syncs, peak_memory_bytes=peak, min_top2_gap=gap,
+        plain_rel_err=plain_err, bf16_rel_err=bf16_err, row1_tq1=rows,
+        profile=prof)
+    print(f"[phase 54] gpt3-1.3B-en through fused_multi_transformer, batch "
+          f"{FMT_B}, prompt {FMT_PROMPT}, {FMT_NEW} decode steps: f32 "
+          f"{step_ms:.3f} ms a step ({res['tokens_per_s']:.1f} tokens/s), "
+          f"bf16 {step16_ms:.3f} ms ({res['tokens_per_s_bf16']:.1f} "
+          f"tokens/s); row 1 launched "
+          f"{n['fwd']} times ({by_d}); {syncs} host syncs in the serve "
+          f"(prefill and {FMT_NEW} steps); peak "
+          f"memory {peak} bytes; greedy tokens equal the GPT's, smallest "
+          f"top-1/top-2 gap {gap:.4e}; vs plain row 1 {plain_err:.3e}, bf16 "
+          f"vs f32 {bf16_err:.3e} on {smi}")
+    for dt, p in prof.items():
+        _print_profile(tag, f"one serve ({dt})", p)
+    del model
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _encoder(layers):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    return nn.LayerList([FusedTransformerEncoderLayer(
+        ENC_D, ENC_H, ENC_FFN, dropout_rate=0.0, activation="gelu")
+        for _ in range(layers)])
+
+
+def _encoder_steps(paddle, net, x, y, steps):
+    """``steps`` AdamW steps of ``mean((net(x) - y)^2)`` under
+    ``auto_cast`` bf16: the losses (tensors, no sync)."""
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=net.parameters())
+    losses = []
+    for _ in range(steps):
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            h = x
+            for layer in net:
+                h = layer(h)
+        loss = ((h.float() - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    return losses
+
+
+def phase_fused_encoder(dev, smi, seed):
+    """Sub-phase 54b: 12 ``FusedTransformerEncoderLayer`` s at BERT-base
+    width (768, 12 heads, FFN 3072, gelu, post-LN, dropout 0) under
+    ``auto_cast`` bf16 over f32 weights, batch 32 x 512 of seeded inputs,
+    ``mean((out - y)^2)``, AdamW 1e-4: 1 warm-up and 5 timed steps.
+    Gates: a step launches row 1 and each backward kernel (delta, dk/dv,
+    dq) 12 times, no plain version; losses finite and falling; 2 of the
+    layers on the card (batch 4 x 512) give the CPU copy's first two
+    losses within ``ENC_LOSS_RTOL``.  Printed: ms a step, launches."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    tag = "phase 54b"
+    rs = np.random.RandomState(seed)
+    # parity: the CPU copy's weights carried to the card
+    x = torch.from_numpy(rs.standard_normal(
+        (ENC_PARITY_B, ENC_T, ENC_D)).astype(np.float32))
+    y = torch.from_numpy(rs.standard_normal(x.shape).astype(np.float32))
+    paddle.seed(seed)
+    with torch.device("cpu"):
+        cpu_net = _encoder(ENC_PARITY_LAYERS)
+    with torch.device(dev):
+        card_net = _encoder(ENC_PARITY_LAYERS)
+    card_net.set_state_dict(cpu_net.state_dict())
+    want = [float(v) for v in _encoder_steps(paddle, cpu_net, x, y, 2)]
+    got = [float(v) for v in _encoder_steps(paddle, card_net, x.to(dev),
+                                            y.to(dev), 2)]
+    parity = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not parity <= ENC_LOSS_RTOL:
+        _fail(f"{tag}: card losses {got}, CPU {want} ({parity} relative)")
+    del cpu_net, card_net
+    # the full stack
+    x = torch.from_numpy(rs.standard_normal(
+        (ENC_B, ENC_T, ENC_D)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rs.standard_normal(x.shape).astype(
+        np.float32)).to(dev)
+    with torch.device(dev):
+        net = _encoder(ENC_LAYERS)
+    net.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _attention_counters(zero=True)
+    with _no_plain():
+        losses = _encoder_steps(paddle, net, x, y, 1)          # warm-up
+        n1 = _attention_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += _encoder_steps(paddle, net, x, y, ENC_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = _attention_counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    _falling(tag, losses)
+    per = {k: v for k, v in n.items() if v}
+    want_n = {k: ENC_LAYERS * (1 + ENC_STEPS)
+              for k in ("fwd", "bwd_delta", "bwd_dkv", "bwd_dq")}
+    if per != want_n or n1["fwd"] != ENC_LAYERS:
+        _fail(f"{tag}: flash launches {n}, want {want_n}")
+    res = dict(step_ms=1e3 * wall / ENC_STEPS, launches=n, losses=losses,
+               parity_losses=dict(card=got, cpu=want, rel_err=parity),
+               peak_memory_bytes=peak,
+               tokens_per_s=ENC_B * ENC_T * ENC_STEPS / wall)
+    print(f"[phase 54b] {ENC_LAYERS} FusedTransformerEncoderLayers "
+          f"({ENC_D}, {ENC_H} heads, FFN {ENC_FFN}) under auto_cast bf16, "
+          f"batch {ENC_B} x {ENC_T}: {res['step_ms']:.3f} ms a step "
+          f"({res['tokens_per_s']:.0f} tokens/s), peak memory {peak} bytes; "
+          f"launches {per}; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"2 layers card vs CPU {parity:.3e} relative on {smi}")
+    del net
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _arxiv_like(seed):
+    """A synthetic graph of ogbn-arxiv's size: node features, edges (src,
+    dst), node labels, the CSC (row, colptr) by destination."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((ARXIV_N, ARXIV_F)).astype(np.float32)
+    src = rs.randint(0, ARXIV_N, ARXIV_E).astype(np.int64)
+    dst = rs.randint(0, ARXIV_N, ARXIV_E).astype(np.int64)
+    labels = rs.randint(0, ARXIV_C, ARXIV_N).astype(np.int64)
+    order = np.argsort(dst, kind="stable")
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(
+        dst, minlength=ARXIV_N))]).astype(np.int64)
+    return x, src, dst, labels, src[order], colptr
+
+
+def _sage_loss(x, src, dst, w1, w2, labels):
+    """Two SAGE-style layers (``concat(h, mean of in-neighbours) @ W``,
+    relu between) and the cross entropy over every node."""
+    import torch
+
+    from paddle_tpu_torch import geometric as G
+
+    h = x
+    for i, w in enumerate((w1, w2)):
+        agg = G.send_u_recv(h, src, dst, reduce_op="mean")
+        h = torch.cat([h, agg], -1) @ w
+        if i == 0:
+            h = torch.relu(h)
+    return torch.nn.functional.cross_entropy(h, labels)
+
+
+def phase_message_passing(dev, smi, seed):
+    """Phase 55: ``geometric`` and ``signal`` on the card against the CPU,
+    at ogbn-arxiv's size (169,343 nodes, 1,166,243 edges, 128 features;
+    synthetic from the seed): ``send_u_recv`` (sum with its gradient,
+    mean, max), ``send_ue_recv``, ``send_uv``, the four ``segment_*``
+    over 4096 sorted segments (ids only: one host sync each); a two-layer
+    SAGE-style mean aggregation (hidden 256, 40 classes) forward and
+    backward; ``sample_neighbors`` (1024 seed nodes, fan-out 10) and
+    ``reindex_graph`` on the host, from card tensors; ``stft`` /
+    ``istft`` of 32 clips of 10 s at 16 kHz (n_fft 512, hop 160, Hann).
+    Gates: every output (and gradient) within 1e-4 of the CPU's largest
+    magnitude; the sampled neighbours, counts and reindexing equal the
+    CPU's exactly.  Printed: ms and host syncs a call."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import geometric as G
+    from paddle_tpu_torch import seed as paddle_seed
+    from paddle_tpu_torch import signal as S
+    from paddle_tpu_torch.geometric import sampling
+
+    t_phase = time.perf_counter()
+    x, src, dst, labels, row, colptr = _arxiv_like(seed)
+    rs = np.random.RandomState(seed + 1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    X, SRC, DST = t(x), t(src), t(dst)
+    Y = t(rs.uniform(0.5, 2.0, (ARXIV_E, ARXIV_F)).astype(np.float32))
+    seg = t(np.sort(rs.randint(0, 4096, ARXIV_N)).astype(np.int64))
+    rows = [
+        _op_case(dev, "send_u_recv sum fwd+bwd", lambda a, s, d:
+                 G.send_u_recv(a, s, d, "sum"), (X, SRC, DST),
+                 grad_idx=(0,), seed=seed),
+        _op_case(dev, "send_u_recv mean", lambda a, s, d:
+                 G.send_u_recv(a, s, d, "mean"), (X, SRC, DST)),
+        _op_case(dev, "send_u_recv max", lambda a, s, d:
+                 G.send_u_recv(a, s, d, "max"), (X, SRC, DST)),
+        _op_case(dev, "send_ue_recv mul sum", lambda a, e, s, d:
+                 G.send_ue_recv(a, e, s, d, "mul", "sum"),
+                 (X, Y, SRC, DST)),
+        _op_case(dev, "send_uv add", lambda a, b, s, d:
+                 G.send_uv(a, b, s, d, "add"), (X, X, SRC, DST))]
+    del Y
+    for pool in ("sum", "mean", "max", "min"):
+        rows.append(_op_case(dev, f"segment_{pool}", getattr(
+            G, f"segment_{pool}"), (X, seg)))
+    w1 = t((rs.standard_normal((2 * ARXIV_F, SAGE_HIDDEN))
+            / np.sqrt(2 * ARXIV_F)).astype(np.float32))
+    w2 = t((rs.standard_normal((2 * SAGE_HIDDEN, ARXIV_C))
+            / np.sqrt(2 * SAGE_HIDDEN)).astype(np.float32))
+    rows.append(_op_case(dev, "SAGE 2 layers fwd+bwd", _sage_loss,
+                         (X, SRC, DST, w1, w2, t(labels)), grad_idx=(3, 4),
+                         seed=seed))
+    del X, SRC, DST
+
+    # neighbour sampling on the host, from card tensors and CPU ones
+    seeds = t(rs.choice(ARXIV_N, SAMPLE_SEEDS, replace=False).astype(
+        np.int64))
+
+    def sample(r, c, s):
+        sampling._rng = None          # both sides draw from the same seed
+        paddle_seed(seed)
+        nb, cnt = G.sample_neighbors(r, c, s, sample_size=SAMPLE_FANOUT)
+        return (nb, cnt) + tuple(G.reindex_graph(s, nb, cnt))
+
+    rows.append(_op_case(dev, "sample_neighbors + reindex_graph", sample,
+                         (t(row), t(colptr), seeds), host=True))
+
+    # spectra: 32 clips of 10 s at 16 kHz
+    clips = t(rs.standard_normal((CLIPS, CLIP_S)).astype(np.float32))
+    win = t((0.5 - 0.5 * np.cos(2 * np.pi * np.arange(STFT_NFFT)
+                                / STFT_NFFT)).astype(np.float32))
+
+    def stft(a, w):
+        return S.stft(a, STFT_NFFT, STFT_HOP, window=w)
+
+    rows.append(_op_case(dev, "stft", stft, (clips, win)))
+    spec = stft(clips, win)
+    rows.append(_op_case(dev, "istft", lambda s, w: S.istft(
+        s, STFT_NFFT, STFT_HOP, window=w, length=CLIP_S), (spec, win)))
+    back = S.istft(spec.to(dev), STFT_NFFT, STFT_HOP, window=win.to(dev),
+                   length=CLIP_S)
+    round_trip = float((back.cpu() - clips).abs().max())
+    if not round_trip <= 1e-4:
+        _fail(f"phase 55: istft(stft(x)) is {round_trip} from x")
+    for r in rows:
+        print(f"[phase 55] {r['op']}: card vs CPU {r['rel_err']:.3e} "
+              f"relative, {r['ms']:.3f} ms a call ({r['clock']} clock), "
+              f"{r['syncs']} host syncs a call on {smi}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, stft_round_trip_err=round_trip,
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the measurements as JSON")
@@ -10065,6 +10614,18 @@ def main(argv=None) -> int:
           f"{zoo['phase_s']:.1f} s (zoo) + {det_ops['phase_s']:.1f} s "
           f"(detection ops) + {pipeline['phase_s']:.1f} s (input pipeline) "
           f"of wall time")
+    # entry 12's numeric and incubate modules (phases 54, 54b, 55) follow
+    fused_decode = phase_fused_decode(dev, smi, args.seed + 28)
+    torch.cuda.empty_cache()
+    encoder = phase_fused_encoder(dev, smi, args.seed + 29)
+    torch.cuda.empty_cache()
+    graph_signal = phase_message_passing(dev, smi, args.seed + 30)
+    torch.cuda.empty_cache()
+    print(f"[phases 54-55] {fused_decode['phase_s']:.1f} s (fused decode) + "
+          f"{encoder['phase_s']:.1f} s (fused encoder) + "
+          f"{graph_signal['phase_s']:.1f} s (message passing, spectra) of "
+          f"wall time")
+    n54, n54b = fused_decode["launches"], encoder["launches"]
     # the paged read in the serving profile's window: its kernels' launches
     # and device ms a call (None where the profiler saw no device time)
     prof = serve["profile"]
@@ -10125,7 +10686,9 @@ def main(argv=None) -> int:
                                 "39 surface": n_surface["fwd"],
                                 "40 paddle layers": n_layers["fwd"],
                                 "41 paddle amp": n_amp["fwd"],
-                                "42 fit": n_fit["fwd"]},
+                                "42 fit": n_fit["fwd"],
+                                "54 fused decode": n54["fwd"],
+                                "54b fused encoder": n54b["fwd"]},
              shape="B=4 T=128 H=12 D=64 causal"),
         dict(name="flash_attention_bthd at BERT-base's shape (phase 32)",
              route="cuda",
@@ -10191,7 +10754,9 @@ def main(argv=None) -> int:
                                 "41 paddle amp": n_amp["bwd_delta"]
                                 + n_amp["bwd_dkv"] + n_amp["bwd_dq"],
                                 "42 fit": n_fit["bwd_delta"]
-                                + n_fit["bwd_dkv"] + n_fit["bwd_dq"]}),
+                                + n_fit["bwd_dkv"] + n_fit["bwd_dq"],
+                                "54b fused encoder": n54b["bwd_delta"]
+                                + n54b["bwd_dkv"] + n54b["bwd_dq"]}),
         dict(name="flash_attention_bwd at BERT-base's shape (phase 32; "
                   "delta + dk/dv + dq kernels)",
              route="cuda", source=bwd_src, replaces=f"{fa_py}:371",
@@ -10231,11 +10796,28 @@ def main(argv=None) -> int:
                    if part == "bwd" else {}),
                 shape=f"B=128 T=80 H=8 D={d} bfloat16 full, separate q, k, v",
                 launches_of=f"phase 35: 6 steps, counted at D={d}"))
+    # row 1 at the fused decode step's shape (phase 54), f32 and bf16
+    for r in fused_decode["row1_tq1"]:
+        kernels.append(dict(
+            name=f"flash_attention_bthd at the fused decode step (phase 54, "
+                 f"{r['shape'].split()[-2]})",
+            route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+            replaces=f"{fa_py}:208",
+            launches=(n54["fwd"] if "float32" in r["shape"]
+                      else fused_decode["launches_bf16"]["fwd"]),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], eager_ms=r["eager_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"],
+            launches_of="phase 54: 32 decode steps, 24 a step"))
     kernels += [
-        bwd_row("flash_bwd_dq_kernel", 402, n_att[1100]["bwd_dq"], sep_1100,
-                "dq"),
-        bwd_row("flash_bwd_dkv_kernel", 425, n_att[1100]["bwd_dkv"],
-                sep_1100, "dkv"),
+        dict(bwd_row("flash_bwd_dq_kernel", 402, n_att[1100]["bwd_dq"],
+                     sep_1100, "dq"),
+             launches_by_phase={"54b fused encoder": n54b["bwd_dq"]}),
+        dict(bwd_row("flash_bwd_dkv_kernel", 425, n_att[1100]["bwd_dkv"],
+                     sep_1100, "dkv"),
+             launches_by_phase={"54b fused encoder": n54b["bwd_dkv"]}),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
              replaces="paddle_tpu/kernels/paged_attention.py:281",
@@ -10378,7 +10960,8 @@ def main(argv=None) -> int:
                            moe_serve=moe_serve, dlrm=dlrm,
                            second=second, yolov3=yolo, zoo=zoo,
                            detection_ops=det_ops, input_pipeline=pipeline,
-                           kernels=kernels,
+                           fused_decode=fused_decode, fused_encoder=encoder,
+                           message_passing=graph_signal, kernels=kernels,
                            total_s=time.perf_counter() - t_all), fh,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -44,6 +44,7 @@ This package never imports ``jax`` or ``paddle_tpu``; only the tests
 import both, to hold the port against the reference.
 """
 import contextlib as _contextlib
+import importlib as _importlib
 
 import torch as _torch
 
@@ -66,6 +67,11 @@ from . import callbacks, hapi  # noqa: F401,E402
 from . import (dataset, profiler, quantization, reader,  # noqa: F401,E402
                text)
 from . import compat, flags, hub, sparse, sysconfig, version  # noqa: F401,E402
+from . import fft, geometric, signal  # noqa: F401,E402
+# the star import of ``ops`` bound ``linalg`` to ``ops.linalg``; the
+# package's own ``linalg`` module replaces it (``from . import linalg``
+# would keep the bound attribute)
+linalg = _importlib.import_module(f"{__name__}.linalg")
 from .core.op import apply_op, defop, register_tensor_method  # noqa: F401,E402
 from .flags import get_flags, set_flags  # noqa: F401,E402
 from .batch import batch  # noqa: F401,E402

@@ -29,7 +29,7 @@ from tools import incident_report, journey_report, replay_capture
 from paddle_tpu_torch.models import build_gpt
 from paddle_tpu_torch.observability import journey, slo
 from paddle_tpu_torch.serving import Engine
-from paddle_tpu_torch.serving.gateway import start_gateway
+from paddle_tpu_torch.serving.gateway import TenantConfig, start_gateway
 from paddle_tpu_torch.testing.load_gen import make_trace, replay_http
 
 torch.set_num_threads(1)
@@ -38,6 +38,8 @@ torch.set_num_threads(1)
 # p50 token latency: a card-like pair and a slower, prefill-heavy one
 MEASURED = [{"prefill_s": 0.0123, "token_s": 0.00171},
             {"prefill_s": 0.41, "token_s": 0.023}]
+# the stack's engine queue and tenant FIFO: more than its trace's requests
+HOLD = 64
 BLOCKS = ["_bench_autoscale_curve", "_bench_slo_alerting",
           "_bench_capture_fit"]
 
@@ -71,7 +73,13 @@ def test_capture_gate_fails_where_the_jax_bench_does():
 @pytest.fixture(scope="module")
 def stack(tmp_path_factory):
     """A port gateway on gpt-tiny with the SLO engine on, capturing in
-    shape mode; a burst of requests makes its objective fire."""
+    shape mode; a burst of requests makes its objective fire.
+
+    The engine's queue and tenant ``tools``'s FIFO each hold the whole
+    trace: the replay below sends the capture at 4x, and on a loaded host
+    decode is slow enough that more requests wait at once than a cap of
+    16 (the tenant FIFO's default) admits, and admission would shed the
+    rest with 429s."""
     torch.manual_seed(3)
     model = build_gpt("gpt-tiny", device="cpu", max_position_embeddings=128)
     objective = slo.SloObjective(
@@ -80,15 +88,19 @@ def stack(tmp_path_factory):
         resolve_ticks=2, min_events=3)
     st = start_gateway(
         [Engine(model, paged_kv=True, decode_kernel="pallas",
-                sample_on_device=False, max_slots=2, max_len=64, max_queue=16)],
+                sample_on_device=False, max_slots=2, max_len=64,
+                max_queue=HOLD)],
+        tenants=[TenantConfig("tools", max_queue=HOLD)],
         own_engines=True, slo_objectives=[objective], slo_tick_s=0.1,
         slo_incident_dir=str(tmp_path_factory.mktemp("incidents")),
         capture_mode="shape")
     url = f"http://127.0.0.1:{st.port}"
     trace = make_trace(2.0, 4.0, seed=5, prompt_mean=6.0, out_mean=3.0,
                        prompt_max=16, out_max=6)
+    assert len(trace) <= HOLD
     summary = replay_http(url, trace, vocab=256, seed=5, tenant="tools")
     assert summary["completed"] == len(trace) and summary["errors"] == 0
+    assert summary["shed"] == 0
     deadline = time.time() + 60.0
     while not st.slo_engine.store.list():
         assert time.time() < deadline, "the objective never fired"
@@ -144,7 +156,7 @@ def test_replay_capture_replays_a_shape_mode_capture(stack, monkeypatch,
     assert replay_capture.main() == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["requests"] == n and summary["completed"] == n
-    assert summary["errors"] == 0
+    assert summary["errors"] == 0 and summary["shed"] == 0
 
 
 def test_fleet_memory_cycle_ends_after_the_drained_teardown(monkeypatch):
