@@ -27,7 +27,8 @@ the legacy readers (``paddle.batch``, ``paddle.reader``,
 (``Embedding(sparse=True)``, ``core.selected_rows``) and
 ``paddle.sparse`` (COO / CSR tensors, 3-D sparse convolutions); the
 runtime names (``set_flags`` / ``get_flags``, ``version``, ``sysconfig``,
-``compat``, ``hub``, ``LazyGuard``, ``flops``, the other places).  A
+``compat``, ``hub``, ``LazyGuard``, ``flops``, the other places);
+``paddle.distribution`` and ``paddle.audio``.  A
 ``Tensor`` wraps a ``torch.Tensor`` (``.value``); autograd is torch's.  Without a card the default place raises: CPU
 scripts call ``paddle.set_device("cpu")`` first.
 
@@ -68,6 +69,7 @@ from . import (dataset, profiler, quantization, reader,  # noqa: F401,E402
                text)
 from . import compat, flags, hub, sparse, sysconfig, version  # noqa: F401,E402
 from . import fft, geometric, signal  # noqa: F401,E402
+from . import audio, distribution  # noqa: F401,E402
 # the star import of ``ops`` bound ``linalg`` to ``ops.linalg``; the
 # package's own ``linalg`` module replaces it (``from . import linalg``
 # would keep the bound attribute)

@@ -8,7 +8,8 @@ beside the kernels' builds (``build/`` is not committed), keyed by a
 digest of the source and the flags, so an edit builds anew.  Each
 process writes a temporary file of its own and renames it into place,
 so concurrent first uses (test workers, ranks) are safe.  A missing
-compiler or a failed build raises.
+compiler or a failed build raises.  ``cpp_extension`` builds users' ops
+the same way, into ``build_dir`` when it is given.
 """
 from __future__ import annotations
 
@@ -23,15 +24,22 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
+def get_build_directory() -> str:
+    """The directory the native builds go to (``BUILD_ROOT``)."""
+    return str(BUILD_ROOT)
+
+
 def build_native_lib(src_path: str, so_name: str,
-                     extra_flags: tuple = ()) -> str:
-    """Compile ``src_path`` into ``<BUILD_ROOT>/<digest>/<so_name>`` (once
-    per digest); returns the library's path."""
+                     extra_flags: tuple = (),
+                     build_dir: str | None = None) -> str:
+    """Compile ``src_path`` into ``<build_dir>/<digest>/<so_name>`` (once
+    per digest; ``build_dir`` defaults to ``BUILD_ROOT``); returns the
+    library's path."""
     cxx = os.environ.get("CXX", "g++")
     flags = (*CXX_FLAGS, *extra_flags)
     h = hashlib.sha256(Path(src_path).read_bytes())
     h.update(" ".join((cxx, *flags)).encode())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    out_dir = Path(build_dir or BUILD_ROOT) / h.hexdigest()[:16]
     so = out_dir / so_name
     if so.exists():
         return str(so)

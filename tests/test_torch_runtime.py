@@ -25,15 +25,12 @@ NOT_PORTED = {
     "jax", "jnp", "lax", "np", "to_jax", "rnd", "annotations",
     # entry 11 (distributed)
     "DataParallel", "parallel",
-    # entry 12 (numeric, program, export and tooling modules)
-    "audio", "cost_model", "distribution", "inference", "jit", "onnx",
-    "static",
+    # entry 12's programs and export (ROADMAP section 1)
+    "cost_model", "inference", "jit", "onnx", "static",
 }
 
-# public names of paddle_tpu.incubate the port does not have yet: entry
-# 12's second half (ROADMAP section 1)
-INCUBATE_NOT_PORTED = {"asp", "autograd", "autotune", "multiprocessing",
-                       "passes"}
+# public names of paddle_tpu.incubate the port does not have: none
+INCUBATE_NOT_PORTED = set()
 
 
 def test_the_top_level_gap_is_the_listed_names():
@@ -47,7 +44,7 @@ def test_the_top_level_gap_is_the_listed_names():
         capture_output=True, text=True, timeout=300, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == \
         sorted(NOT_PORTED)
-    assert len(NOT_PORTED) == 16
+    assert len(NOT_PORTED) == 14
 
 
 def _public(mod):
@@ -63,6 +60,19 @@ def test_linalg_has_every_name_of_the_jax_linalg():
     assert plinalg.inv is plinalg.inverse
     for n in ("inv", "lu", "lu_unpack", "cond"):
         assert callable(getattr(plinalg, n)), n
+
+
+def test_utils_names_equal_jax():
+    # in a fresh interpreter, as the top-level gap
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, paddle_tpu.utils as a, paddle_tpu_torch.utils as b; "
+         "pub = lambda m: {n for n in dir(m) if not n.startswith('_')}; "
+         "print(json.dumps([sorted(pub(a) - pub(b)), "
+         "sorted(pub(b) - pub(a))]))"],
+        capture_output=True, text=True, timeout=300, check=True)
+    missing, extra = json.loads(out.stdout.strip().splitlines()[-1])
+    assert missing == [] and extra == []
 
 
 def test_incubate_names_equal_jax_but_the_listed_remainder():
